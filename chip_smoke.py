@@ -3,21 +3,31 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) if it fails:
-  1. build: nvcc compiles every coocc_tpu_torch/csrc/*.cu for sm_90a;
+  1. build: nvcc compiles every coocc_tpu_torch/csrc/*.cu for sm_90a, one
+     process per source, all at once;
   2. main path: the flagship eval forward (coocc_multi_r50_256x704, fp32,
-     B=1, seeded random weights) through coocc_tpu_torch.entry.entry(),
-     warmed up once, then 3 requests (synthetic batches of seeds 0, 1, 2)
-     with the kernels' launch counts read around them; per-request and
-     per-stage (stop_at prefixes) times and peak memory;
-  3. kernels against their plain PyTorch versions on the card, at the main
-     path's shapes (and a ragged one), exact for the integer window-KNN;
-  4. the tiny config on the card against the same model on the CPU (the
-     route the tests hold against the JAX package), atol=rtol=5e-3.
+     B=1, seeded random weights, the default z-packed LiDAR encoder) through
+     coocc_tpu_torch.entry.entry(), warmed up once, then 3 requests
+     (synthetic batches of seeds 0, 1, 2) with the kernels' launch counts
+     read around them (per request: window_knn 2, subm_ext_conv 13, knn2
+     0); per-request and per-stage (stop_at prefixes) times, peak memory,
+     and a torch.profiler breakdown of device time by kernel (full forward
+     and pts stage) with the device's busy share;
+  3. dense path: the same weights with pts.impl="dense"; its pts prefix
+     and request times and profile, and the packed encoder's pts_voxel
+     held against the dense one at flagship shapes;
+  4. kernels against their plain PyTorch versions on the card, at the main
+     path's shapes (and ragged ones), with times, bounds and library calls:
+     window_knn (exact), subm_ext_conv (fp32 and bf16 inputs), knn2 (exact
+     on integer cell coordinates, by distance on floats);
+  5. the tiny config on the card against the same model on the CPU (the
+     route the tests hold against the JAX package), dense and packed.
 Prints the card, the kernels' JSON line and, last, the result line. Needs a
 CUDA card and the repository around it; it imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -28,7 +38,22 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 TOL = dict(atol=5e-3, rtol=5e-3)
+# packed vs dense pts_voxel, as fractions of max |dense|: the packed
+# encoder's nine SubM layers round their operands to bf16 (K2), the dense
+# one stays fp32, and the roundings compound layer over layer. On the tiny
+# config (CPU) the two differ by 2.2% at most; the JAX kernel route differs
+# from the JAX fp32 route by 1.4-2.2% there (tests/test_torch_packed_
+# encoder.py). A fault in the encoder's wiring moves outputs by O(1).
+PACKED_VS_DENSE_MAX = 5e-2
+PACKED_VS_DENSE_MEAN = 2e-3
+# K2 against its plain version: both sum the same exact bf16 products in
+# fp32, in other orders (K = 9*(pC+2C) <= 3456 terms): fp32 outputs within
+# 2e-5 of the scale; bf16 outputs within one bf16 ulp (the two fp32 sums
+# may straddle a rounding boundary).
+K2_FP32_REL = 2e-5
+BF16_ULP_REL = 2.0 ** -7
 
 
 def log(*a):
@@ -66,6 +91,18 @@ def timed_ms(fn, reps: int, setup=None):
     return statistics.median(times)
 
 
+def host_ms(fn, inputs):
+    """Median host ms of fn(x) over `inputs`, each ending in a sync."""
+    ts = []
+    for x in inputs:
+        sync()
+        t0 = time.perf_counter()
+        fn(x)
+        sync()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
 def check_outputs(out, cfg):
     import torch
     X, Y, Z = cfg.lss_grid_size
@@ -84,14 +121,20 @@ def check_outputs(out, cfg):
         raise AssertionError("the cascade refined no cell")
 
 
+PER_REQUEST = {"window_knn": 2, "subm_ext_conv": 13, "knn2": 0}
+
+
 def phase_main_path(kernels):
     import torch
     from coocc_tpu_torch.data.synthetic import synthetic_batch
     from coocc_tpu_torch.entry import entry
     from coocc_tpu_torch.models.coocc_ray import STAGES
+    from coocc_tpu_torch.nn.sparse_enc_packed import PackedLiDAREnc8x
 
     model, (batch,) = entry("cuda")
     cfg = model.cfg
+    if type(model.pts_middle_encoder) is not PackedLiDAREnc8x:
+        raise AssertionError("the flagship does not run the packed encoder")
     model(batch)  # warm-up: cuDNN algorithm selection, allocator
     sync()
     requests = [synthetic_batch(cfg, batch_size=1, seed=s).to("cuda")
@@ -109,9 +152,9 @@ def phase_main_path(kernels):
         req_ms.append((time.perf_counter() - t0) * 1e3)
         check_outputs(out, cfg)
         grew = {n: k.launches - before[n] for n, k in kernels.items()}
-        if grew["window_knn"] != 2:
-            raise AssertionError(f"request {i}: window_knn launched "
-                                 f"{grew['window_knn']} times, not 2")
+        if grew != PER_REQUEST:
+            raise AssertionError(f"request {i}: launches {grew}, want "
+                                 f"{PER_REQUEST}")
         log(f"request {i} (seed {i}): {req_ms[-1]:.3f} ms, "
             f"fine_valid {int(out['fine_valid'].sum())}, "
             f"fine_overflow {int(out['fine_overflow'].sum())}")
@@ -124,23 +167,105 @@ def phase_main_path(kernels):
 
     prefix = {}
     for stop in STAGES + (None,):
-        ts = []
-        for b in requests:
-            sync()
-            t0 = time.perf_counter()
-            model(b, stop_at=stop)
-            sync()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        prefix[stop or "full"] = statistics.median(ts)
+        prefix[stop or "full"] = host_ms(lambda b: model(b, stop_at=stop),
+                                         requests)
     prev = 0.0
     for name, t in prefix.items():
         log(f"stage {name:6s}: prefix {t:9.3f} ms, marginal {t - prev:9.3f}"
             " ms")
         prev = t
+    log("profile, full forward (device time by kernel):")
+    device_breakdown(model, requests, 15)
+    log("profile, pts stage (voxelize + packed encoder, device time by "
+        "kernel):")
+    device_breakdown(pts_stage(model), requests, 12)
     pts = model(requests[0], stop_at="pts")
     masks = {"img": pts["img_voxel"][0].abs().sum(-1) != 0,
              "pts": pts["pts_voxel"][0].abs().sum(-1) != 0}
-    return model, launches, masks
+    return model, requests, launches, masks
+
+
+def pts_stage(model):
+    """The model's pts stage alone (voxelize + LiDAR encoder) on a batch."""
+    import torch
+
+    def run(batch):
+        with torch.no_grad():
+            return model._pts_voxels(batch)
+    return run
+
+
+def device_breakdown(fn, inputs, top: int):
+    """torch.profiler over fn(x) for each input: device time by kernel name
+    (ms per input, the `top` largest) and the device's busy share of the
+    host wall time. Kernels run on one stream, so their times add up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x in inputs:
+            fn(x)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name[:70]
+            by_name[name] = by_name.get(name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    if busy == 0:
+        log("profiler: no device time recorded (not measured)")
+        return
+    n = len(inputs)
+    log(f"  wall {wall / n:.3f} ms per input, device busy {busy / n:.3f} ms "
+        f"({100 * busy / wall:.1f}%), {len(by_name)} kernel names")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"  {ms / n:9.3f} ms  {100 * ms / busy:5.1f}%  {name}")
+
+
+def phase_dense_path(model, requests):
+    """The same weights with pts.impl="dense": its times, and the packed
+    pts_voxel against the dense one at flagship shapes."""
+    import torch
+    from coocc_tpu_torch.models.coocc_ray import CoOccRay
+    from coocc_tpu_torch.nn.sparse_enc_dense import DenseLiDAREnc8x
+    cfg = model.cfg
+    dense = CoOccRay(dataclasses.replace(cfg, pts=dataclasses.replace(
+        cfg.pts, impl="dense"))).eval().to("cuda")
+    dense.load_state_dict(model.state_dict(), strict=True)
+    if type(dense.pts_middle_encoder) is not DenseLiDAREnc8x:
+        raise AssertionError("pts.impl='dense' did not give the dense twin")
+    dense(requests[0])  # warm-up
+    sync()
+    pts_ms = host_ms(lambda b: dense(b, stop_at="pts"), requests)
+    img_ms = host_ms(lambda b: dense(b, stop_at="img"), requests)
+    full_ms = host_ms(dense, requests)
+    log(f"dense path: request median {full_ms:.3f} ms, pts prefix "
+        f"{pts_ms:.3f} ms (pts marginal {pts_ms - img_ms:.3f} ms)")
+    log("profile, dense pts stage (voxelize + dense encoder, device time "
+        "by kernel):")
+    device_breakdown(pts_stage(dense), requests, 8)
+    worst = (0.0, 0.0)
+    for i, b in enumerate(requests):
+        d = dense(b, stop_at="pts")["pts_voxel"]
+        p = model(b, stop_at="pts")["pts_voxel"]
+        scale = float(d.abs().max())
+        err = (p - d).abs()
+        rel_max, rel_mean = float(err.max()) / scale, \
+            float(err.mean()) / scale
+        log(f"packed vs dense pts_voxel, request {i}: max_abs_err "
+            f"{float(err.max()):.6g}, scale max|dense| {scale:.6g}, max "
+            f"{rel_max:.6g} and mean {rel_mean:.6g} of the scale "
+            f"(bounds {PACKED_VS_DENSE_MAX}, {PACKED_VS_DENSE_MEAN})")
+        if not (scale > 0 and rel_max <= PACKED_VS_DENSE_MAX
+                and rel_mean <= PACKED_VS_DENSE_MEAN):
+            raise AssertionError("packed pts_voxel differs from dense")
+        worst = (max(worst[0], rel_max), max(worst[1], rel_mean))
+    del dense
+    return worst
 
 
 def phase_window_knn(model, masks, launches):
@@ -222,30 +347,271 @@ def phase_window_knn(model, masks, launches):
             "library_ms": None}
 
 
+def k2_main_path_shapes(model, batch):
+    """The (x shape, C) of every subm_ext_conv call of one pts prefix, read
+    by wrapping the encoder's reference to the wrapper for one run."""
+    from coocc_tpu_torch.nn import sparse_enc_packed
+    calls = []
+    inner = sparse_enc_packed.subm_ext_conv
+
+    def record(x_pb, w_ext, bz, C):
+        calls.append((tuple(x_pb.shape), C, w_ext.shape[-1], x_pb.dtype))
+        return inner(x_pb, w_ext, bz, C)
+
+    sparse_enc_packed.subm_ext_conv = record
+    try:
+        model(batch, stop_at="pts")
+    finally:
+        sparse_enc_packed.subm_ext_conv = inner
+    return calls
+
+
+def phase_subm_conv(model, requests, launches):
+    """K2 against its plain version on the card at the main path's three
+    level shapes (res3 covers conv_out) and a ragged one, fp32 and bf16
+    inputs; times per forward weighted by the main path's launches."""
+    import torch
+    import torch.nn.functional as F
+    from coocc_tpu_torch.nn.sparse_enc_packed import subm_ext_weight
+    from coocc_tpu_torch.ops.subm_conv import (shift_ext, subm_ext_conv,
+                                               subm_ext_conv_plain)
+    calls = k2_main_path_shapes(model, requests[0])
+    levels = {}
+    for shape, C, pCo, dtype in calls:
+        if dtype != torch.float32:
+            raise AssertionError(f"main path K2 input is {dtype}, not fp32")
+        levels.setdefault((shape, C, pCo), 0)
+        levels[(shape, C, pCo)] += 1
+    log(f"subm_ext_conv main-path calls per forward: "
+        f"{[(s, C, pCo, n) for (s, C, pCo), n in levels.items()]}")
+    if len(calls) != PER_REQUEST["subm_ext_conv"]:
+        raise AssertionError(f"{len(calls)} K2 calls in one pts prefix")
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def inputs(shape, C, pCo, dtype, n):
+        p = shape[-1] // C
+        w27 = torch.randn(27, C, pCo // p, generator=gen, device="cuda") \
+            / (27 * C) ** 0.5
+        w = subm_ext_weight(w27, p)
+        xs = []
+        for _ in range(n):
+            x = torch.randn(shape, generator=gen, device="cuda")
+            keep = torch.rand(shape, generator=gen, device="cuda") < 0.3
+            xs.append((x * keep).to(dtype))
+        return xs, w
+
+    cases = [(s, C, pCo, f"main path x{n}") for (s, C, pCo), n in
+             levels.items()]
+    cases.append(((2, 3, 37, 29, 128), 64, 128, "ragged B=2, p=2"))
+    max_err = 0.0
+    for shape, C, pCo, name in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            (x,), w = inputs(shape, C, pCo, dtype, 1)
+            got = subm_ext_conv(x, w, shape[1], C).float()
+            ref = subm_ext_conv_plain(x, w, shape[1], C).float()
+            sync()
+            scale = float(ref.abs().max())
+            err = (got - ref).abs()
+            if dtype == torch.float32:
+                ok = float(err.max()) <= K2_FP32_REL * scale
+                max_err = max(max_err, float(err.max()))
+            else:
+                ulp = BF16_ULP_REL * torch.maximum(got.abs(), ref.abs())
+                ok = bool((err <= ulp + 1e-6 * scale).all())
+            log(f"subm_ext_conv vs plain [{name} {shape} C={C} "
+                f"{str(dtype)[6:]}]: max_abs_err {float(err.max()):.6g}, "
+                f"scale {scale:.6g}")
+            if not (ok and scale > 0):
+                raise AssertionError(f"subm_ext_conv differs: {name} {dtype}")
+
+    # times at the main path's shapes (fp32), each repeat on its own input
+    kernel = plain = library = concat = 0.0
+    ops = nbytes = 0
+    for (shape, C, pCo), n in levels.items():
+        reps = 5
+        xs, w = inputs(shape, C, pCo, torch.float32, reps)
+        bz = shape[1]
+        G, X, Y = shape[0] * bz, shape[2], shape[3]
+        E = shape[-1] + 2 * C
+        k_ms = timed_ms(lambda x: subm_ext_conv(x, w, bz, C), reps,
+                        lambda i: (xs[i],))
+        p_ms = timed_ms(lambda x: subm_ext_conv_plain(x, w, bz, C), 3,
+                        lambda i: (xs[i],))
+        # library: cuDNN bf16 conv2d of the pre-concatenated extended input
+        xb = [x.to(torch.bfloat16) for x in xs]
+        exts = [shift_ext(x, C).reshape(G, X, Y, E).permute(0, 3, 1, 2)
+                for x in xb]
+        wb = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        F.conv2d(exts[0], wb, padding=1)
+        l_ms = timed_ms(lambda e: F.conv2d(e, wb, padding=1), reps,
+                        lambda i: (exts[i],))
+        c_ms = timed_ms(lambda x: shift_ext(x, C), reps, lambda i: (xb[i],))
+        del xs, xb, exts
+        lvl_ops = 2 * G * X * Y * 9 * E * pCo
+        lvl_bytes = 4 * G * X * Y * (shape[-1] + pCo) + 2 * 9 * E * pCo
+        log(f"subm_ext_conv {shape} C={C} x{n}: kernel {k_ms:.4f} ms "
+            f"({lvl_ops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
+            f"cuDNN bf16 on the concatenated input {l_ms:.4f} ms, the "
+            f"bf16 concat {c_ms:.4f} ms")
+        kernel += n * k_ms
+        plain += n * p_ms
+        library += n * l_ms
+        concat += n * c_ms
+        ops += n * lvl_ops
+        nbytes += n * lvl_bytes
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"subm_ext_conv per forward: kernel {kernel:.4f} ms, plain "
+        f"{plain:.4f} ms, cuDNN bf16 {library:.4f} ms (+ concat "
+        f"{concat:.4f} ms, not in library_ms); bound {ops} FLOP -> "
+        f"{ops_ms:.4f} ms, {nbytes} bytes -> {bytes_ms:.4f} ms")
+    return {"name": "subm_ext_conv", "route": "cuda",
+            "source": "coocc_tpu_torch/csrc/subm_conv.cu",
+            "replaces": "coocc_tpu/ops/pallas/subm_conv.py:53",
+            "launches": launches["subm_ext_conv"], "max_abs_err": max_err,
+            "ms": kernel, "plain_ms": plain,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library}
+
+
+def phase_knn2(masks, launches):
+    """K3 against its plain version: queries the active image cells of the
+    main path's fuser grid, keys its active LiDAR cells (integer
+    coordinates: exact), and a random-float case (by distance, to
+    1e-4 as tests/test_pallas_knn.py compares)."""
+    import torch
+    from coocc_tpu_torch.ops.knn import knn2, knn2_plain
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    thresh = 13.3
+
+    def cells(m):
+        return torch.nonzero(m).float()
+
+    q, k = cells(masks["img"]), cells(masks["pts"])
+    qm = torch.ones(len(q), dtype=torch.bool, device="cuda")
+    km = torch.ones(len(k), dtype=torch.bool, device="cuda")
+    idx, dist = knn2(q, k, qm, km, thresh)
+    ref_idx, ref_dist = knn2_plain(q, k, qm, km, thresh)
+    sync()
+    if not (torch.equal(idx, ref_idx) and torch.equal(dist, ref_dist)):
+        raise AssertionError("knn2 differs from plain on cell coordinates")
+    log(f"knn2 vs plain [main path cells: {len(q)} image-cell queries, "
+        f"{len(k)} LiDAR-cell keys]: idx and dist equal, "
+        f"{int((idx >= 0).sum())} neighbours within {thresh}")
+
+    Qf, Kf = 20000, 30000
+    qf = torch.rand(Qf, 3, generator=gen, device="cuda") * 100
+    kf = torch.rand(Kf, 3, generator=gen, device="cuda") * 100
+    qmf = torch.rand(Qf, generator=gen, device="cuda") > 0.1
+    kmf = torch.rand(Kf, generator=gen, device="cuda") > 0.1
+    idx, _ = knn2(qf, kf, qmf, kmf, thresh)
+    ref_idx, _ = knn2_plain(qf, kf, qmf, kmf, thresh)
+
+    def d_of(i):
+        d = (kf[i.clamp(min=0).long()] - qf[:, None]).norm(dim=-1)
+        return torch.where(i >= 0, d, float("inf"))
+
+    a, b = d_of(idx), d_of(ref_idx)
+    both = torch.isfinite(a) & torch.isfinite(b)
+    float_err = float((a[both] - b[both]).abs().max()) if bool(
+        both.any()) else 0.0
+    sync()
+    log(f"knn2 vs plain [random floats {Qf}x{Kf}]: distance max_abs_err "
+        f"{float_err:.6g}, same validity {torch.equal(idx >= 0, ref_idx >= 0)}"
+        f", idx equal {torch.equal(idx, ref_idx)}")
+    tol_ok = bool(((a[both] - b[both]).abs()
+                   <= 1e-4 + 1e-4 * b[both]).all())
+    if not (torch.equal(torch.isfinite(a), torch.isfinite(b)) and tol_ok):
+        raise AssertionError("knn2 differs from plain on random floats")
+
+    # times on the cell case, each repeat on its own masks (the real ones
+    # with 0.1% of the cells flipped)
+    reps = 10
+    variants = []
+    for _ in range(reps):
+        pair = []
+        for key in ("img", "pts"):
+            flip = torch.rand(masks[key].shape, generator=gen,
+                              device="cuda") < 1e-3
+            pts = cells(masks[key] ^ flip)
+            pair += [pts, torch.ones(len(pts), dtype=torch.bool,
+                                     device="cuda")]
+        variants.append(pair)
+
+    def run(fn):
+        return lambda qv, qmv, kv, kmv: fn(qv, kv, qmv, kmv, thresh)
+
+    def library(qv, qmv, kv, kmv):
+        d = torch.cdist(qv, kv)
+        d = d.masked_fill(~kmv[None], float("inf"))
+        return d.topk(2, dim=1, largest=False)
+
+    k_ms = timed_ms(run(knn2), reps, lambda i: variants[i])
+    p_ms = timed_ms(run(knn2_plain), 3, lambda i: variants[i])
+    library(*variants[0])
+    l_ms = timed_ms(library, reps, lambda i: variants[i])
+    Q, K = len(q), len(k)
+    ops_ms = 8 * Q * K / FP32_OPS_PER_S * 1e3
+    bytes_ms = (13 * Q + 13 * K + 16 * Q) / HBM_BYTES_PER_S * 1e3
+    log(f"knn2 ms: kernel {k_ms:.4f}, plain {p_ms:.3f}, torch.cdist + topk "
+        f"{l_ms:.4f}; bound {8 * Q * K} operations -> {ops_ms:.6f} ms, "
+        f"{13 * Q + 13 * K + 16 * Q} bytes -> {bytes_ms:.6f} ms")
+    return {"name": "knn2", "route": "cuda",
+            "source": "coocc_tpu_torch/csrc/knn.cu",
+            "replaces": "coocc_tpu/ops/pallas/knn.py:29",
+            "launches": launches["knn2"], "max_abs_err": float_err,
+            "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": l_ms}
+
+
 def phase_tiny_agreement():
+    """The tiny config on the card against the CPU, with the dense encoder
+    (fp32 throughout: 5e-3) and the default packed one (full outputs at
+    5e-3; pts_voxel at the bf16 bounds above, K2's roundings on the two
+    devices compounding apart)."""
     import numpy as np
     from coocc_tpu_torch.data.synthetic import synthetic_batch, tiny_config
     from coocc_tpu_torch.entry import build_model
-    cfg = tiny_config()
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        model = build_model(cfg, dev, seed=7)
-        out = model(synthetic_batch(cfg, batch_size=1, seed=3).to(dev))
-        outs[dev] = {k: v.cpu().numpy() for k, v in out.items()}
-    a, b = outs["cpu"], outs["cuda"]
-    np.testing.assert_allclose(b["occ"], a["occ"], **TOL)
+    for impl in ("dense", "auto"):
+        cfg = tiny_config()
+        cfg = dataclasses.replace(cfg, pts=dataclasses.replace(cfg.pts,
+                                                               impl=impl))
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, dev, seed=7)
+            batch = synthetic_batch(cfg, batch_size=1, seed=3).to(dev)
+            out = dict(model(batch))
+            out["pts_voxel"] = model(batch, stop_at="pts")["pts_voxel"]
+            outs[dev] = {k: v.cpu().numpy() for k, v in out.items()}
+        a, b = outs["cpu"], outs["cuda"]
+        np.testing.assert_allclose(b["occ"], a["occ"], **TOL)
 
-    def by_coord(o):
-        return {tuple(c): l for c, l, v in zip(
-            o["fine_coords"][0], o["fine_logits"][0], o["fine_valid"][0])
-            if v}
-    fa, fb = by_coord(a), by_coord(b)
-    if set(fa) != set(fb):
-        raise AssertionError("tiny: refined cells differ between cpu and cuda")
-    for c in fa:
-        np.testing.assert_allclose(fb[c], fa[c], **TOL)
-    log(f"tiny config cuda vs cpu: occ and {len(fa)} fine rows agree "
-        f"(atol=rtol=5e-3)")
+        def by_coord(o):
+            return {tuple(c): l for c, l, v in zip(
+                o["fine_coords"][0], o["fine_logits"][0],
+                o["fine_valid"][0]) if v}
+        fa, fb = by_coord(a), by_coord(b)
+        if set(fa) != set(fb):
+            raise AssertionError(f"tiny {impl}: refined cells differ "
+                                 "between cpu and cuda")
+        for c in fa:
+            np.testing.assert_allclose(fb[c], fa[c], **TOL)
+        scale = np.abs(a["pts_voxel"]).max()
+        err = np.abs(b["pts_voxel"] - a["pts_voxel"])
+        if impl == "dense":
+            np.testing.assert_allclose(b["pts_voxel"], a["pts_voxel"], **TOL)
+        elif not (err.max() <= PACKED_VS_DENSE_MAX * scale
+                  and err.mean() <= PACKED_VS_DENSE_MEAN * scale):
+            raise AssertionError(f"tiny packed pts_voxel: cuda vs cpu "
+                                 f"{err.max()} (scale {scale})")
+        log(f"tiny config ({impl} encoder) cuda vs cpu: occ and {len(fa)} "
+            f"fine rows agree (atol=rtol=5e-3); pts_voxel max_abs_err "
+            f"{err.max():.6g}, mean {err.mean():.6g}, scale {scale:.6g}")
 
 
 def main():
@@ -255,7 +621,9 @@ def main():
               "needs a CUDA card", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, ROOT)
-    from coocc_tpu_torch.ops._build import kernel_names, load_kernel_library
+    from coocc_tpu_torch.ops._build import load_all_kernel_libraries
+    from coocc_tpu_torch.ops.knn import knn2
+    from coocc_tpu_torch.ops.subm_conv import subm_ext_conv
     from coocc_tpu_torch.ops.window_knn import window_knn
 
     card = card_line()
@@ -267,19 +635,24 @@ def main():
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False (fp32 throughout)")
 
-    for name in kernel_names():
-        t0 = time.perf_counter()
-        load_kernel_library(name)
-        log(f"build csrc/{name}.cu: {time.perf_counter() - t0:.2f} s "
-            "(nvcc, sm_90a)")
+    for name, secs in sorted(load_all_kernel_libraries().items()):
+        log(f"build csrc/{name}.cu: {secs:.2f} s (nvcc, sm_90a, in "
+            "parallel)")
 
-    kernels = {"window_knn": window_knn}
-    model, launches, masks = phase_main_path(kernels)
-    if any(n == 0 for n in launches.values()):
+    kernels = {"window_knn": window_knn, "subm_ext_conv": subm_ext_conv,
+               "knn2": knn2}
+    model, requests, launches, masks = phase_main_path(kernels)
+    if any(launches[n] == 0 for n, per in PER_REQUEST.items() if per):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
-    rows = [phase_window_knn(model, masks, launches)]
-    del model
+    log("knn2 has no caller on the main path (none in the JAX package "
+        "either): 0 launches per forward; its entry point is knn2()")
+    phase_dense_path(model, requests)
+    rows = [phase_window_knn(model, masks, launches),
+            phase_subm_conv(model, requests, launches),
+            phase_knn2(masks, launches)]
+    del model, requests
+    torch.cuda.empty_cache()
     phase_tiny_agreement()
 
     log(f"card: {card_line()}")

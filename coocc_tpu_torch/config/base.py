@@ -142,10 +142,10 @@ class PtsBranchConfig:
     max_points: int = 350000            # static capacity for the padded point cloud
     num_point_features: int = 5         # x, y, z, intensity, dt
     encoder: str = "SparseLiDAREnc8x"   # | 'SparseLiDAREnc4x' | 'SparseEncoderHD'
-    # Encoder implementation in the JAX package ('packed' / 'dense' /
-    # 'gather', same parameters). The port has one: the masked dense conv3d
-    # form (coocc_tpu_torch/nn/sparse_enc_dense.py). Kept so the two
-    # packages' configs stay field-for-field equal.
+    # Encoder implementation ('packed' / 'dense' / 'gather', same
+    # parameters); 'auto' is 'packed' for SparseLiDAREnc8x. The port has
+    # 'packed' (nn/sparse_enc_packed.py, without ztap_levels) and 'dense'
+    # (nn/sparse_enc_dense.py); the rest raise NotImplementedError.
     impl: str = "auto"
     ztap_levels: Tuple[int, ...] = ()
     input_channel: int = 4

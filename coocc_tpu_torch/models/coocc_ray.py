@@ -4,7 +4,8 @@ Counterpart of coocc_tpu/models/coocc_ray.py `CoOccRay.__call__(batch,
 train=False)` (reference detectors/coocc_ray.py:31-723):
 
   image branch   ResNet -> SECONDFPN -> DepthNet/LSS splat -> img_voxel
-  lidar branch   occupancy voxelize -> DenseLiDAREnc8x -> pts_voxel
+  lidar branch   occupancy voxelize -> PackedLiDAREnc8x (pts.impl 'auto'
+                 or 'packed'; 'dense' gives DenseLiDAREnc8x) -> pts_voxel
   fusion         BiFuserN grid-space window-KNN fusion
   semantics      CustomResNet3D -> FPN3D -> OccHead (+ cascade)
 
@@ -34,6 +35,7 @@ from ..nn.resnet2d import ResNet
 from ..nn.resnet3d import CustomResNet3D
 from ..nn.second_fpn import SECONDFPN
 from ..nn.sparse_enc_dense import DenseLiDAREnc8x
+from ..nn.sparse_enc_packed import PackedLiDAREnc8x
 from ..ops.voxelize import voxelize_mask
 
 STAGES = ("img", "pts", "fuse", "sem", "coarse")
@@ -72,6 +74,24 @@ class Batch(NamedTuple):
         return Batch(*(move(a) for a in self))
 
 
+def _lidar_encoder(pts) -> nn.Module:
+    """The encoder `pts.impl` names, resolved as the JAX model resolves it
+    (coocc_tpu/models/coocc_ray.py:130-178): 'auto' is 'packed' for
+    SparseLiDAREnc8x. Both impls have one set of parameters."""
+    if pts.encoder != "SparseLiDAREnc8x":
+        raise NotImplementedError(
+            f"LiDAR encoder {pts.encoder} is not ported")
+    impl = "packed" if pts.impl == "auto" else pts.impl
+    if impl not in ("packed", "dense"):
+        raise NotImplementedError(f"pts.impl={pts.impl!r} is not ported")
+    if impl == "packed" and pts.ztap_levels:
+        raise NotImplementedError(
+            f"pts.ztap_levels={tuple(pts.ztap_levels)} (the z-batch tap "
+            "form) is not ported")
+    cls = PackedLiDAREnc8x if impl == "packed" else DenseLiDAREnc8x
+    return cls(pts.input_channel, pts.base_channel, pts.out_channel)
+
+
 class CoOccRay(nn.Module):
     def __init__(self, cfg: CoOccConfig):
         super().__init__()
@@ -89,12 +109,7 @@ class CoOccRay(nn.Module):
                                       cfg.img_neck.upsample_strides)
             self.img_view_transformer = LSSViewTransformerVoxel(cfg)
         if cfg.use_lidar:
-            if cfg.pts.encoder != "SparseLiDAREnc8x":
-                raise NotImplementedError(
-                    f"LiDAR encoder {cfg.pts.encoder} is not ported")
-            self.pts_middle_encoder = DenseLiDAREnc8x(
-                cfg.pts.input_channel, cfg.pts.base_channel,
-                cfg.pts.out_channel)
+            self.pts_middle_encoder = _lidar_encoder(cfg.pts)
         fz = cfg.fuser
         if fz is not None:
             self.occ_fuser = BiFuserN(

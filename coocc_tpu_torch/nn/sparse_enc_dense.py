@@ -1,8 +1,9 @@
 """Dense masked-conv3d twin of the SparseLiDAREnc8x LiDAR encoder.
 
-Counterpart of coocc_tpu/nn/sparse_enc_dense.py `DenseLiDAREnc8x` (the JAX
-default, `PackedLiDAREnc8x`, has the same parameters and math; the JAX tests
-pin the two equal). spconv's sparse semantics as masked dense convolutions:
+Counterpart of coocc_tpu/nn/sparse_enc_dense.py `DenseLiDAREnc8x`, selected
+by pts.impl="dense"; the default, `PackedLiDAREnc8x` (sparse_enc_packed.py),
+inherits its parameters and computes the same math in z-packed 2D form.
+spconv's sparse semantics as masked dense convolutions:
 
   * inactive cells hold zeros, so a dense conv gives the sparse conv's sums
     at every site;

@@ -1,0 +1,285 @@
+"""Z-packed twin of the SparseLiDAREnc8x LiDAR encoder (the flagship's).
+
+Counterpart of coocc_tpu/nn/sparse_enc_packed.py `PackedLiDAREnc8x`, its
+default (hybrid) route `_forward_packed`. Same parameters as
+`DenseLiDAREnc8x` (the class inherits them, so one state_dict loads into
+either) and the same math, computed so that every convolution is a 2D one:
+
+  * lane-major  [B, X, Y, Z*C]      z-major lanes, for the stem;
+  * packed      [B, bz, X, Y, p*C]  z split into bz packs of p slots
+    (p = the largest divisor of Z with p*C <= 128), lane slot*C + c; the
+    pack index lives in the batch dim.
+
+  * stem: the level-0 collapse (see sparse_enc_dense.py) as ONE stride-2
+    conv2d of the [B, X0, Y0, Z0] mask with a [3, 3, Z0, Z1*C1] weight, the
+    z taps unrolled into it; the active sites by the same conv of the mask
+    with a 0/1 weight (count > 0.5);
+  * SubM 3x3x3 conv: ONE 3x3 conv2d over [p*C core | C up-carry | C
+    dn-carry] lanes with a block-tridiagonal [3, 3, (p+2)*C, p*Co] weight,
+    through kernel K2 (`ops/subm_conv.py:subm_ext_conv`);
+  * strided 3x3x3 conv (down2, down3): a stride-2 conv2d in packed layout
+    with a [3, 3, (p+2)*Ci, p_out*Co] weight, which keeps the pack rows when
+    p == 2*p_out (true at every shipped config);
+  * BatchNorm (running statistics) and the per-cell GroupNorm as per-lane
+    affines tiled p times, times the activity mask.
+
+Numerics: the SubM convolutions take bf16 operands with fp32 sums (K2's, on
+the card and in its plain version alike), everything else is fp32. So in
+fp32 this encoder equals the JAX packed encoder run with COOCC_PALLAS_SUBM
+(its Pallas kernel path), not the JAX pure-fp32 XLA path, and differs from
+`DenseLiDAREnc8x` by the bf16 rounding of the SubM operands.
+
+Not ported: the z-batch tap forms (`ztap_levels`, `zb_down`) and the
+COOCC_STRIDED_MODE=lm|packed variants, among them the lane-major strided
+downsample taken when p != 2*p_out; the model raises for them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.constants import device_constant
+from ..ops.subm_conv import conv2d_nhwc, shift_ext, subm_ext_conv
+from .layers import BatchNorm
+from .sparse_enc_dense import (DenseLiDAREnc8x, SpConvWeight,
+                               per_cell_group_norm)
+
+# ---------------------------------------------------------------------------
+# block weights from [27, Cin, Cout] tap weights, taps kx-major, i.e.
+# w27.reshape(3, 3, 3, ...) is (kx, ky, kz). Each is one gather of a z tap
+# (or of a zero block, index 3) per (input slot, output slot) pair.
+# ---------------------------------------------------------------------------
+
+_ZERO_TAP = 3
+
+
+def tap_weight(conv: SpConvWeight) -> torch.Tensor:
+    """spconv [Cout, kz, ky, kx, Cin] -> [27, Cin, Cout], taps kx-major."""
+    w = conv.weight
+    return w.permute(3, 2, 1, 4, 0).reshape(27, w.shape[4], w.shape[0])
+
+
+def _gather_taps(w27: torch.Tensor, table: np.ndarray) -> torch.Tensor:
+    """[27, Ci, Co] and an [n_in, n_out] table of z taps -> the block
+    weight [3, 3, n_in*Ci, n_out*Co], block (i, o) = w3[:, :, table[i, o]]."""
+    _, Ci, Co = w27.shape
+    w3 = w27.reshape(3, 3, 3, Ci, Co)
+    w3 = torch.cat([w3, torch.zeros_like(w3[:, :, :1])], dim=2)
+    n_in, n_out = table.shape
+    idx = device_constant(table.reshape(-1), w27.device)
+    blocks = w3[:, :, idx].reshape(3, 3, n_in, n_out, Ci, Co)
+    return blocks.permute(0, 1, 2, 4, 3, 5).reshape(3, 3, n_in * Ci,
+                                                    n_out * Co)
+
+
+def _subm_ext_table(p: int) -> np.ndarray:
+    t = np.full((p + 2, p), _ZERO_TAP, np.int64)
+    for zo in range(p):
+        for dz in range(3):
+            zi = zo + dz - 1
+            if 0 <= zi < p:
+                t[zi, zo] = dz
+    t[p, p - 1] = 2      # carry from the next pack's first slot
+    t[p + 1, 0] = 0      # carry from the previous pack's last slot
+    return t
+
+
+def _strided_table(z_in: int) -> np.ndarray:
+    z_out = z_in // 2
+    t = np.full((z_in, z_out), _ZERO_TAP, np.int64)
+    for zo in range(z_out):
+        for dz in range(3):
+            zi = 2 * zo + dz - 1
+            if 0 <= zi < z_in:
+                t[zi, zo] = dz
+    return t
+
+
+def _strided_packed_table(p_in: int, p_out: int) -> np.ndarray:
+    t = np.full((p_in + 2, p_out), _ZERO_TAP, np.int64)
+    for so in range(p_out):
+        for dz in range(3):
+            u = 2 * so + dz - 1
+            if 0 <= u < p_in:
+                t[u, so] = dz
+            elif u == -1:
+                t[p_in + 1, so] = dz   # dn carry
+            elif u == p_in:
+                t[p_in, so] = dz       # up carry
+    return t
+
+
+def subm_ext_weight(w27: torch.Tensor, p: int) -> torch.Tensor:
+    """[27, C, Co] -> [3, 3, (p+2)*C, p*Co] block-tridiagonal + carries."""
+    return _gather_taps(w27, _subm_ext_table(p))
+
+
+def strided_weight(w27: torch.Tensor, z_in: int) -> torch.Tensor:
+    """[27, Ci, Co] -> [3, 3, z_in*Ci, (z_in//2)*Co] for stride-2 z."""
+    return _gather_taps(w27, _strided_table(z_in))
+
+
+def strided_packed_weight(w27: torch.Tensor, p_in: int,
+                          p_out: int) -> torch.Tensor:
+    """[27, Ci, Co] -> [3, 3, (p_in+2)*Ci, p_out*Co]: a stride-2-z conv in
+    packed layout (pack rows kept when p_in == 2*p_out)."""
+    return _gather_taps(w27, _strided_packed_table(p_in, p_out))
+
+
+def _dilation(table: np.ndarray, device) -> torch.Tensor:
+    t = table != _ZERO_TAP
+    return device_constant(np.broadcast_to(t, (3, 3) + t.shape).astype(
+        np.float32), device)
+
+
+def dilate_packed_weight(p_in: int, p_out: int, device="cpu"):
+    """0/1 [3, 3, p_in+2, p_out] mask-dilation weight in packed layout."""
+    return _dilation(_strided_packed_table(p_in, p_out), device)
+
+
+def dilate_weight(z_in: int, device="cpu") -> torch.Tensor:
+    """0/1 [3, 3, z_in, z_in//2] mask-dilation weight (k3 s2 p1)."""
+    return _dilation(_strided_table(z_in), device)
+
+
+# ---------------------------------------------------------------------------
+# layout helpers
+# ---------------------------------------------------------------------------
+
+def pick_pack(C: int, Z: int) -> int:
+    """Largest divisor of Z with p*C <= 128 (pack p z-slots into lanes)."""
+    p = max(1, min(128 // C, Z))
+    while Z % p:
+        p -= 1
+    return p
+
+
+def lm_to_pb(x_lm: torch.Tensor, Z: int, C: int, p: int) -> torch.Tensor:
+    """[B, X, Y, Z*C] -> [B, bz, X, Y, p*C]."""
+    B, X, Y, _ = x_lm.shape
+    return x_lm.reshape(B, X, Y, Z // p, p * C).permute(0, 3, 1, 2, 4)
+
+
+def pb_to_lm(x_pb: torch.Tensor) -> torch.Tensor:
+    """[B, bz, X, Y, p*C] -> [B, X, Y, Z*C]."""
+    B, bz, X, Y, pc = x_pb.shape
+    return x_pb.permute(0, 2, 3, 1, 4).reshape(B, X, Y, bz * pc)
+
+
+def mask_pb(mask_lm: torch.Tensor, p: int) -> torch.Tensor:
+    """[B, X, Y, Z] -> [B, bz, X, Y, p]."""
+    B, X, Y, Z = mask_lm.shape
+    return mask_lm.reshape(B, X, Y, Z // p, p).permute(0, 3, 1, 2, 4)
+
+
+def conv2d_pb(x_pb: torch.Tensor, w: torch.Tensor,
+              stride: int = 1) -> torch.Tensor:
+    """conv2d over the (X, Y) dims of a packed [B, bz, X, Y, L] tensor."""
+    B, bz, X, Y, L = x_pb.shape
+    out = conv2d_nhwc(x_pb.reshape(B * bz, X, Y, L), w, stride)
+    return out.reshape(B, bz, X // stride, Y // stride, -1)
+
+
+def lanes(mask_cells: torch.Tensor, C: int) -> torch.Tensor:
+    """[..., p] cell mask -> [..., p*C] float lane mask (lane slot*C + c)."""
+    return mask_cells.to(torch.float32).repeat_interleave(C, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# packed layers
+# ---------------------------------------------------------------------------
+
+def packed_bn(bn: BatchNorm, x_pb: torch.Tensor,
+              maskf: torch.Tensor) -> torch.Tensor:
+    """Eval BatchNorm of packed lanes: the running-statistics affine tiled
+    p times, times the lane mask."""
+    p = x_pb.shape[-1] // bn.weight.shape[0]
+    inv = (1.0 / torch.sqrt(bn.running_var + bn.eps)) * bn.weight
+    return ((x_pb - bn.running_mean.repeat(p)) * inv.repeat(p)
+            + bn.bias.repeat(p)) * maskf
+
+
+def packed_subm(conv: SpConvWeight, x_pb: torch.Tensor, maskf_out,
+                C_in: int) -> torch.Tensor:
+    """SubM 3x3x3 conv of packed lanes through K2, times the output mask."""
+    p = x_pb.shape[-1] // C_in
+    w_ext = subm_ext_weight(tap_weight(conv), p)
+    return subm_ext_conv(x_pb, w_ext, x_pb.shape[1], C_in) * maskf_out
+
+
+def packed_basic_block(block, x_pb: torch.Tensor, maskf: torch.Tensor,
+                       C: int) -> torch.Tensor:
+    """SparseBasicBlock in packed layout: SubM, BN, ReLU, SubM, BN, + x."""
+    net = block.net
+    y = packed_subm(net[0], x_pb, maskf, C)
+    y = F.relu(packed_bn(net[1], y, maskf))
+    y = packed_subm(net[3], y, maskf, C)
+    y = packed_bn(net[4], y, maskf)
+    return F.relu(y + x_pb) * maskf
+
+
+class PackedLiDAREnc8x(DenseLiDAREnc8x):
+    """[B, X, Y, Z] bool occupancy -> [B, out_channel, X/8, Y/8, Z/8] fp32,
+    with DenseLiDAREnc8x's parameters."""
+
+    def forward(self, occupancy: torch.Tensor) -> torch.Tensor:
+        b = self.conv_input[1].weight.shape[0]
+        B, X0, Y0, Z0 = occupancy.shape
+        mask0f = occupancy.to(torch.float32)
+
+        # level-0 collapse: the stem is relu(gn bias) at active cells, so
+        # down1 is a conv of the mask, its z taps unrolled into the weight
+        stem = F.relu(self.conv_input[1].bias)
+        down = self.conv1[0]
+        w_eff = torch.einsum("kio,i->ko", tap_weight(down[0]),
+                             stem)[:, None, :]                 # [27, 1, 2b]
+        C, Z = 2 * b, Z0 // 2
+        p = pick_pack(C, Z)
+        # one stride-2 conv, the math of JAX's space-to-depth form
+        d_lm = conv2d_nhwc(mask0f, strided_weight(w_eff, Z0), 2)
+        cnt = conv2d_nhwc(mask0f, dilate_weight(Z0, mask0f.device), 2)
+        mask_lm = cnt > 0.5                                    # [B, X, Y, Z]
+        d = lm_to_pb(d_lm, Z, C, p)
+        mf = lanes(mask_pb(mask_lm, p), C)
+        d = F.relu(packed_bn(down[1], d * mf, mf))
+        d = packed_basic_block(self.conv1[1], d, mf, C)
+        d = packed_basic_block(self.conv1[2], d, mf, C)
+
+        for lvl in (2, 3):
+            blocks = getattr(self, f"conv{lvl}")
+            down = blocks[0]
+            C_out = 2 * C
+            p_out = pick_pack(C_out, Z // 2)
+            if p != 2 * p_out:
+                raise NotImplementedError(
+                    f"the lane-major strided downsample (p={p}, "
+                    f"p_out={p_out}) is not ported")
+            # packed stride-2-z downsample: only the dn carry takes part
+            d = conv2d_pb(shift_ext(d, C),
+                          strided_packed_weight(tap_weight(down[0]), p,
+                                                p_out), 2)
+            mpf = mask_pb(mask_lm, p).to(torch.float32)
+            cnt = conv2d_pb(shift_ext(mpf, 1),
+                            dilate_packed_weight(p, p_out, d.device), 2)
+            mcell = cnt > 0.5                         # [B, bz, X, Y, p_out]
+            Z, C, p = Z // 2, C_out, p_out
+            mask_lm = mcell.permute(0, 2, 3, 1, 4).reshape(
+                B, d.shape[2], d.shape[3], Z)
+            mf = lanes(mcell, C)
+            d = F.relu(packed_bn(down[1], d * mf, mf))
+            d = packed_basic_block(blocks[1], d, mf, C)
+            d = packed_basic_block(blocks[2], d, mf, C)
+
+        Co = self.conv_out[1].weight.shape[0]
+        mcell = mask_pb(mask_lm, p)                   # [B, bz, X, Y, p]
+        d = packed_subm(self.conv_out[0], d, lanes(mcell, Co), C)
+        d5 = d.reshape(*d.shape[:-1], p, Co)
+        # each cell normalized over its own channel groups
+        g = per_cell_group_norm(d5.reshape(-1, Co, 1, 1, 1),
+                                self.conv_out[1]).reshape(d5.shape)
+        g = F.relu(g * mcell[..., None].to(g.dtype))
+        # packed [B, bz, X, Y, p, Co] -> [B, Co, X, Y, Z]
+        Bs, bz, Xs, Ys = g.shape[:4]
+        return g.permute(0, 5, 2, 3, 1, 4).reshape(
+            Bs, Co, Xs, Ys, bz * p).contiguous()

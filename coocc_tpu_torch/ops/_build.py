@@ -13,6 +13,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,6 +54,21 @@ def _build(name: str, lib: str) -> None:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(rc {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, lib)
+
+
+def load_all_kernel_libraries() -> Dict[str, float]:
+    """Build (where needed) and load every csrc/*.cu at once, one nvcc per
+    source, all started together. Returns seconds per source, each from
+    the start to its library being loaded."""
+    t0 = time.perf_counter()
+
+    def one(name):
+        load_kernel_library(name)
+        return name, time.perf_counter() - t0
+
+    names = kernel_names()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(pool.map(one, names))
 
 
 def load_kernel_library(name: str) -> ctypes.CDLL:

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ._build import load_kernel_library
+from .constants import device_constant
 
 
 def make_offsets(rx: int, ry: int, rz: int,
@@ -102,14 +103,6 @@ def window_knn_plain(key_mask: torch.Tensor, offsets: np.ndarray,
     return ranks_to_ids(b1, b2, offsets, key_mask.shape)
 
 
-@functools.lru_cache(maxsize=16)
-def _device_offsets(raw: bytes, n: int, device: str) -> torch.Tensor:
-    """The [O, 3] int32 offset list on `device`, copied once per list: a
-    copy from pageable host memory would synchronize every launch."""
-    return torch.frombuffer(bytearray(raw), dtype=torch.int32).reshape(
-        n, 3).to(device)
-
-
 @functools.lru_cache(maxsize=1)
 def _launcher():
     fn = load_kernel_library("window_knn").window_knn_best2
@@ -145,8 +138,7 @@ def window_knn(key_mask: torch.Tensor, offsets: np.ndarray,
     key_mask = key_mask.contiguous()
     X, Y, Z = key_mask.shape
     rx, ry, rz = _radii(offsets)
-    offs = _device_offsets(offsets.tobytes(), len(offsets),
-                           str(key_mask.device))
+    offs = device_constant(offsets, key_mask.device)
     out = torch.empty((X, Y, Z, 2), dtype=torch.int32,
                       device=key_mask.device)
     err = _launcher()(key_mask.data_ptr(), offs.data_ptr(), len(offsets),

@@ -38,7 +38,9 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert "coocc_tpu_torch.ops.window_knn" in mods
+    for m in ("ops.window_knn", "ops.subm_conv", "ops.knn",
+              "nn.sparse_enc_packed"):
+        assert f"coocc_tpu_torch.{m}" in mods
     _run_clean("\n".join(["import coocc_tpu_torch"]
                          + [f"import {m}" for m in mods]))
 
