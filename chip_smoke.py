@@ -18,8 +18,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      held against the dense one at flagship shapes;
   4. kernels against their plain PyTorch versions on the card, at the main
      path's shapes (and ragged ones), with times, bounds and library calls:
-     window_knn (exact), subm_ext_conv (fp32 and bf16 inputs), knn2 (exact
-     on integer cell coordinates, by distance on floats);
+     window_knn (exact), subm_ext_conv (each epilogue mode, fp32 and bf16
+     inputs), knn2 (exact on integer cell coordinates, by distance on
+     floats);
   5. the tiny config on the card against the same model on the CPU (the
      route the tests hold against the JAX package), dense and packed.
 Prints the card, the kernels' JSON line and, last, the result line. Needs a
@@ -49,9 +50,10 @@ TOL = dict(atol=5e-3, rtol=5e-3)
 PACKED_VS_DENSE_MAX = 5e-2
 PACKED_VS_DENSE_MEAN = 2e-3
 # K2 against its plain version: both sum the same exact bf16 products in
-# fp32, in other orders (K = 9*(pC+2C) <= 3456 terms): fp32 outputs within
-# 2e-5 of the scale; bf16 outputs within one bf16 ulp (the two fp32 sums
-# may straddle a rounding boundary).
+# fp32, in other orders (K = 9*(pC+2C) <= 3456 terms): the conv within 2e-5
+# of its scale, carried through the epilogue (phase_subm_conv); bf16
+# outputs within one bf16 ulp more (the two fp32 values may straddle a
+# rounding boundary).
 K2_FP32_REL = 2e-5
 BF16_ULP_REL = 2.0 ** -7
 
@@ -348,15 +350,17 @@ def phase_window_knn(model, masks, launches):
 
 
 def k2_main_path_shapes(model, batch):
-    """The (x shape, C) of every subm_ext_conv call of one pts prefix, read
-    by wrapping the encoder's reference to the wrapper for one run."""
+    """(x shape, p, Co, dtype, epilogue) of every subm_ext_conv call of one
+    pts prefix, read by wrapping the encoder's reference to the wrapper for
+    one run."""
     from coocc_tpu_torch.nn import sparse_enc_packed
     calls = []
     inner = sparse_enc_packed.subm_ext_conv
 
-    def record(x_pb, w_ext, bz, C):
-        calls.append((tuple(x_pb.shape), C, w_ext.shape[-1], x_pb.dtype))
-        return inner(x_pb, w_ext, bz, C)
+    def record(x_pb, w27, p, mcell, bn=None, identity=None):
+        calls.append((tuple(x_pb.shape), p, w27.shape[2], x_pb.dtype,
+                      k2_mode(bn, identity)))
+        return inner(x_pb, w27, p, mcell, bn, identity)
 
     sparse_enc_packed.subm_ext_conv = record
     try:
@@ -366,107 +370,199 @@ def k2_main_path_shapes(model, batch):
     return calls
 
 
+def k2_mode(bn, identity) -> str:
+    return "mask" if bn is None else "bn_relu" if identity is None \
+        else "bn_res_relu"
+
+
+K2_MODES = ("mask", "bn_relu", "bn_res_relu")
+
+
+def k2_work(shape, p, Co, mode):
+    """(useful FLOP, bytes) one K2 call needs: the products of the
+    extended weight's nonzero blocks only (a carry's at every pack but a
+    sample's last or first), each input read once (x, the cell mask, the
+    residual in bn_res_relu, the BN vectors, the weight panels) and the
+    output written once."""
+    from coocc_tpu_torch.ops.subm_conv import KB, kblocks
+    B, bz, X, Y, pC = shape
+    C = pC // p
+    ops = 0
+    for _, dg, _, width in kblocks(p, C, Co):
+        packs = B * (bz if dg == 0 else bz - 1)
+        ops += 2 * 9 * KB * width * packs * X * Y
+    sites = B * bz * X * Y
+    esz = 4  # fp32, the main path's type
+    nbytes = sites * (pC * esz + p * Co * esz + p)
+    nbytes += 2 * 9 * KB * sum(w for *_, w in kblocks(p, C, Co))
+    if mode != "mask":
+        nbytes += 3 * Co * 4
+    if mode == "bn_res_relu":
+        nbytes += sites * p * Co * esz
+    return ops, nbytes
+
+
 def phase_subm_conv(model, requests, launches):
-    """K2 against its plain version on the card at the main path's three
-    level shapes (res3 covers conv_out) and a ragged one, fp32 and bf16
-    inputs; times per forward weighted by the main path's launches."""
+    """K2 against its plain version on the card in every epilogue mode, at
+    the main path's level shapes (res1, res2, res3; conv_out is res3's
+    shape) and two ragged ones, fp32 and bf16 inputs; times per forward
+    weighted by the main path's calls, beside the mask-only mode, the
+    unfused PyTorch epilogue, cuDNN bf16 on the concatenated input and the
+    concat it needs."""
     import torch
     import torch.nn.functional as F
-    from coocc_tpu_torch.nn.sparse_enc_packed import subm_ext_weight
-    from coocc_tpu_torch.ops.subm_conv import (shift_ext, subm_ext_conv,
-                                               subm_ext_conv_plain)
+    from coocc_tpu_torch.ops.subm_conv import (BNAffine, epilogue_plain,
+                                               ext_conv_plain, shift_ext,
+                                               subm_ext_conv,
+                                               subm_ext_conv_plain,
+                                               subm_ext_weight)
     calls = k2_main_path_shapes(model, requests[0])
     levels = {}
-    for shape, C, pCo, dtype in calls:
+    for shape, p, Co, dtype, mode in calls:
         if dtype != torch.float32:
             raise AssertionError(f"main path K2 input is {dtype}, not fp32")
-        levels.setdefault((shape, C, pCo), 0)
-        levels[(shape, C, pCo)] += 1
+        counts = levels.setdefault((shape, p, Co), dict.fromkeys(K2_MODES, 0))
+        counts[mode] += 1
     log(f"subm_ext_conv main-path calls per forward: "
-        f"{[(s, C, pCo, n) for (s, C, pCo), n in levels.items()]}")
+        f"{[(s, p, Co, n) for (s, p, Co), n in levels.items()]}")
     if len(calls) != PER_REQUEST["subm_ext_conv"]:
         raise AssertionError(f"{len(calls)} K2 calls in one pts prefix")
 
     gen = torch.Generator(device="cuda").manual_seed(1)
 
-    def inputs(shape, C, pCo, dtype, n):
-        p = shape[-1] // C
-        w27 = torch.randn(27, C, pCo // p, generator=gen, device="cuda") \
-            / (27 * C) ** 0.5
-        w = subm_ext_weight(w27, p)
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def inputs(shape, p, Co, dtype, n):
+        """n inputs of one shape, with one weight, mask and BatchNorm: x and
+        the residual zero outside 30% of the cells, as the encoder's are."""
+        B, bz, X, Y, pC = shape
+        C = pC // p
+        w27 = randn(27, C, Co) / (27 * C) ** 0.5
+        bn = BNAffine(0.3 * randn(Co), 0.5 + torch.rand(
+            Co, generator=gen, device="cuda"), 0.3 * randn(Co))
         xs = []
         for _ in range(n):
-            x = torch.randn(shape, generator=gen, device="cuda")
-            keep = torch.rand(shape, generator=gen, device="cuda") < 0.3
-            xs.append((x * keep).to(dtype))
-        return xs, w
+            mcell = torch.rand((B, bz, X, Y, p), generator=gen,
+                               device="cuda") < 0.3
+            x = randn(*shape).reshape(B, bz, X, Y, p, C) * mcell[..., None]
+            idn = randn(B, bz, X, Y, p, Co) * mcell[..., None]
+            xs.append((x.reshape(shape).to(dtype), mcell,
+                       idn.reshape(B, bz, X, Y, p * Co).to(dtype)))
+        return xs, w27, bn
 
-    cases = [(s, C, pCo, f"main path x{n}") for (s, C, pCo), n in
-             levels.items()]
-    cases.append(((2, 3, 37, 29, 128), 64, 128, "ragged B=2, p=2"))
+    def args(mode, idn, bn):
+        """(bn, identity) for one epilogue mode."""
+        return (bn if mode != "mask" else None,
+                idn if mode == "bn_res_relu" else None)
+
+    cases = [(s, p, Co, f"main path x{sum(n.values())}") for (s, p, Co), n
+             in levels.items()]
+    cases += [((2, 3, 37, 29, 128), 2, 64, "ragged B=2, p=2"),
+              ((1, 2, 45, 51, 128), 4, 32, "ragged p=4")]
     max_err = 0.0
-    for shape, C, pCo, name in cases:
+    for shape, p, Co, name in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            (x,), w = inputs(shape, C, pCo, dtype, 1)
-            got = subm_ext_conv(x, w, shape[1], C).float()
-            ref = subm_ext_conv_plain(x, w, shape[1], C).float()
-            sync()
-            scale = float(ref.abs().max())
-            err = (got - ref).abs()
-            if dtype == torch.float32:
-                ok = float(err.max()) <= K2_FP32_REL * scale
-                max_err = max(max_err, float(err.max()))
-            else:
-                ulp = BF16_ULP_REL * torch.maximum(got.abs(), ref.abs())
-                ok = bool((err <= ulp + 1e-6 * scale).all())
-            log(f"subm_ext_conv vs plain [{name} {shape} C={C} "
-                f"{str(dtype)[6:]}]: max_abs_err {float(err.max()):.6g}, "
-                f"scale {scale:.6g}")
-            if not (ok and scale > 0):
-                raise AssertionError(f"subm_ext_conv differs: {name} {dtype}")
+            [(x, mcell, idn)], w27, bn = inputs(shape, p, Co, dtype, 1)
+            # the conv's scale, and the BN's gain on its differences
+            conv_scale = float(ext_conv_plain(
+                x.float(), subm_ext_weight(w27, p), shape[1],
+                shape[-1] // p).abs().max())
+            for mode in K2_MODES:
+                a = args(mode, idn, bn)
+                got = subm_ext_conv(x, w27, p, mcell, *a).float()
+                ref = subm_ext_conv_plain(x, w27, p, mcell, *a).float()
+                sync()
+                scale = float(ref.abs().max())
+                gain = 1.0 if mode == "mask" else max(
+                    1.0, float(bn.inv.abs().max()))
+                # the conv's sums differ in order (K2_FP32_REL of its
+                # scale); the epilogue repeats the plain version's rounded
+                # ops in its order, so only that difference, times the
+                # BN's gain, and an ulp of the ops' own roundings remain
+                tol = K2_FP32_REL * conv_scale * gain + 2.0 ** -21 * scale
+                err = (got - ref).abs()
+                if dtype == torch.float32:
+                    ok = float(err.max()) <= tol
+                    max_err = max(max_err, float(err.max()))
+                else:
+                    ulp = BF16_ULP_REL * torch.maximum(got.abs(), ref.abs())
+                    ok = bool((err <= ulp + tol).all())
+                log(f"subm_ext_conv vs plain [{name} {shape} p={p} "
+                    f"{str(dtype)[6:]} {mode}]: max_abs_err "
+                    f"{float(err.max()):.6g}, scale {scale:.6g}, conv scale "
+                    f"{conv_scale:.6g}")
+                if not (ok and scale > 0):
+                    raise AssertionError(
+                        f"subm_ext_conv differs: {name} {dtype} {mode}")
 
     # times at the main path's shapes (fp32), each repeat on its own input
-    kernel = plain = library = concat = 0.0
-    ops = nbytes = 0
-    for (shape, C, pCo), n in levels.items():
-        reps = 5
-        xs, w = inputs(shape, C, pCo, torch.float32, reps)
+    reps = 5
+    kernel = mask_only = unfused = plain = library = concat = 0.0
+    ops = nbytes = full_ops = 0
+    for (shape, p, Co), counts in levels.items():
+        xs, w27, bn = inputs(shape, p, Co, torch.float32, reps)
         bz = shape[1]
         G, X, Y = shape[0] * bz, shape[2], shape[3]
+        C = shape[-1] // p
         E = shape[-1] + 2 * C
-        k_ms = timed_ms(lambda x: subm_ext_conv(x, w, bz, C), reps,
-                        lambda i: (xs[i],))
-        p_ms = timed_ms(lambda x: subm_ext_conv_plain(x, w, bz, C), 3,
-                        lambda i: (xs[i],))
+        n = sum(counts.values())
+        ms = {}
+        for mode in K2_MODES:
+            ms[mode] = timed_ms(
+                lambda x, m, i, mode=mode: subm_ext_conv(
+                    x, w27, p, m, *args(mode, i, bn)), reps,
+                lambda i: xs[i])
+        convs = [subm_ext_conv(x, w27, p, torch.ones_like(m)) for x, m, _ in
+                 xs]
+        e_ms = {mode: timed_ms(
+            lambda c, m, i, mode=mode: epilogue_plain(
+                c, m, *args(mode, i, bn)), reps,
+            lambda i: (convs[i], xs[i][1], xs[i][2])) for mode in K2_MODES}
+        p_ms = {mode: timed_ms(
+            lambda x, m, i, mode=mode: subm_ext_conv_plain(
+                x, w27, p, m, *args(mode, i, bn)), 2,
+            lambda i: xs[i]) for mode in K2_MODES}
         # library: cuDNN bf16 conv2d of the pre-concatenated extended input
-        xb = [x.to(torch.bfloat16) for x in xs]
+        xb = [x.to(torch.bfloat16) for x, _, _ in xs]
         exts = [shift_ext(x, C).reshape(G, X, Y, E).permute(0, 3, 1, 2)
                 for x in xb]
-        wb = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
+        wb = subm_ext_weight(w27, p).to(torch.bfloat16).permute(
+            3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         F.conv2d(exts[0], wb, padding=1)
         l_ms = timed_ms(lambda e: F.conv2d(e, wb, padding=1), reps,
                         lambda i: (exts[i],))
         c_ms = timed_ms(lambda x: shift_ext(x, C), reps, lambda i: (xb[i],))
-        del xs, xb, exts
-        lvl_ops = 2 * G * X * Y * 9 * E * pCo
-        lvl_bytes = 4 * G * X * Y * (shape[-1] + pCo) + 2 * 9 * E * pCo
-        log(f"subm_ext_conv {shape} C={C} x{n}: kernel {k_ms:.4f} ms "
-            f"({lvl_ops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
-            f"cuDNN bf16 on the concatenated input {l_ms:.4f} ms, the "
-            f"bf16 concat {c_ms:.4f} ms")
-        kernel += n * k_ms
-        plain += n * p_ms
+        del xs, xb, exts, convs
+        lvl_ops, _ = k2_work(shape, p, Co, "mask")
+        log(f"subm_ext_conv {shape} p={p} calls {counts}: kernel "
+            + ", ".join(f"{m} {ms[m]:.4f} ms" for m in K2_MODES)
+            + f" ({lvl_ops / ms['mask'] / 1e9:.1f} TFLOP/s useful, mask "
+            f"mode); unfused PyTorch epilogue "
+            + ", ".join(f"{m} {e_ms[m]:.4f}" for m in K2_MODES)
+            + f" ms; plain {p_ms['mask']:.3f} ms (mask); cuDNN bf16 on the "
+            f"concatenated input {l_ms:.4f} ms, the bf16 concat {c_ms:.4f} "
+            "ms")
+        for mode, k in counts.items():
+            kernel += k * ms[mode]
+            unfused += k * e_ms[mode]
+            plain += k * p_ms[mode]
+            o, b = k2_work(shape, p, Co, mode)
+            ops += k * o
+            nbytes += k * b
+        mask_only += n * ms["mask"]
         library += n * l_ms
         concat += n * c_ms
-        ops += n * lvl_ops
-        nbytes += n * lvl_bytes
+        full_ops += n * 2 * G * X * Y * 9 * E * p * Co
     ops_ms = ops / BF16_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"subm_ext_conv per forward: kernel {kernel:.4f} ms, plain "
-        f"{plain:.4f} ms, cuDNN bf16 {library:.4f} ms (+ concat "
-        f"{concat:.4f} ms, not in library_ms); bound {ops} FLOP -> "
-        f"{ops_ms:.4f} ms, {nbytes} bytes -> {bytes_ms:.4f} ms")
+    log(f"subm_ext_conv per forward: fused kernel {kernel:.4f} ms (13 "
+        f"launches, {ops / kernel / 1e9:.1f} TFLOP/s useful), mask-only mode "
+        f"{mask_only:.4f} ms, unfused PyTorch epilogue {unfused:.4f} ms, "
+        f"plain {plain:.4f} ms, cuDNN bf16 {library:.4f} ms (+ concat "
+        f"{concat:.4f} ms, not in library_ms); bound {ops} useful FLOP -> "
+        f"{ops_ms:.4f} ms, {nbytes} bytes -> {bytes_ms:.4f} ms; full-K "
+        f"{full_ops} FLOP -> {full_ops / BF16_OPS_PER_S * 1e3:.4f} ms")
     return {"name": "subm_ext_conv", "route": "cuda",
             "source": "coocc_tpu_torch/csrc/subm_conv.cu",
             "replaces": "coocc_tpu/ops/pallas/subm_conv.py:53",

@@ -16,12 +16,16 @@ either) and the same math, computed so that every convolution is a 2D one:
     with a 0/1 weight (count > 0.5);
   * SubM 3x3x3 conv: ONE 3x3 conv2d over [p*C core | C up-carry | C
     dn-carry] lanes with a block-tridiagonal [3, 3, (p+2)*C, p*Co] weight,
-    through kernel K2 (`ops/subm_conv.py:subm_ext_conv`);
+    through kernel K2 (`ops/subm_conv.py:subm_ext_conv`), whose epilogue
+    applies the output mask and, inside a SparseBasicBlock, its BatchNorm,
+    ReLU and residual: a block is two K2 launches and no other pass;
   * strided 3x3x3 conv (down2, down3): a stride-2 conv2d in packed layout
     with a [3, 3, (p+2)*Ci, p_out*Co] weight, which keeps the pack rows when
     p == 2*p_out (true at every shipped config);
-  * BatchNorm (running statistics) and the per-cell GroupNorm as per-lane
-    affines tiled p times, times the activity mask.
+  * the downsamples' BatchNorm (running statistics) and the per-cell
+    GroupNorm as per-lane affines tiled p times, times the cell mask
+    broadcast over each slot's lanes. Packed tensors are made contiguous
+    where they are made.
 
 Numerics: the SubM convolutions take bf16 operands with fp32 sums (K2's, on
 the card and in its plain version alike), everything else is fp32. So in
@@ -35,12 +39,16 @@ downsample taken when p != 2*p_out; the model raises for them.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.constants import device_constant
-from ..ops.subm_conv import conv2d_nhwc, shift_ext, subm_ext_conv
+from ..ops.subm_conv import (ZERO_TAP, BNAffine, conv2d_nhwc,
+                             epilogue_plain, gather_taps, shift_ext,
+                             subm_ext_conv)
 from .layers import BatchNorm
 from .sparse_enc_dense import (DenseLiDAREnc8x, SpConvWeight,
                                per_cell_group_norm)
@@ -48,10 +56,9 @@ from .sparse_enc_dense import (DenseLiDAREnc8x, SpConvWeight,
 # ---------------------------------------------------------------------------
 # block weights from [27, Cin, Cout] tap weights, taps kx-major, i.e.
 # w27.reshape(3, 3, 3, ...) is (kx, ky, kz). Each is one gather of a z tap
-# (or of a zero block, index 3) per (input slot, output slot) pair.
+# (or of a zero block, ZERO_TAP) per (input slot, output slot) pair; the
+# SubM one, subm_ext_weight, lives beside K2 in ops/subm_conv.py.
 # ---------------------------------------------------------------------------
-
-_ZERO_TAP = 3
 
 
 def tap_weight(conv: SpConvWeight) -> torch.Tensor:
@@ -60,34 +67,9 @@ def tap_weight(conv: SpConvWeight) -> torch.Tensor:
     return w.permute(3, 2, 1, 4, 0).reshape(27, w.shape[4], w.shape[0])
 
 
-def _gather_taps(w27: torch.Tensor, table: np.ndarray) -> torch.Tensor:
-    """[27, Ci, Co] and an [n_in, n_out] table of z taps -> the block
-    weight [3, 3, n_in*Ci, n_out*Co], block (i, o) = w3[:, :, table[i, o]]."""
-    _, Ci, Co = w27.shape
-    w3 = w27.reshape(3, 3, 3, Ci, Co)
-    w3 = torch.cat([w3, torch.zeros_like(w3[:, :, :1])], dim=2)
-    n_in, n_out = table.shape
-    idx = device_constant(table.reshape(-1), w27.device)
-    blocks = w3[:, :, idx].reshape(3, 3, n_in, n_out, Ci, Co)
-    return blocks.permute(0, 1, 2, 4, 3, 5).reshape(3, 3, n_in * Ci,
-                                                    n_out * Co)
-
-
-def _subm_ext_table(p: int) -> np.ndarray:
-    t = np.full((p + 2, p), _ZERO_TAP, np.int64)
-    for zo in range(p):
-        for dz in range(3):
-            zi = zo + dz - 1
-            if 0 <= zi < p:
-                t[zi, zo] = dz
-    t[p, p - 1] = 2      # carry from the next pack's first slot
-    t[p + 1, 0] = 0      # carry from the previous pack's last slot
-    return t
-
-
 def _strided_table(z_in: int) -> np.ndarray:
     z_out = z_in // 2
-    t = np.full((z_in, z_out), _ZERO_TAP, np.int64)
+    t = np.full((z_in, z_out), ZERO_TAP, np.int64)
     for zo in range(z_out):
         for dz in range(3):
             zi = 2 * zo + dz - 1
@@ -97,7 +79,7 @@ def _strided_table(z_in: int) -> np.ndarray:
 
 
 def _strided_packed_table(p_in: int, p_out: int) -> np.ndarray:
-    t = np.full((p_in + 2, p_out), _ZERO_TAP, np.int64)
+    t = np.full((p_in + 2, p_out), ZERO_TAP, np.int64)
     for so in range(p_out):
         for dz in range(3):
             u = 2 * so + dz - 1
@@ -110,25 +92,20 @@ def _strided_packed_table(p_in: int, p_out: int) -> np.ndarray:
     return t
 
 
-def subm_ext_weight(w27: torch.Tensor, p: int) -> torch.Tensor:
-    """[27, C, Co] -> [3, 3, (p+2)*C, p*Co] block-tridiagonal + carries."""
-    return _gather_taps(w27, _subm_ext_table(p))
-
-
 def strided_weight(w27: torch.Tensor, z_in: int) -> torch.Tensor:
     """[27, Ci, Co] -> [3, 3, z_in*Ci, (z_in//2)*Co] for stride-2 z."""
-    return _gather_taps(w27, _strided_table(z_in))
+    return gather_taps(w27, _strided_table(z_in))
 
 
 def strided_packed_weight(w27: torch.Tensor, p_in: int,
                           p_out: int) -> torch.Tensor:
     """[27, Ci, Co] -> [3, 3, (p_in+2)*Ci, p_out*Co]: a stride-2-z conv in
     packed layout (pack rows kept when p_in == 2*p_out)."""
-    return _gather_taps(w27, _strided_packed_table(p_in, p_out))
+    return gather_taps(w27, _strided_packed_table(p_in, p_out))
 
 
 def _dilation(table: np.ndarray, device) -> torch.Tensor:
-    t = table != _ZERO_TAP
+    t = table != ZERO_TAP
     return device_constant(np.broadcast_to(t, (3, 3) + t.shape).astype(
         np.float32), device)
 
@@ -181,42 +158,34 @@ def conv2d_pb(x_pb: torch.Tensor, w: torch.Tensor,
     return out.reshape(B, bz, X // stride, Y // stride, -1)
 
 
-def lanes(mask_cells: torch.Tensor, C: int) -> torch.Tensor:
-    """[..., p] cell mask -> [..., p*C] float lane mask (lane slot*C + c)."""
-    return mask_cells.to(torch.float32).repeat_interleave(C, dim=-1)
-
-
 # ---------------------------------------------------------------------------
 # packed layers
 # ---------------------------------------------------------------------------
 
-def packed_bn(bn: BatchNorm, x_pb: torch.Tensor,
-              maskf: torch.Tensor) -> torch.Tensor:
-    """Eval BatchNorm of packed lanes: the running-statistics affine tiled
-    p times, times the lane mask."""
-    p = x_pb.shape[-1] // bn.weight.shape[0]
+def bn_affine(bn: BatchNorm) -> BNAffine:
+    """Eval BatchNorm as K2's epilogue reads it, inv as JAX computes it."""
     inv = (1.0 / torch.sqrt(bn.running_var + bn.eps)) * bn.weight
-    return ((x_pb - bn.running_mean.repeat(p)) * inv.repeat(p)
-            + bn.bias.repeat(p)) * maskf
+    return BNAffine(bn.running_mean, inv, bn.bias)
 
 
-def packed_subm(conv: SpConvWeight, x_pb: torch.Tensor, maskf_out,
-                C_in: int) -> torch.Tensor:
-    """SubM 3x3x3 conv of packed lanes through K2, times the output mask."""
+def packed_subm(conv: SpConvWeight, x_pb: torch.Tensor, mcell: torch.Tensor,
+                C_in: int, bn: Optional[BatchNorm] = None,
+                identity: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SubM 3x3x3 conv of packed lanes through K2, with its epilogue: times
+    the output mask, then bn and ReLU when bn is given, with + identity
+    before the ReLU when that is given too."""
     p = x_pb.shape[-1] // C_in
-    w_ext = subm_ext_weight(tap_weight(conv), p)
-    return subm_ext_conv(x_pb, w_ext, x_pb.shape[1], C_in) * maskf_out
+    return subm_ext_conv(x_pb, tap_weight(conv), p, mcell,
+                         None if bn is None else bn_affine(bn), identity)
 
 
-def packed_basic_block(block, x_pb: torch.Tensor, maskf: torch.Tensor,
+def packed_basic_block(block, x_pb: torch.Tensor, mcell: torch.Tensor,
                        C: int) -> torch.Tensor:
-    """SparseBasicBlock in packed layout: SubM, BN, ReLU, SubM, BN, + x."""
+    """SparseBasicBlock in packed layout: SubM, BN, ReLU, SubM, BN, + x,
+    ReLU, as two K2 launches and no other pass."""
     net = block.net
-    y = packed_subm(net[0], x_pb, maskf, C)
-    y = F.relu(packed_bn(net[1], y, maskf))
-    y = packed_subm(net[3], y, maskf, C)
-    y = packed_bn(net[4], y, maskf)
-    return F.relu(y + x_pb) * maskf
+    y = packed_subm(net[0], x_pb, mcell, C, bn=net[1])
+    return packed_subm(net[3], y, mcell, C, bn=net[4], identity=x_pb)
 
 
 class PackedLiDAREnc8x(DenseLiDAREnc8x):
@@ -225,7 +194,7 @@ class PackedLiDAREnc8x(DenseLiDAREnc8x):
 
     def forward(self, occupancy: torch.Tensor) -> torch.Tensor:
         b = self.conv_input[1].weight.shape[0]
-        B, X0, Y0, Z0 = occupancy.shape
+        Z0 = occupancy.shape[-1]
         mask0f = occupancy.to(torch.float32)
 
         # level-0 collapse: the stem is relu(gn bias) at active cells, so
@@ -239,12 +208,14 @@ class PackedLiDAREnc8x(DenseLiDAREnc8x):
         # one stride-2 conv, the math of JAX's space-to-depth form
         d_lm = conv2d_nhwc(mask0f, strided_weight(w_eff, Z0), 2)
         cnt = conv2d_nhwc(mask0f, dilate_weight(Z0, mask0f.device), 2)
-        mask_lm = cnt > 0.5                                    # [B, X, Y, Z]
-        d = lm_to_pb(d_lm, Z, C, p)
-        mf = lanes(mask_pb(mask_lm, p), C)
-        d = F.relu(packed_bn(down[1], d * mf, mf))
-        d = packed_basic_block(self.conv1[1], d, mf, C)
-        d = packed_basic_block(self.conv1[2], d, mf, C)
+        # the packed tensors are made contiguous where they are made: every
+        # pass after this one, K2 among them, reads them densely
+        d = lm_to_pb(d_lm, Z, C, p).contiguous()
+        mcell = mask_pb(cnt > 0.5, p).contiguous()    # [B, bz, X, Y, p]
+        # the downsample's masked BN + ReLU: K2's BN+ReLU epilogue ops
+        d = epilogue_plain(d, mcell, bn_affine(down[1]))
+        d = packed_basic_block(self.conv1[1], d, mcell, C)
+        d = packed_basic_block(self.conv1[2], d, mcell, C)
 
         for lvl in (2, 3):
             blocks = getattr(self, f"conv{lvl}")
@@ -258,22 +229,17 @@ class PackedLiDAREnc8x(DenseLiDAREnc8x):
             # packed stride-2-z downsample: only the dn carry takes part
             d = conv2d_pb(shift_ext(d, C),
                           strided_packed_weight(tap_weight(down[0]), p,
-                                                p_out), 2)
-            mpf = mask_pb(mask_lm, p).to(torch.float32)
-            cnt = conv2d_pb(shift_ext(mpf, 1),
+                                                p_out), 2).contiguous()
+            cnt = conv2d_pb(shift_ext(mcell.to(torch.float32), 1),
                             dilate_packed_weight(p, p_out, d.device), 2)
-            mcell = cnt > 0.5                         # [B, bz, X, Y, p_out]
+            mcell = (cnt > 0.5).contiguous()          # [B, bz, X, Y, p_out]
             Z, C, p = Z // 2, C_out, p_out
-            mask_lm = mcell.permute(0, 2, 3, 1, 4).reshape(
-                B, d.shape[2], d.shape[3], Z)
-            mf = lanes(mcell, C)
-            d = F.relu(packed_bn(down[1], d * mf, mf))
-            d = packed_basic_block(blocks[1], d, mf, C)
-            d = packed_basic_block(blocks[2], d, mf, C)
+            d = epilogue_plain(d, mcell, bn_affine(down[1]))
+            d = packed_basic_block(blocks[1], d, mcell, C)
+            d = packed_basic_block(blocks[2], d, mcell, C)
 
+        d = packed_subm(self.conv_out[0], d, mcell, C)
         Co = self.conv_out[1].weight.shape[0]
-        mcell = mask_pb(mask_lm, p)                   # [B, bz, X, Y, p]
-        d = packed_subm(self.conv_out[0], d, lanes(mcell, Co), C)
         d5 = d.reshape(*d.shape[:-1], p, Co)
         # each cell normalized over its own channel groups
         g = per_cell_group_norm(d5.reshape(-1, Co, 1, 1, 1),

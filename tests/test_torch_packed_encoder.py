@@ -6,10 +6,11 @@ encode the same seeded occupancy of a 160x160x32 grid, where every level
 packs to pC = 128 lanes (res1 C=32 p=4, res2 C=64 p=2, res3 C=128 p=1).
 
 Two comparisons:
-  * the wiring, exactly: with K2 swapped for an fp32 conv of unrounded
-    operands, the port equals the JAX encoder's fp32 XLA route to fp32
-    summation-order error (atol=rtol=1e-4; measured about 1.5e-5 on
-    outputs of scale 3.7);
+  * the wiring, exactly: with K2's conv swapped for an fp32 conv of
+    unrounded operands (K2's epilogue kept, through the module's
+    `subm_ext_conv` seam), the port equals the JAX encoder's fp32 XLA route
+    to fp32 summation-order error (atol=rtol=1e-4; measured about 1.5e-5
+    on outputs of scale 3.7);
   * the kernel path: the port as it runs against the JAX encoder with its
     SubM convolutions through the Pallas kernel in interpret mode
     (COOCC_PALLAS_SUBM=interpret, as tests/test_pallas_subm.py sets it),
@@ -37,7 +38,9 @@ from coocc_tpu_torch.entry import init_weights
 from coocc_tpu_torch.nn import sparse_enc_packed as packed_mod
 from coocc_tpu_torch.nn.sparse_enc_dense import DenseLiDAREnc8x
 from coocc_tpu_torch.nn.sparse_enc_packed import PackedLiDAREnc8x
-from coocc_tpu_torch.ops.subm_conv import conv2d_nhwc, shift_ext
+from coocc_tpu_torch.ops.subm_conv import (conv2d_nhwc, epilogue_plain,
+                                           shift_ext, subm_ext_conv,
+                                           subm_ext_weight)
 
 GRID = (160, 160, 32)
 
@@ -70,10 +73,34 @@ def _jax_encode(enc, occ, monkeypatch, subm_mode):
     return np.asarray(ref).transpose(0, 4, 1, 2, 3)  # -> [B, C, X, Y, Z]
 
 
-def _fp32_subm(x_pb, w_ext, bz, C):
-    B, _, X, Y, pC = x_pb.shape
-    ext = shift_ext(x_pb, C).reshape(B * bz, X, Y, pC + 2 * C)
-    return conv2d_nhwc(ext, w_ext).reshape(B, bz, X, Y, -1)
+def _fp32_subm(x_pb, w27, p, mcell, bn=None, identity=None):
+    """K2 with its conv in fp32 on unrounded operands, its epilogue kept."""
+    B, bz, X, Y, pC = x_pb.shape
+    ext = shift_ext(x_pb, pC // p).reshape(B * bz, X, Y, -1)
+    y = conv2d_nhwc(ext, subm_ext_weight(w27, p)).reshape(B, bz, X, Y, -1)
+    return epilogue_plain(y, mcell, bn, identity)
+
+
+def test_every_k2_input_is_contiguous(encoder, monkeypatch):
+    """The kernel reads its inputs densely and raises rather than copy:
+    every tensor the encoder hands K2 is contiguous, and a block's two
+    convs take its input as the second one's residual."""
+    calls = []
+
+    def record(x_pb, w27, p, mcell, bn=None, identity=None):
+        calls.append((x_pb, mcell, bn, identity))
+        assert x_pb.is_contiguous() and mcell.is_contiguous()
+        assert identity is None or identity.is_contiguous()
+        return subm_ext_conv(x_pb, w27, p, mcell, bn, identity)
+
+    monkeypatch.setattr(packed_mod, "subm_ext_conv", record)
+    with torch.no_grad():
+        encoder(torch.from_numpy(_occupancy(1, 0.03, seed=4)))
+    assert len(calls) == 13
+    modes = [(bn is None, identity is None) for _, _, bn, identity in calls]
+    assert modes == [(False, True), (False, False)] * 6 + [(True, True)]
+    for i in range(0, 12, 2):
+        assert calls[i + 1][3] is calls[i][0]
 
 
 def test_packed_encoder_wiring_matches_jax_fp32_route(encoder, monkeypatch):

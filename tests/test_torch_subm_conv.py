@@ -1,13 +1,22 @@
 """The port's packed SubM conv (CPU: its plain version) == the JAX kernel's.
 
-`subm_ext_conv` on a CPU tensor takes `subm_ext_conv_plain` (bf16-rounded
-operands, fp32 conv2d of shift_ext(x)); it is held against the JAX Pallas
-kernel in interpret mode, as tests/test_pallas_subm.py runs it, at that
-test's shapes plus a p=1, C=128 one, for fp32 and bf16 inputs. The block
-weights and layout helpers of nn/sparse_enc_packed.py equal the JAX ones
-exactly on seeded weights. The CUDA kernel runs only on the card:
-chip_smoke.py holds it against the same plain version there.
+`subm_ext_conv` on a CPU tensor takes `subm_ext_conv_plain`: JAX's conv
+(bf16-rounded operands, fp32 sums) followed by the epilogue the JAX encoder
+applies around it. Both are held against the JAX Pallas kernel in
+interpret mode, as tests/test_pallas_subm.py runs it, fed
+`_subm_ext_weight(w27, p)`: the conv alone (an all-ones mask) and each
+epilogue composed from JAX's own ops (`_PackedSubM`'s mask,
+`_PackedBNCore`'s formula, ReLU, + identity, `_PackedBasicBlock`'s order),
+at tests/test_pallas_subm.py's shapes plus a p=1, C=128 one, for fp32 and
+bf16 inputs. The kernel's weight panels hold exactly the nonzero blocks of
+JAX's extended weight, and its K-blocks address the extended lanes that
+JAX's `_shift_ext` builds. The block weights and layout helpers of
+nn/sparse_enc_packed.py equal the JAX ones exactly on seeded weights. The
+CUDA kernel runs only on the card: chip_smoke.py holds it against the same
+plain version there.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +26,9 @@ from coocc_tpu.nn import sparse_enc_packed as jpk
 from coocc_tpu.ops.pallas.subm_conv import subm_ext_conv as jax_subm_ext_conv
 
 from coocc_tpu_torch.nn import sparse_enc_packed as tpk
-from coocc_tpu_torch.ops.subm_conv import shift_ext, subm_ext_conv
+from coocc_tpu_torch.ops.subm_conv import (KB, BNAffine, _panel_index,
+                                           kblocks, shift_ext, subm_ext_conv,
+                                           subm_ext_weight, weight_panels)
 
 SHAPES = [(1, 3, 12, 16, 32, 4), (2, 2, 9, 11, 64, 2),
           (1, 2, 10, 12, 128, 1)]
@@ -26,25 +37,144 @@ SHAPES = [(1, 3, 12, 16, 32, 4), (2, 2, 9, 11, 64, 2),
 # output may round the fp32 sum one ulp apart (JAX test's atol 2e-2).
 TOL = {"float32": dict(rtol=1e-5, atol=1e-4),
        "bfloat16": dict(rtol=0, atol=2e-2)}
+EPILOGUES = ["mask", "bn_relu", "bn_res_relu"]
+
+
+@functools.lru_cache(maxsize=None)
+def _case(B, bz, X, Y, C, p, dtype):
+    """Seeded inputs and the interpret-mode Pallas conv of them (one JAX
+    run per shape and dtype, shared by the tests below)."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(B, bz, X, Y, p * C).astype(np.float32)
+    w27 = (0.1 * rng.randn(27, C, C)).astype(np.float32)
+    wext = np.array(jpk._subm_ext_weight(jnp.asarray(w27), p))
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    conv = jax_subm_ext_conv(jx, jnp.asarray(wext), bz=bz, C=C,
+                             interpret=True)
+    mcell = rng.rand(B, bz, X, Y, p) < 0.6
+    bn = (rng.randn(C).astype(np.float32),                        # mean
+          rng.uniform(0.5, 1.5, C).astype(np.float32),            # inv
+          rng.randn(C).astype(np.float32))                        # bias
+    identity = rng.randn(B, bz, X, Y, p * C).astype(np.float32)
+    return x, w27, conv, mcell, bn, identity
+
+
+def _jax_epilogue(conv, mcell, bn, identity, epilogue, dtype, C):
+    """JAX's own ops after `_PackedSubM`'s conv, in the encoder's order."""
+    cd = getattr(jnp, dtype)
+    mf = jnp.repeat(jnp.asarray(mcell), C, axis=-1).astype(cd)
+    y = conv * mf                                         # _PackedSubM
+    if epilogue == "mask":
+        return y
+    p = mcell.shape[-1]
+    mean, inv, bias = (jnp.tile(jnp.asarray(v), p).astype(cd) for v in bn)
+    y = ((y - mean) * inv + bias) * mf                    # _PackedBNCore
+    if epilogue == "bn_relu":
+        return jnp.maximum(y, 0)
+    return jnp.maximum(y + jnp.asarray(identity).astype(cd), 0) * mf
+
+
+def _port(x, w27, mcell, bn, identity, epilogue, dtype, p):
+    td = getattr(torch, dtype)
+    tbn = None if epilogue == "mask" else BNAffine(
+        *(torch.from_numpy(v) for v in bn))
+    tid = (torch.from_numpy(identity).to(td) if epilogue == "bn_res_relu"
+           else None)
+    return subm_ext_conv(torch.from_numpy(x).to(td), torch.from_numpy(w27),
+                         p, torch.from_numpy(mcell), tbn, tid)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,bz,X,Y,C,p", SHAPES)
 def test_subm_ext_conv_matches_jax_kernel(B, bz, X, Y, C, p, dtype):
-    rng = np.random.RandomState(0)
-    x = rng.randn(B, bz, X, Y, p * C).astype(np.float32)
-    w27 = (0.1 * rng.randn(27, C, C)).astype(np.float32)
-    wext = np.array(jpk._subm_ext_weight(jnp.asarray(w27), p))
-
-    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
-    ref = jax_subm_ext_conv(jx, jnp.asarray(wext), bz=bz, C=C,
-                            interpret=True)
-    tx = torch.from_numpy(x).to(getattr(torch, dtype))
-    got = subm_ext_conv(tx, torch.from_numpy(wext), bz, C)
-
-    assert got.shape == tuple(ref.shape) and got.dtype == tx.dtype
+    """The conv alone: an all-ones mask leaves the Pallas kernel's output."""
+    x, w27, ref, mcell, _, _ = _case(B, bz, X, Y, C, p, dtype)
+    got = _port(x, w27, np.ones_like(mcell), None, None, "mask", dtype, p)
+    assert got.shape == tuple(ref.shape)
+    assert got.dtype == getattr(torch, dtype)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(ref, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,bz,X,Y,C,p", SHAPES)
+def test_fused_epilogue_matches_jax_composite(B, bz, X, Y, C, p, dtype,
+                                              epilogue):
+    """Conv + epilogue in one call == the Pallas conv then JAX's ops.
+
+    fp32: the conv's tolerance above, scaled by max|inv| = 1.5, plus 1e-5
+    of the scale for the four rounded epilogue ops. bf16: the JAX side
+    rounds the conv, the BN vectors (`astype(x_pb.dtype)`) and every
+    epilogue op to bf16, the port keeps them in fp32 and rounds once; each
+    rounding is at most half a bf16 ulp, 2^-8 of the magnitude it rounds,
+    so the bound is 2^-8 times the sum of the magnitudes rounded (conv,
+    mean and conv - mean, each times inv; inv and the product, (conv -
+    mean)*inv each; bias; the BN output; the sum with identity; the
+    output), plus the fp32 conv tolerance."""
+    x, w27, conv, mcell, bn, identity = _case(B, bz, X, Y, C, p, dtype)
+    ref = np.asarray(_jax_epilogue(conv, mcell, bn, identity, epilogue,
+                                   dtype, C), np.float32)
+    got = _port(x, w27, mcell, bn, identity, epilogue, dtype,
+                p).float().numpy()
+    assert got.shape == ref.shape
+    scale = np.abs(ref).max()
+    assert scale > 0
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=1e-5,
+                                   atol=1.5e-4 + 1e-5 * scale)
+        return
+    c = np.asarray(conv, np.float32)
+    mean, inv, bias = (np.tile(v, p) for v in bn)
+    mags = np.abs(c) * (1 if epilogue == "mask" else inv)
+    if epilogue != "mask":
+        t = (c - mean) * inv
+        mags = (mags + inv * (np.abs(mean) + np.abs(c - mean))
+                + 2 * np.abs(t) + np.abs(bias) + np.abs(t + bias))
+        if epilogue == "bn_res_relu":
+            mags = mags + np.abs(t + bias + identity)
+    bound = 2.0 ** -8 * (mags + np.abs(ref)) + 1.5 * TOL["float32"]["atol"]
+    assert (np.abs(got - ref) <= bound).all(), np.abs(got - ref).max()
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_weight_panels_hold_exactly_the_nonzero_blocks(p):
+    """The kernel multiplies only the panels: they hold JAX's extended
+    weight at their (tap, lane, column) positions, and every position they
+    skip is a structural zero of it."""
+    C = 128 // p
+    w27 = np.random.RandomState(p).randn(27, C, C).astype(np.float32)
+    jw = np.asarray(jpk._subm_ext_weight(jnp.asarray(w27), p)).reshape(-1)
+    idx = _panel_index(p, C, C)
+    panels = weight_panels(torch.from_numpy(w27), p)
+    assert panels.dtype == torch.bfloat16 and len(np.unique(idx)) == len(idx)
+    np.testing.assert_array_equal(
+        panels.float().numpy(),
+        torch.from_numpy(jw[idx]).to(torch.bfloat16).float().numpy())
+    skipped = np.ones(jw.size, bool)
+    skipped[idx] = False
+    assert not jw[skipped].any()
+    assert skipped.sum() == {1: 0, 2: jw.size // 4, 4: jw.size // 2}[p]
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_kblocks_address_jax_extended_lanes(p):
+    """K-block i is extended lanes 16i .. 16i+15 of JAX's _shift_ext: lanes
+    `lane` .. `lane`+15 of the pack `dg` away, zero past a sample's ends."""
+    C = 128 // p
+    x = np.random.RandomState(p).randn(2, 3, 4, 5, p * C).astype(np.float32)
+    ext = np.asarray(jpk._shift_ext(jnp.asarray(x), C))
+    assert len(kblocks(p, C, C)) * KB == ext.shape[-1]
+    for i, (lane, dg, _, _) in enumerate(kblocks(p, C, C)):
+        want = np.zeros_like(x[..., :KB])
+        src = x[..., lane:lane + KB]
+        if dg == 0:
+            want = src
+        elif dg == 1:
+            want[:, :-1] = src[:, 1:]
+        else:
+            want[:, 1:] = src[:, :-1]
+        np.testing.assert_array_equal(ext[..., i * KB:(i + 1) * KB], want)
 
 
 @pytest.mark.parametrize("p", [1, 2, 4])
@@ -54,7 +184,7 @@ def test_block_weights_match_jax(p):
     w27 = rng.randn(27, C, 2 * C).astype(np.float32)
     tw, jw = torch.from_numpy(w27), jnp.asarray(w27)
     pairs = [
-        (tpk.subm_ext_weight(tw, p), jpk._subm_ext_weight(jw, p)),
+        (subm_ext_weight(tw, p), jpk._subm_ext_weight(jw, p)),
         (tpk.strided_weight(tw, Z), jpk._strided_weight(jw, Z)),
         (tpk.strided_packed_weight(tw, 2 * p, p),
          jpk._strided_packed_weight(jw, 2 * p, p)),
