@@ -18,9 +18,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      held against the dense one at flagship shapes;
   4. kernels against their plain PyTorch versions on the card, at the main
      path's shapes (and ragged ones), with times, bounds and library calls:
-     window_knn (exact), subm_ext_conv (each epilogue mode, fp32 and bf16
-     inputs), knn2 (exact on integer cell coordinates, by distance on
-     floats);
+     window_knn (exact: the flagship windows on random and real masks, a
+     clipped window, a Z=32 grid, the OpenOccupancy grid and windows; with
+     the divergence of the old offset walk and the column walk),
+     subm_ext_conv (each epilogue mode, fp32 and bf16 inputs), knn2 (exact
+     on integer cell coordinates and on ties across key tiles, by distance
+     on floats);
   5. the tiny config on the card against the same model on the CPU (the
      route the tests hold against the JAX package), dense and packed.
 Prints the card, the kernels' JSON line and, last, the result line. Needs a
@@ -273,9 +276,10 @@ def phase_dense_path(model, requests):
 def phase_window_knn(model, masks, launches):
     """Kernel against plain version on the card; -> the kernel's JSON row."""
     import torch
-    from coocc_tpu_torch.ops.window_knn import (best2_ranks_plain,
-                                                make_offsets, window_knn,
-                                                window_knn_plain)
+    from coocc_tpu_torch.ops.window_knn import (WALK_CHUNK,
+                                                best2_ranks_plain,
+                                                column_tables, make_offsets,
+                                                window_knn, window_knn_plain)
     fuser = model.occ_fuser
     windows = {"img": fuser.offsets_img, "pts": fuser.offsets}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -292,6 +296,19 @@ def phase_window_knn(model, masks, launches):
     ragged = torch.rand((37, 23, 5), generator=gen, device="cuda") < 0.3
     cases.append(("ragged (37,23,5), (6,6,7)", ragged,
                   make_offsets(6, 6, 7, 13.3)))
+    for d in (0.02, 0.3):
+        m = torch.rand(shape, generator=gen, device="cuda") < d
+        cases.append((f"clipped window (6,6,7) at 8.0, density {d}", m,
+                      make_offsets(6, 6, 7, 8.0)))
+        m = torch.rand((37, 23, 32), generator=gen, device="cuda") < d
+        cases.append((f"Z=32 ragged (37,23,32), density {d}", m,
+                      make_offsets(6, 6, 7, 13.3)))
+    # the OpenOccupancy fuser grid and windows (config/configs.py)
+    for d in (0.01, 0.2):
+        m = torch.rand((128, 128, 10), generator=gen, device="cuda") < d
+        for radii in ((8, 8, 9), (6, 6, 7)):
+            cases.append((f"openoccupancy (128,128,10) {radii}, density {d}",
+                          m, make_offsets(*radii, 13.3)))
     for name, m, offs in cases:
         got = window_knn(m, offs)
         ref = window_knn_plain(m, offs)
@@ -329,16 +346,30 @@ def phase_window_knn(model, masks, launches):
     # bound: bytes read once + written once; operations = the probes these
     # masks need (a cell stops at its second hit, else walks all O offsets)
     nbytes = probes = 0
+    walks = {"offset walk (earlier design)": [0, 0], "column walk": [0, 0]}
     for key in ("img", "pts"):
         m, offs = masks[key], windows[key]
         n, O = m.numel(), len(offs)
         nbytes += n + offs.nbytes + 8 * n
         _, b2 = best2_ranks_plain(m, offs)
-        probes += int(torch.where(b2 < O, b2 + 1, O).sum())
+        steps = torch.where(b2 < O, b2 + 1, O)
+        probes += int(steps.sum())
+        min_rank = torch.from_numpy(column_tables(offs).min_rank).cuda()
+        cols = torch.searchsorted(min_rank, b2, right=True)
+        cols = (cols + WALK_CHUNK - 1) // WALK_CHUNK * WALK_CHUNK
+        for name, per_cell, warp in (
+                ("offset walk (earlier design)", steps, offset_walk_warps),
+                ("column walk", cols, column_walk_warps)):
+            walks[name][0] += int(per_cell.sum())
+            walks[name][1] += 32 * warp_longest(per_cell, warp(m.shape))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = probes / FP32_OPS_PER_S * 1e3
     log(f"window_knn bound: {nbytes} bytes -> {bytes_ms:.6f} ms; {probes} "
         f"probes -> {ops_ms:.6f} ms")
+    for name, (steps, longest) in walks.items():
+        log(f"window_knn divergence, {name}: {steps} steps over both "
+            f"windows, sum over warps of 32 x the longest walk {longest} "
+            f"({longest / steps:.3f} x the steps)")
     return {"name": "window_knn", "route": "cuda",
             "source": "coocc_tpu_torch/csrc/window_knn.cu",
             "replaces": "coocc_tpu/ops/pallas/window_knn.py:37",
@@ -347,6 +378,39 @@ def phase_window_knn(model, masks, launches):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
+
+
+def offset_walk_warps(shape):
+    """Warp of each cell [X*Y*Z] in K1's earlier offset walk (one thread a
+    cell, blocks of 4x8x8 cells, z fastest)."""
+    import torch
+    X, Y, Z = shape
+    x, y, z = (t.reshape(-1) for t in torch.meshgrid(
+        *(torch.arange(n, device="cuda") for n in shape), indexing="ij"))
+    block = ((x // 4) * -(-Y // 8) + y // 8) * -(-Z // 8) + z // 8
+    return block * 8 + ((x % 4) * 64 + (y % 8) * 8 + z % 8) // 32
+
+
+def column_walk_warps(shape):
+    """Warp slot of each cell [X*Y*Z] in csrc/window_knn.cu (blocks of 4x8
+    columns, 256 threads walking the block's cells z fastest, 32 a warp per
+    pass)."""
+    import torch
+    X, Y, Z = shape
+    x, y, z = (t.reshape(-1) for t in torch.meshgrid(
+        *(torch.arange(n, device="cuda") for n in shape), indexing="ij"))
+    block = (x // 4) * -(-Y // 8) + y // 8
+    c = ((x % 4) * 8 + y % 8) * Z + z
+    return block * Z + c // 32  # 4*8*Z cells a block: Z warp passes
+
+
+def warp_longest(per_cell, warp) -> int:
+    """Sum over warps of the longest walk of their cells."""
+    import torch
+    longest = torch.zeros(int(warp.max()) + 1, dtype=torch.long,
+                          device="cuda")
+    longest.scatter_reduce_(0, warp, per_cell.long(), "amax")
+    return int(longest.sum())
 
 
 def k2_main_path_shapes(model, batch):
@@ -576,8 +640,9 @@ def phase_subm_conv(model, requests, launches):
 def phase_knn2(masks, launches):
     """K3 against its plain version: queries the active image cells of the
     main path's fuser grid, keys its active LiDAR cells (integer
-    coordinates: exact), and a random-float case (by distance, to
-    1e-4 as tests/test_pallas_knn.py compares)."""
+    coordinates: exact), ties across key tiles (exact), and a random-float
+    case (by distance, to 1e-4 as tests/test_pallas_knn.py compares)."""
+    import numpy as np
     import torch
     from coocc_tpu_torch.ops.knn import knn2, knn2_plain
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -597,6 +662,31 @@ def phase_knn2(masks, launches):
     log(f"knn2 vs plain [main path cells: {len(q)} image-cell queries, "
         f"{len(k)} LiDAR-cell keys]: idx and dist equal, "
         f"{int((idx >= 0).sum())} neighbours within {thresh}")
+
+    # ties: integer keys in a 6-box with the tiles before the 512-key
+    # boundaries repeated after them, and one query far off whose keys 5,
+    # 515 and 519 make the TPU kernel's merge keep 519 where the
+    # lexicographic second is 5 (tests/test_torch_knn.py builds the same);
+    # Q = 1000 is not a multiple of the kernel's 64 queries a block
+    rng = np.random.RandomState(3)
+    keys = rng.randint(0, 6, (1300, 3)).astype(np.float32)
+    keys[512:700] = keys[324:512]
+    keys[1024:1200] = keys[848:1024]
+    keys[[5, 515, 519]] = 100 + np.array([[2, 0, 0], [1, 0, 0], [0, 2, 0]],
+                                         np.float32)
+    for Q in (301, 1000):
+        queries = rng.randint(0, 6, (Q, 3)).astype(np.float32)
+        queries[0] = 100
+        tq, tk, tqm, tkm = (torch.from_numpy(a).cuda() for a in (
+            queries, keys, rng.rand(Q) > 0.05, rng.rand(len(keys)) > 0.1))
+        idx, dist = knn2(tq, tk, tqm, tkm, thresh)
+        ref_idx, ref_dist = knn2_plain(tq, tk, tqm, tkm, thresh)
+        sync()
+        if not (torch.equal(idx, ref_idx) and torch.equal(dist, ref_dist)
+                and idx[0].tolist() == [515, 519]):
+            raise AssertionError(f"knn2 differs from plain on ties, Q={Q}")
+        log(f"knn2 vs plain [ties across key tiles, Q={Q} x K={len(keys)}]:"
+            f" idx and dist equal, query 0 -> {idx[0].tolist()}")
 
     Qf, Kf = 20000, 30000
     qf = torch.rand(Qf, 3, generator=gen, device="cuda") * 100

@@ -13,8 +13,13 @@ and takes `knn2_plain` for CPU tensors; there is no other route. The kernel
 replaces the Pallas kernel `_knn2_kernel` (coocc_tpu/ops/pallas/knn.py:29,
 called from `knn2` :99). No model path calls it, in the JAX package or
 here: `knn2` is its entry point. At 8 fp32 operations per (query, key) pair
-and 12 bytes per point, operations bound it; the kernel runs one thread per
-query on the CUDA cores with each key tile staged in shared memory.
+and 12 bytes per point, operations bound it. The kernel stays on the CUDA
+cores (a TF32 or bf16 cross term would miss the 1e-4 distance tolerance):
+8 lanes split each staged key tile of a query and reduce their best twos
+by (d2, index), each thread holds 4 queries so a key read serves 4 pairs,
+and the merge across tiles runs per query in tile order, so the TPU
+kernel's tie rule holds. Its products and sums are rounded one by one, as
+here, so the two agree bit for bit.
 """
 from __future__ import annotations
 

@@ -14,19 +14,21 @@ The kernel replaces the TPU kernel coocc_tpu/ops/pallas/window_knn.py
 (`_kernel`, called from `_best2_ranks` through `window_knn_best2`). That
 kernel streamed (2rx+1)(2ry+1) pre-shifted int8 copies of the mask from HBM
 and carried best-2 ranks through a sequential grid. On the card the whole
-mask is 80 KB at the flagship 100x100x8 grid, so bytes are no bound (about
-0.7 MB moved in all, well under a microsecond at 3.35 TB/s); the work is the
-probe count, up to 2 per cell if the nearest offsets are active and O per
-cell (1,215 or 2,535) where the window is empty. The design: one block per
-4x8x8 tile of cells, which loads its tile plus the (rx, ry, rz) halo into
-shared memory as bytes (zero outside the grid) and the offset list as
-shared-memory deltas in rank order; each thread owns a cell, walks the
-offsets and stops at its second hit, then writes both ids.
+mask is 80 KB at the flagship 100x100x8 grid, so bytes are no bound; the
+work is the search. The kernel packs each (x, y) column of the mask into a
+32-bit word (bit z = cell z active, so Z <= 32) and walks the window's
+(dx, dy) columns in the order of `column_tables`: per column, bit
+operations find the two nearest active dz above and below the cell, the
+table gives their ranks, and the walk stops before the first chunk of
+WALK_CHUNK columns whose smallest rank cannot beat the second rank found
+(ranks only grow along the list, so this is exact). The ids are
+cell + delta(offset[rank]), as in the JAX package.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -103,13 +105,66 @@ def window_knn_plain(key_mask: torch.Tensor, offsets: np.ndarray,
     return ranks_to_ids(b1, b2, offsets, key_mask.shape)
 
 
+MAX_Z = 32      # one 32-bit word per (x, y) column of the grid
+WALK_CHUNK = 4  # columns the kernel loads per step (csrc CHUNK)
+
+
+class ColumnTables(NamedTuple):
+    """The kernel's walk over the window's (dx, dy) columns, NC of them,
+    sorted by `min_rank`. `ranks[c, dz + rz]` is the rank of offset
+    (dx, dy, dz) in the list, O where the list lacks it (clipped at
+    dist_thresh); `allow[c]` has bit dz + 32 set where it has it."""
+    dxdy: np.ndarray      # [NC, 2] int32
+    min_rank: np.ndarray  # [NC] int32, increasing
+    ranks: np.ndarray     # [NC, 2 rz + 1] int32
+    allow: np.ndarray     # [NC] uint64
+
+    def packed(self) -> np.ndarray:
+        """int32 [NC * 4 + NC * (2 rz + 1)] as the kernel reads it: a row
+        (dx << 16 | dy & 0xffff, min rank, allow low word, allow high word)
+        per column, then the rank rows."""
+        dx, dy = self.dxdy[:, 0].astype(np.int64), self.dxdy[:, 1]
+        head = np.stack([(dx << 16) | (dy & 0xFFFF),
+                         self.min_rank.astype(np.int64)], axis=1)
+        allow = self.allow.view(np.uint32).reshape(-1, 2).astype(np.int64)
+        head = np.concatenate([head, allow], axis=1)
+        flat = np.concatenate([head.reshape(-1), self.ranks.reshape(-1)])
+        return (flat & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+def column_tables(offsets: np.ndarray) -> ColumnTables:
+    """K1's walk tables for an offset list (make_offsets order)."""
+    offsets = np.asarray(offsets, dtype=np.int32)
+    O = len(offsets)
+    rx, ry, rz = _radii(offsets)
+    if rz >= MAX_Z:
+        raise ValueError(f"window_knn: rz {rz} >= {MAX_Z}")
+    col = (offsets[:, 0] + rx) * (2 * ry + 1) + offsets[:, 1] + ry
+    ranks = np.full(((2 * rx + 1) * (2 * ry + 1), 2 * rz + 1), O, np.int32)
+    ranks[col, offsets[:, 2] + rz] = np.arange(O, dtype=np.int32)
+    min_rank = ranks.min(axis=1)
+    cols = np.flatnonzero(min_rank < O)
+    cols = cols[np.argsort(min_rank[cols], kind="stable")]
+    bits = np.uint64(1) << (np.arange(-rz, rz + 1) + 32).astype(np.uint64)
+    allow = np.bitwise_or.reduce(
+        np.where(ranks[cols] < O, bits, np.uint64(0)), axis=1)
+    dxdy = np.stack([cols // (2 * ry + 1) - rx, cols % (2 * ry + 1) - ry], 1)
+    return ColumnTables(dxdy.astype(np.int32), min_rank[cols], ranks[cols],
+                        allow.astype(np.uint64))
+
+
+@functools.lru_cache(maxsize=8)
+def _packed_tables(raw: bytes) -> np.ndarray:
+    return column_tables(np.frombuffer(raw, np.int32).reshape(-1, 3)).packed()
+
+
 @functools.lru_cache(maxsize=1)
 def _launcher():
     fn = load_kernel_library("window_knn").window_knn_best2
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -135,14 +190,21 @@ def window_knn(key_mask: torch.Tensor, offsets: np.ndarray,
     if offsets.ndim != 2 or offsets.shape[1] != 3 or len(offsets) == 0:
         raise ValueError(f"window_knn: offsets must be [O, 3], got "
                          f"{offsets.shape}")
-    key_mask = key_mask.contiguous()
     X, Y, Z = key_mask.shape
+    if Z > MAX_Z:
+        raise ValueError(f"window_knn: the kernel packs a column of Z <= "
+                         f"{MAX_Z} cells into one word, got Z={Z}")
+    key_mask = key_mask.contiguous()
     rx, ry, rz = _radii(offsets)
+    table = _packed_tables(offsets.tobytes())
     offs = device_constant(offsets, key_mask.device)
+    dtable = device_constant(table, key_mask.device)
     out = torch.empty((X, Y, Z, 2), dtype=torch.int32,
                       device=key_mask.device)
-    err = _launcher()(key_mask.data_ptr(), offs.data_ptr(), len(offsets),
-                      X, Y, Z, rx, ry, rz, out.data_ptr(),
+    NC = len(table) // (4 + 2 * rz + 1)
+    err = _launcher()(key_mask.data_ptr(), dtable.data_ptr(), NC,
+                      2 * rz + 1, offs.data_ptr(), len(offsets), X, Y, Z,
+                      rx, ry, out.data_ptr(),
                       torch.cuda.current_stream(key_mask.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"window_knn kernel launch failed: CUDA error "
