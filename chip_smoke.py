@@ -5,29 +5,41 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. build: nvcc compiles every coocc_tpu_torch/csrc/*.cu for sm_90a, one
      process per source, all at once;
-  2. main path: the flagship eval forward (coocc_multi_r50_256x704, fp32,
-     B=1, seeded random weights, the default z-packed LiDAR encoder) through
-     coocc_tpu_torch.entry.entry(), warmed up once, then 3 requests
-     (synthetic batches of seeds 0, 1, 2) with the kernels' launch counts
-     read around them (per request: window_knn 2, subm_ext_conv 13, knn2
-     0); per-request and per-stage (stop_at prefixes) times, peak memory,
-     and a torch.profiler breakdown of device time by kernel (full forward
-     and pts stage) with the device's busy share;
-  3. dense path: the same weights with pts.impl="dense"; its pts prefix
+  2. main path, bf16: the flagship as it is served (coocc_multi_r50_256x704
+     in its config's bf16 compute, entry.served_model, B=1, seeded random
+     weights, the default z-packed LiDAR encoder), warmed up once, then 3
+     requests (synthetic batches of seeds 0, 1, 2) with the kernels' launch
+     counts set to 0 before them and read after them (per request:
+     window_knn 2, subm_ext_conv 13 on bf16 tensors, knn2 0); per-request
+     and per-stage (stop_at prefixes) times, peak memory, and a
+     torch.profiler breakdown of device time by kernel (full forward and
+     pts stage) with the device's busy share; every K2 call of a pts
+     prefix against its plain version on the call's own bf16 inputs; K2's
+     bf16 times and bound at those shapes. It runs before any profiler has
+     traced the process;
+  3. main path, fp32: the same through coocc_tpu_torch.entry.entry() (the
+     JAX entry's twin), with its own counts set to 0 (request times, peak
+     memory and the full forward's profile, no stages); K1's masks equal to
+     phase 2's; phase 2's outputs against these (occ drift, coarse argmax
+     agreement, common refined cells, each within a bound below);
+  4. dense path: the same weights with pts.impl="dense"; its pts prefix
      and request times and profile, and the packed encoder's pts_voxel
      held against the dense one at flagship shapes;
-  4. kernels against their plain PyTorch versions on the card, at the main
+  5. kernels against their plain PyTorch versions on the card, at the main
      path's shapes (and ragged ones), with times, bounds and library calls:
      window_knn (exact: the flagship windows on random and real masks, a
      clipped window, a Z=32 grid, the OpenOccupancy grid and windows; with
      the divergence of the old offset walk and the column walk),
-     subm_ext_conv (each epilogue mode, fp32 and bf16 inputs), knn2 (exact
-     on integer cell coordinates and on ties across key tiles, by distance
-     on floats);
-  5. the tiny config on the card against the same model on the CPU (the
-     route the tests hold against the JAX package), dense and packed.
-Prints the card, the kernels' JSON line and, last, the result line. Needs a
-CUDA card and the repository around it; it imports nothing of JAX.
+     subm_ext_conv (each epilogue mode, fp32 and bf16 inputs; fp32 times),
+     knn2 (exact on integer cell coordinates and on ties across key tiles,
+     by distance on floats);
+  6. the bench twin, `python -m coocc_tpu_torch.bench` (bf16), once;
+  7. the tiny config on the card against the same model on the CPU (the
+     route the tests hold against the JAX package), dense and packed in
+     fp32, packed in bf16.
+Prints the card, the kernels' JSON line (the served bf16 path's launches
+and K2 times, K2's fp32 ones beside them) and, last, the result line. Needs
+a CUDA card and the repository around it; it imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -59,6 +71,21 @@ PACKED_VS_DENSE_MEAN = 2e-3
 # rounding boundary).
 K2_FP32_REL = 2e-5
 BF16_ULP_REL = 2.0 ** -7
+# the served bf16 flagship against the fp32 one (same weights, same
+# requests). The drift starts in the image branch's depth net: at the
+# flagship's image shapes its logits reach 37 with seeded random weights,
+# and JAX's own bf16 forward moves them by up to 17% of that scale, 1.4% on
+# average (test_torch_bf16_modules.py, which holds the port to that drift).
+# The tiny config's logits are smaller and drift less, so its drift
+# understates the flagship's. The bounds allow about three times
+# (max) and twice (mean) the source's drift at the output, and the coarse
+# argmax to flip where the drift exceeds the top-2 gap; a wrong cast or a
+# wrong kernel instantiation moves occ by O(1) of its scale and the argmax
+# to chance (1 in 17).
+BF16_OCC_MAX = 0.5
+BF16_OCC_MEAN = 0.03
+BF16_ARGMAX_AGREE = 0.85
+BF16_COMMON_CELLS = 0.9
 
 
 def log(*a):
@@ -129,25 +156,35 @@ def check_outputs(out, cfg):
 PER_REQUEST = {"window_knn": 2, "subm_ext_conv": 13, "knn2": 0}
 
 
-def phase_main_path(kernels):
-    import torch
-    from coocc_tpu_torch.data.synthetic import synthetic_batch
+def phase_main_path(kernels, requests):
+    """The fp32 flagship through entry.entry(), the JAX entry's twin (its
+    batch is request 0's)."""
     from coocc_tpu_torch.entry import entry
+    model, _ = entry("cuda")
+    launches, outs, masks = drive_main_path(model, requests, kernels,
+                                            stages=False)
+    return model, launches, masks, outs
+
+
+def drive_main_path(model, requests, kernels, stages=True):
+    """One warm-up forward, then the 3 requests with the kernels' launch
+    counts set to 0 before them and read after them (and per request);
+    per-request times, peak memory, device time by kernel of the full
+    forward and, with `stages`, per-stage times and the pts stage's device
+    time by kernel. -> (launches, the requests' outputs on the host, K1's
+    two masks of request 0)."""
+    import torch
     from coocc_tpu_torch.models.coocc_ray import STAGES
     from coocc_tpu_torch.nn.sparse_enc_packed import PackedLiDAREnc8x
-
-    model, (batch,) = entry("cuda")
     cfg = model.cfg
     if type(model.pts_middle_encoder) is not PackedLiDAREnc8x:
         raise AssertionError("the flagship does not run the packed encoder")
-    model(batch)  # warm-up: cuDNN algorithm selection, allocator
+    model(requests[0])  # warm-up: cuDNN algorithm selection, allocator
     sync()
-    requests = [synthetic_batch(cfg, batch_size=1, seed=s).to("cuda")
-                for s in range(3)]
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
-    req_ms = []
+    req_ms, outs = [], []
     for i, b in enumerate(requests):
         before = {n: k.launches for n, k in kernels.items()}
         sync()
@@ -163,6 +200,7 @@ def phase_main_path(kernels):
         log(f"request {i} (seed {i}): {req_ms[-1]:.3f} ms, "
             f"fine_valid {int(out['fine_valid'].sum())}, "
             f"fine_overflow {int(out['fine_overflow'].sum())}")
+        outs.append({k: v.cpu() for k, v in out.items()})
     launches = {n: k.launches for n, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     log(f"main path launches: {launches}")
@@ -170,24 +208,33 @@ def phase_main_path(kernels):
         f"(median {statistics.median(req_ms):.3f})")
     log(f"peak memory allocated: {peak / 2**30:.3f} GiB")
 
-    prefix = {}
-    for stop in STAGES + (None,):
-        prefix[stop or "full"] = host_ms(lambda b: model(b, stop_at=stop),
-                                         requests)
-    prev = 0.0
-    for name, t in prefix.items():
-        log(f"stage {name:6s}: prefix {t:9.3f} ms, marginal {t - prev:9.3f}"
-            " ms")
-        prev = t
+    if stages:
+        prefix = {}
+        for stop in STAGES + (None,):
+            prefix[stop or "full"] = host_ms(
+                lambda b: model(b, stop_at=stop), requests)
+        prev = 0.0
+        for name, t in prefix.items():
+            log(f"stage {name:6s}: prefix {t:9.3f} ms, marginal "
+                f"{t - prev:9.3f} ms")
+            prev = t
     log("profile, full forward (device time by kernel):")
     device_breakdown(model, requests, 15)
-    log("profile, pts stage (voxelize + packed encoder, device time by "
-        "kernel):")
-    device_breakdown(pts_stage(model), requests, 12)
+    if stages:
+        log("profile, pts stage (voxelize + packed encoder, device time by "
+            "kernel):")
+        device_breakdown(pts_stage(model), requests, 12)
     pts = model(requests[0], stop_at="pts")
     masks = {"img": pts["img_voxel"][0].abs().sum(-1) != 0,
              "pts": pts["pts_voxel"][0].abs().sum(-1) != 0}
-    return model, requests, launches, masks
+    # request 0's stage outputs, for the drift between dtypes by stage
+    stage_outs = {k: v.cpu() for k, v in pts.items()}
+    stage_outs["voxel_feats"] = model(requests[0],
+                                      stop_at="fuse")["voxel_feats"].cpu()
+    for i, t in enumerate(model(requests[0], stop_at="sem")["semantic"]):
+        stage_outs[f"semantic[{i}]"] = t.cpu()
+    outs[0]["stages"] = stage_outs
+    return launches, outs, masks
 
 
 def pts_stage(model):
@@ -413,27 +460,6 @@ def warp_longest(per_cell, warp) -> int:
     return int(longest.sum())
 
 
-def k2_main_path_shapes(model, batch):
-    """(x shape, p, Co, dtype, epilogue) of every subm_ext_conv call of one
-    pts prefix, read by wrapping the encoder's reference to the wrapper for
-    one run."""
-    from coocc_tpu_torch.nn import sparse_enc_packed
-    calls = []
-    inner = sparse_enc_packed.subm_ext_conv
-
-    def record(x_pb, w27, p, mcell, bn=None, identity=None):
-        calls.append((tuple(x_pb.shape), p, w27.shape[2], x_pb.dtype,
-                      k2_mode(bn, identity)))
-        return inner(x_pb, w27, p, mcell, bn, identity)
-
-    sparse_enc_packed.subm_ext_conv = record
-    try:
-        model(batch, stop_at="pts")
-    finally:
-        sparse_enc_packed.subm_ext_conv = inner
-    return calls
-
-
 def k2_mode(bn, identity) -> str:
     return "mask" if bn is None else "bn_relu" if identity is None \
         else "bn_res_relu"
@@ -442,12 +468,13 @@ def k2_mode(bn, identity) -> str:
 K2_MODES = ("mask", "bn_relu", "bn_res_relu")
 
 
-def k2_work(shape, p, Co, mode):
+def k2_work(shape, p, Co, mode, esz):
     """(useful FLOP, bytes) one K2 call needs: the products of the
     extended weight's nonzero blocks only (a carry's at every pack but a
     sample's last or first), each input read once (x, the cell mask, the
     residual in bn_res_relu, the BN vectors, the weight panels) and the
-    output written once."""
+    output written once; esz is the activations' element size (4 fp32, 2
+    bf16)."""
     from coocc_tpu_torch.ops.subm_conv import KB, kblocks
     B, bz, X, Y, pC = shape
     C = pC // p
@@ -456,7 +483,6 @@ def k2_work(shape, p, Co, mode):
         packs = B * (bz if dg == 0 else bz - 1)
         ops += 2 * 9 * KB * width * packs * X * Y
     sites = B * bz * X * Y
-    esz = 4  # fp32, the main path's type
     nbytes = sites * (pC * esz + p * Co * esz + p)
     nbytes += 2 * 9 * KB * sum(w for *_, w in kblocks(p, C, Co))
     if mode != "mask":
@@ -466,106 +492,132 @@ def k2_work(shape, p, Co, mode):
     return ops, nbytes
 
 
-def phase_subm_conv(model, requests, launches):
-    """K2 against its plain version on the card in every epilogue mode, at
-    the main path's level shapes (res1, res2, res3; conv_out is res3's
-    shape) and two ragged ones, fp32 and bf16 inputs; times per forward
-    weighted by the main path's calls, beside the mask-only mode, the
-    unfused PyTorch epilogue, cuDNN bf16 on the concatenated input and the
-    concat it needs."""
-    import torch
-    import torch.nn.functional as F
-    from coocc_tpu_torch.ops.subm_conv import (BNAffine, epilogue_plain,
-                                               ext_conv_plain, shift_ext,
-                                               subm_ext_conv,
-                                               subm_ext_conv_plain,
-                                               subm_ext_weight)
-    calls = k2_main_path_shapes(model, requests[0])
+def k2_levels(calls, dtype):
+    """{(shape, p, Co): {mode: calls}} of one pts prefix's K2 calls, each
+    of which must take an x of `dtype`."""
     levels = {}
-    for shape, p, Co, dtype, mode in calls:
-        if dtype != torch.float32:
-            raise AssertionError(f"main path K2 input is {dtype}, not fp32")
+    for shape, p, Co, dt, mode in calls:
+        if dt != dtype:
+            raise AssertionError(f"main path K2 input is {dt}, not {dtype}")
         counts = levels.setdefault((shape, p, Co), dict.fromkeys(K2_MODES, 0))
         counts[mode] += 1
-    log(f"subm_ext_conv main-path calls per forward: "
+    log(f"subm_ext_conv main-path calls per forward ({str(dtype)[6:]}): "
         f"{[(s, p, Co, n) for (s, p, Co), n in levels.items()]}")
     if len(calls) != PER_REQUEST["subm_ext_conv"]:
         raise AssertionError(f"{len(calls)} K2 calls in one pts prefix")
+    return levels
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
+
+def k2_inputs(gen, shape, p, Co, dtype, n):
+    """n random inputs of one shape, with one weight, mask and BatchNorm: x
+    and the residual zero outside 30% of the cells, as the encoder's are."""
+    import torch
+    from coocc_tpu_torch.ops.subm_conv import BNAffine
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
+    B, bz, X, Y, pC = shape
+    C = pC // p
+    w27 = randn(27, C, Co) / (27 * C) ** 0.5
+    bn = BNAffine(0.3 * randn(Co), 0.5 + torch.rand(
+        Co, generator=gen, device="cuda"), 0.3 * randn(Co))
+    xs = []
+    for _ in range(n):
+        mcell = torch.rand((B, bz, X, Y, p), generator=gen,
+                           device="cuda") < 0.3
+        x = randn(*shape).reshape(B, bz, X, Y, p, C) * mcell[..., None]
+        idn = randn(B, bz, X, Y, p, Co) * mcell[..., None]
+        xs.append((x.reshape(shape).to(dtype), mcell,
+                   idn.reshape(B, bz, X, Y, p * Co).to(dtype)))
+    return xs, w27, bn
 
-    def inputs(shape, p, Co, dtype, n):
-        """n inputs of one shape, with one weight, mask and BatchNorm: x and
-        the residual zero outside 30% of the cells, as the encoder's are."""
-        B, bz, X, Y, pC = shape
-        C = pC // p
-        w27 = randn(27, C, Co) / (27 * C) ** 0.5
-        bn = BNAffine(0.3 * randn(Co), 0.5 + torch.rand(
-            Co, generator=gen, device="cuda"), 0.3 * randn(Co))
-        xs = []
-        for _ in range(n):
-            mcell = torch.rand((B, bz, X, Y, p), generator=gen,
-                               device="cuda") < 0.3
-            x = randn(*shape).reshape(B, bz, X, Y, p, C) * mcell[..., None]
-            idn = randn(B, bz, X, Y, p, Co) * mcell[..., None]
-            xs.append((x.reshape(shape).to(dtype), mcell,
-                       idn.reshape(B, bz, X, Y, p * Co).to(dtype)))
-        return xs, w27, bn
 
-    def args(mode, idn, bn):
-        """(bn, identity) for one epilogue mode."""
-        return (bn if mode != "mask" else None,
-                idn if mode == "bn_res_relu" else None)
+def k2_args(mode, idn, bn):
+    """(bn, identity) for one epilogue mode."""
+    return (bn if mode != "mask" else None,
+            idn if mode == "bn_res_relu" else None)
 
+
+def k2_check(x, w27, p, mcell, bn, identity):
+    """K2 against its plain version on one input: -> (max abs err, ok).
+    Both sum the same exact bf16 products in fp32, in other orders: the
+    conv within K2_FP32_REL of its scale, times the BN's gain through the
+    epilogue, an ulp of the epilogue's own fp32 roundings; a bf16 output
+    one bf16 ulp more (the two fp32 values may straddle a rounding
+    boundary)."""
+    import torch
+    from coocc_tpu_torch.ops.subm_conv import (ext_conv_plain,
+                                               subm_ext_conv,
+                                               subm_ext_conv_plain,
+                                               subm_ext_weight)
+    got = subm_ext_conv(x, w27, p, mcell, bn, identity).float()
+    ref = subm_ext_conv_plain(x, w27, p, mcell, bn, identity).float()
+    conv_scale = float(ext_conv_plain(
+        x.float(), subm_ext_weight(w27, p), x.shape[1],
+        x.shape[-1] // p).abs().max())
+    gain = 1.0 if bn is None else max(1.0, float(bn.inv.abs().max()))
+    tol = K2_FP32_REL * conv_scale * gain + 2.0 ** -21 * float(
+        ref.abs().max())
+    err = (got - ref).abs()
+    if x.dtype == torch.float32:
+        ok = float(err.max()) <= tol
+    else:
+        ulp = BF16_ULP_REL * torch.maximum(got.abs(), ref.abs())
+        ok = bool((err <= ulp + tol).all())
+    return float(err.max()), float(ref.abs().max()), conv_scale, ok
+
+
+def phase_subm_conv(model, requests):
+    """K2 against its plain version on the card: every call of the fp32
+    main path's pts prefix on its own inputs; random inputs in every
+    epilogue mode at those level shapes (res1, res2, res3; conv_out is
+    res3's shape) and two ragged ones, fp32 and bf16; the fp32 times per
+    forward. -> (max abs err over the fp32 cases, the fp32 times)."""
+    import torch
+    calls, max_err = k2_main_path_check(model, requests[0])
+    levels = k2_levels(calls, torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(s, p, Co, f"main path x{sum(n.values())}") for (s, p, Co), n
              in levels.items()]
     cases += [((2, 3, 37, 29, 128), 2, 64, "ragged B=2, p=2"),
               ((1, 2, 45, 51, 128), 4, 32, "ragged p=4")]
-    max_err = 0.0
     for shape, p, Co, name in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            [(x, mcell, idn)], w27, bn = inputs(shape, p, Co, dtype, 1)
-            # the conv's scale, and the BN's gain on its differences
-            conv_scale = float(ext_conv_plain(
-                x.float(), subm_ext_weight(w27, p), shape[1],
-                shape[-1] // p).abs().max())
+            [(x, mcell, idn)], w27, bn = k2_inputs(gen, shape, p, Co, dtype,
+                                                   1)
             for mode in K2_MODES:
-                a = args(mode, idn, bn)
-                got = subm_ext_conv(x, w27, p, mcell, *a).float()
-                ref = subm_ext_conv_plain(x, w27, p, mcell, *a).float()
+                err, scale, conv_scale, ok = k2_check(
+                    x, w27, p, mcell, *k2_args(mode, idn, bn))
                 sync()
-                scale = float(ref.abs().max())
-                gain = 1.0 if mode == "mask" else max(
-                    1.0, float(bn.inv.abs().max()))
-                # the conv's sums differ in order (K2_FP32_REL of its
-                # scale); the epilogue repeats the plain version's rounded
-                # ops in its order, so only that difference, times the
-                # BN's gain, and an ulp of the ops' own roundings remain
-                tol = K2_FP32_REL * conv_scale * gain + 2.0 ** -21 * scale
-                err = (got - ref).abs()
                 if dtype == torch.float32:
-                    ok = float(err.max()) <= tol
-                    max_err = max(max_err, float(err.max()))
-                else:
-                    ulp = BF16_ULP_REL * torch.maximum(got.abs(), ref.abs())
-                    ok = bool((err <= ulp + tol).all())
+                    max_err = max(max_err, err)
                 log(f"subm_ext_conv vs plain [{name} {shape} p={p} "
-                    f"{str(dtype)[6:]} {mode}]: max_abs_err "
-                    f"{float(err.max()):.6g}, scale {scale:.6g}, conv scale "
-                    f"{conv_scale:.6g}")
+                    f"{str(dtype)[6:]} {mode}]: max_abs_err {err:.6g}, "
+                    f"scale {scale:.6g}, conv scale {conv_scale:.6g}")
                 if not (ok and scale > 0):
                     raise AssertionError(
                         f"subm_ext_conv differs: {name} {dtype} {mode}")
+    return max_err, k2_times(gen, levels, torch.float32)
 
-    # times at the main path's shapes (fp32), each repeat on its own input
+
+def k2_times(gen, levels, dtype):
+    """K2's times per forward at the main path's shapes in `dtype`, each
+    repeat on its own input, weighted by the main path's calls per mode,
+    beside the mask-only mode, the unfused PyTorch epilogue, the plain
+    version, cuDNN bf16 on the concatenated input and the concat it needs;
+    and its bound from this work."""
+    import torch
+    import torch.nn.functional as F
+    from coocc_tpu_torch.ops.subm_conv import (epilogue_plain, shift_ext,
+                                               subm_ext_conv,
+                                               subm_ext_conv_plain,
+                                               subm_ext_weight)
     reps = 5
     kernel = mask_only = unfused = plain = library = concat = 0.0
     ops = nbytes = full_ops = 0
+    esz = torch.empty((), dtype=dtype).element_size()
     for (shape, p, Co), counts in levels.items():
-        xs, w27, bn = inputs(shape, p, Co, torch.float32, reps)
+        xs, w27, bn = k2_inputs(gen, shape, p, Co, dtype, reps)
         bz = shape[1]
         G, X, Y = shape[0] * bz, shape[2], shape[3]
         C = shape[-1] // p
@@ -575,17 +627,17 @@ def phase_subm_conv(model, requests, launches):
         for mode in K2_MODES:
             ms[mode] = timed_ms(
                 lambda x, m, i, mode=mode: subm_ext_conv(
-                    x, w27, p, m, *args(mode, i, bn)), reps,
+                    x, w27, p, m, *k2_args(mode, i, bn)), reps,
                 lambda i: xs[i])
         convs = [subm_ext_conv(x, w27, p, torch.ones_like(m)) for x, m, _ in
                  xs]
         e_ms = {mode: timed_ms(
             lambda c, m, i, mode=mode: epilogue_plain(
-                c, m, *args(mode, i, bn)), reps,
+                c, m, *k2_args(mode, i, bn)), reps,
             lambda i: (convs[i], xs[i][1], xs[i][2])) for mode in K2_MODES}
         p_ms = {mode: timed_ms(
             lambda x, m, i, mode=mode: subm_ext_conv_plain(
-                x, w27, p, m, *args(mode, i, bn)), 2,
+                x, w27, p, m, *k2_args(mode, i, bn)), 2,
             lambda i: xs[i]) for mode in K2_MODES}
         # library: cuDNN bf16 conv2d of the pre-concatenated extended input
         xb = [x.to(torch.bfloat16) for x, _, _ in xs]
@@ -598,9 +650,9 @@ def phase_subm_conv(model, requests, launches):
                         lambda i: (exts[i],))
         c_ms = timed_ms(lambda x: shift_ext(x, C), reps, lambda i: (xb[i],))
         del xs, xb, exts, convs
-        lvl_ops, _ = k2_work(shape, p, Co, "mask")
-        log(f"subm_ext_conv {shape} p={p} calls {counts}: kernel "
-            + ", ".join(f"{m} {ms[m]:.4f} ms" for m in K2_MODES)
+        lvl_ops, _ = k2_work(shape, p, Co, "mask", esz)
+        log(f"subm_ext_conv {str(dtype)[6:]} {shape} p={p} calls {counts}: "
+            "kernel " + ", ".join(f"{m} {ms[m]:.4f} ms" for m in K2_MODES)
             + f" ({lvl_ops / ms['mask'] / 1e9:.1f} TFLOP/s useful, mask "
             f"mode); unfused PyTorch epilogue "
             + ", ".join(f"{m} {e_ms[m]:.4f}" for m in K2_MODES)
@@ -611,7 +663,7 @@ def phase_subm_conv(model, requests, launches):
             kernel += k * ms[mode]
             unfused += k * e_ms[mode]
             plain += k * p_ms[mode]
-            o, b = k2_work(shape, p, Co, mode)
+            o, b = k2_work(shape, p, Co, mode, esz)
             ops += k * o
             nbytes += k * b
         mask_only += n * ms["mask"]
@@ -620,21 +672,47 @@ def phase_subm_conv(model, requests, launches):
         full_ops += n * 2 * G * X * Y * 9 * E * p * Co
     ops_ms = ops / BF16_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"subm_ext_conv per forward: fused kernel {kernel:.4f} ms (13 "
-        f"launches, {ops / kernel / 1e9:.1f} TFLOP/s useful), mask-only mode "
-        f"{mask_only:.4f} ms, unfused PyTorch epilogue {unfused:.4f} ms, "
-        f"plain {plain:.4f} ms, cuDNN bf16 {library:.4f} ms (+ concat "
-        f"{concat:.4f} ms, not in library_ms); bound {ops} useful FLOP -> "
-        f"{ops_ms:.4f} ms, {nbytes} bytes -> {bytes_ms:.4f} ms; full-K "
-        f"{full_ops} FLOP -> {full_ops / BF16_OPS_PER_S * 1e3:.4f} ms")
-    return {"name": "subm_ext_conv", "route": "cuda",
-            "source": "coocc_tpu_torch/csrc/subm_conv.cu",
-            "replaces": "coocc_tpu/ops/pallas/subm_conv.py:53",
-            "launches": launches["subm_ext_conv"], "max_abs_err": max_err,
-            "ms": kernel, "plain_ms": plain,
+    log(f"subm_ext_conv {str(dtype)[6:]} per forward: fused kernel "
+        f"{kernel:.4f} ms (13 launches, {ops / kernel / 1e9:.1f} TFLOP/s "
+        f"useful), mask-only mode {mask_only:.4f} ms, unfused PyTorch "
+        f"epilogue {unfused:.4f} ms, plain {plain:.4f} ms, cuDNN bf16 "
+        f"{library:.4f} ms (+ concat {concat:.4f} ms, not in library_ms); "
+        f"bound {ops} useful FLOP -> {ops_ms:.4f} ms, {nbytes} bytes -> "
+        f"{bytes_ms:.4f} ms; full-K {full_ops} FLOP -> "
+        f"{full_ops / BF16_OPS_PER_S * 1e3:.4f} ms")
+    return {"ms": kernel, "plain_ms": plain,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": library}
+
+
+def k2_main_path_check(model, batch):
+    """Every K2 call of one pts prefix against its plain version on the
+    call's own inputs (the main path's shapes, modes, data and dtype):
+    -> (the calls, each (x shape, p, Co, dtype, epilogue), max abs err)."""
+    from coocc_tpu_torch.nn import sparse_enc_packed
+    calls, worst = [], [0.0]
+    inner = sparse_enc_packed.subm_ext_conv
+
+    def check(x_pb, w27, p, mcell, bn=None, identity=None):
+        mode = k2_mode(bn, identity)
+        calls.append((tuple(x_pb.shape), p, w27.shape[2], x_pb.dtype, mode))
+        err, scale, conv_scale, ok = k2_check(x_pb, w27, p, mcell, bn,
+                                              identity)
+        log(f"subm_ext_conv vs plain [main path input {tuple(x_pb.shape)} "
+            f"p={p} {str(x_pb.dtype)[6:]} {mode}]: max_abs_err {err:.6g}, "
+            f"scale {scale:.6g}, conv scale {conv_scale:.6g}")
+        if not (ok and scale > 0):
+            raise AssertionError("subm_ext_conv differs on a main path input")
+        worst[0] = max(worst[0], err)
+        return inner(x_pb, w27, p, mcell, bn, identity)
+
+    sparse_enc_packed.subm_ext_conv = check
+    try:
+        model(batch, stop_at="pts")
+    finally:
+        sparse_enc_packed.subm_ext_conv = inner
+    return calls, worst[0]
 
 
 def phase_knn2(masks, launches):
@@ -755,12 +833,117 @@ def phase_knn2(masks, launches):
             "library_ms": l_ms}
 
 
+def phase_bf16_path(kernels, cfg, requests):
+    """The flagship as it is served, in its config's bf16 compute
+    (entry.served_model, the model of `python -m coocc_tpu_torch`): the
+    main path's requests, counts, times and profiles; every K2 call of a
+    pts prefix against its plain version on its own bf16 inputs, and K2's
+    bf16 times at those shapes. It runs first, before any profiler has
+    traced the process. -> (launches, outputs, K1's masks, K2's max abs err
+    on the main path, K2's bf16 times)."""
+    import torch
+    from coocc_tpu_torch.entry import served_model
+    model = served_model(cfg, "cuda")
+    if not (model.dtype == torch.bfloat16
+            and model.pts_middle_encoder.compute_dtype == torch.bfloat16):
+        raise AssertionError(f"the served flagship computes in {model.dtype}")
+    launches, outs, masks = drive_main_path(model, requests, kernels)
+    after = host_ms(model, requests)
+    log(f"request median after the profiler has traced the process: "
+        f"{after:.3f} ms")
+    calls, max_err = k2_main_path_check(model, requests[0])
+    levels = k2_levels(calls, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    times = k2_times(gen, levels, torch.bfloat16)
+    return launches, outs, masks, max_err, times
+
+
+def check_bf16_masks(masks16, masks32):
+    """K1's two masks are dtype-free: equal in the bf16 and fp32 runs."""
+    import torch
+    for key in ("img", "pts"):
+        if not torch.equal(masks16[key], masks32[key]):
+            raise AssertionError(f"K1's {key} mask differs between bf16 and "
+                                 "fp32")
+    log("K1's two masks (img, pts) are equal in bf16 and fp32: "
+        f"{int(masks16['img'].sum())} and {int(masks16['pts'].sum())} "
+        "active cells")
+
+
+def check_bf16_drift(outs16, outs32):
+    """The bf16 run's outputs against the fp32 run's, request by request:
+    JAX's output dtypes, finite values, and the occ drift, the coarse
+    argmax agreement and the share of common refined cells within the
+    BF16_* bounds."""
+    import torch
+    for key, t32 in outs32[0]["stages"].items():
+        t16 = outs16[0]["stages"][key]
+        if t16.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 run's {key} is {t16.dtype}")
+        scale = float(t32.abs().max())
+        err = (t16.float() - t32).abs()
+        log(f"bf16 vs fp32, request 0, {key}: max |diff| "
+            f"{float(err.max()) / scale:.6g} and mean "
+            f"{float(err.mean()) / scale:.6g} of max |fp32| {scale:.6g}")
+    for i, (o16, o32) in enumerate(zip(outs16, outs32)):
+        if o16["occ"].dtype != torch.bfloat16 or \
+                o16["fine_logits"].dtype != torch.float32:
+            raise AssertionError("bf16 outputs: occ must be bf16 and "
+                                 "fine_logits fp32, as JAX returns them")
+        occ16, occ32 = o16["occ"].float(), o32["occ"]
+        scale = float(occ32.abs().max())
+        err = (occ16 - occ32).abs()
+        rel_max, rel_mean = float(err.max()) / scale, \
+            float(err.mean()) / scale
+        agree = float((occ16.argmax(-1) == occ32.argmax(-1)).float().mean())
+
+        def cells(o):
+            return {tuple(c) for c, v in zip(o["fine_coords"][0].tolist(),
+                                             o["fine_valid"][0].tolist())
+                    if v}
+        c16, c32 = cells(o16), cells(o32)
+        common = len(c16 & c32) / max(1, len(c32))
+        log(f"bf16 vs fp32, request {i}: occ max |diff| {rel_max:.6g} and "
+            f"mean {rel_mean:.6g} of max |fp32 occ| {scale:.6g} (bounds "
+            f"{BF16_OCC_MAX}, {BF16_OCC_MEAN}); coarse argmax agreement "
+            f"{agree:.6f} (bound {BF16_ARGMAX_AGREE}); common fine cells "
+            f"{common:.6f} of {len(c32)} (bound {BF16_COMMON_CELLS})")
+        finite = all(bool(torch.isfinite(o16[k].float()).all())
+                     for k in ("occ", "fine_logits"))
+        if not (finite and rel_max <= BF16_OCC_MAX
+                and rel_mean <= BF16_OCC_MEAN and agree >= BF16_ARGMAX_AGREE
+                and common >= BF16_COMMON_CELLS):
+            raise AssertionError(f"bf16 outputs drift from fp32 (request "
+                                 f"{i})")
+
+
+def phase_bench():
+    """`python -m coocc_tpu_torch.bench` once (BENCH_ITERS=3, its default
+    bf16), in a process of its own; its JSON line is logged behind a
+    prefix."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "coocc_tpu_torch.bench"], cwd=ROOT,
+        env={**os.environ, "BENCH_ITERS": "3"}, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench failed: {proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    result = json.loads(lines[-1])
+    if len(lines) != 1 or result["dtype"] != "bf16" or not (
+            result["value"] > 0 and result["unit"] == "frames/sec"
+            and "power_limit" in result["device"]):
+        raise AssertionError(f"the bench printed {proc.stdout!r}")
+    log(f"bench (python -m coocc_tpu_torch.bench, BENCH_ITERS=3): "
+        f"{lines[-1]}")
+
+
 def phase_tiny_agreement():
     """The tiny config on the card against the CPU, with the dense encoder
     (fp32 throughout: 5e-3) and the default packed one (full outputs at
     5e-3; pts_voxel at the bf16 bounds above, K2's roundings on the two
-    devices compounding apart)."""
+    devices compounding apart); and the packed one in bf16."""
     import numpy as np
+    import torch
     from coocc_tpu_torch.data.synthetic import synthetic_batch, tiny_config
     from coocc_tpu_torch.entry import build_model
     for impl in ("dense", "auto"):
@@ -798,6 +981,26 @@ def phase_tiny_agreement():
         log(f"tiny config ({impl} encoder) cuda vs cpu: occ and {len(fa)} "
             f"fine rows agree (atol=rtol=5e-3); pts_voxel max_abs_err "
             f"{err.max():.6g}, mean {err.mean():.6g}, scale {scale:.6g}")
+    # bf16: the card's bf16 occ against the CPU's (the route the tests hold
+    # against JAX's bf16), within the rule the tests use: 2x (max) and
+    # 1.5x (mean) the CPU's own bf16-vs-fp32 drift
+    cfg = tiny_config()
+    occ = {}
+    for dev, dt in (("cpu", None), ("cpu", torch.bfloat16),
+                    ("cuda", torch.bfloat16)):
+        model = build_model(cfg, dev, seed=7, dtype=dt)
+        batch = synthetic_batch(cfg, batch_size=1, seed=3).to(dev)
+        occ[(dev, dt)] = model(batch)["occ"].float().cpu().numpy()
+    ref = occ[("cpu", torch.bfloat16)]
+    own = np.abs(ref - occ[("cpu", None)])
+    card = np.abs(occ[("cuda", torch.bfloat16)] - ref)
+    log(f"tiny config bf16, cuda vs cpu: occ max |diff| {card.max():.6g}, "
+        f"mean {card.mean():.6g}; the cpu's bf16-vs-fp32 drift max "
+        f"{own.max():.6g}, mean {own.mean():.6g}")
+    if not (card.max() <= 2.0 * own.max()
+            and card.mean() <= 1.5 * own.mean()):
+        raise AssertionError("tiny bf16: the card's occ differs from the "
+                             "cpu's by more than bf16 noise")
 
 
 def main():
@@ -806,7 +1009,11 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
         sys.exit(2)
+    t0 = time.perf_counter()
     sys.path.insert(0, ROOT)
+    from coocc_tpu_torch.config import get_config
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.entry import FLAGSHIP
     from coocc_tpu_torch.ops._build import load_all_kernel_libraries
     from coocc_tpu_torch.ops.knn import knn2
     from coocc_tpu_torch.ops.subm_conv import subm_ext_conv
@@ -819,7 +1026,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
-        "torch.backends.cudnn.allow_tf32 = False (fp32 throughout)")
+        "torch.backends.cudnn.allow_tf32 = False (fp32 is fp32)")
 
     for name, secs in sorted(load_all_kernel_libraries().items()):
         log(f"build csrc/{name}.cu: {secs:.2f} s (nvcc, sm_90a, in "
@@ -827,21 +1034,51 @@ def main():
 
     kernels = {"window_knn": window_knn, "subm_ext_conv": subm_ext_conv,
                "knn2": knn2}
-    model, requests, launches, masks = phase_main_path(kernels)
+    cfg = get_config(FLAGSHIP)
+    requests = [synthetic_batch(cfg, batch_size=1, seed=s).to("cuda")
+                for s in range(3)]
+    log(f"[{time.perf_counter() - t0:.1f} s] main path, bf16 (the config's "
+        "compute_dtype, as served):")
+    launches, outs16, masks16, k2_err, k2_times16 = phase_bf16_path(
+        kernels, cfg, requests)
     if any(launches[n] == 0 for n, per in PER_REQUEST.items() if per):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     log("knn2 has no caller on the main path (none in the JAX package "
         "either): 0 launches per forward; its entry point is knn2()")
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t0:.1f} s] main path, fp32 (entry.entry(), "
+        "the JAX entry's twin):")
+    model, launches32, masks, outs32 = phase_main_path(kernels, requests)
+    check_bf16_masks(masks16, masks)
+    check_bf16_drift(outs16, outs32)
+    del outs16, outs32
+    log(f"[{time.perf_counter() - t0:.1f} s] dense path:")
     phase_dense_path(model, requests)
-    rows = [phase_window_knn(model, masks, launches),
-            phase_subm_conv(model, requests, launches),
-            phase_knn2(masks, launches)]
+    log(f"[{time.perf_counter() - t0:.1f} s] kernels against their plain "
+        "versions:")
+    k1_row = phase_window_knn(model, masks, launches32)
+    k2_err32, k2_times32 = phase_subm_conv(model, requests)
+    k3_row = phase_knn2(masks, launches32)
     del model, requests
     torch.cuda.empty_cache()
+    # the kernels' rows describe the served (bf16) path; K2's fp32
+    # instantiation, which entry() runs, is kept beside it
+    k2_row = {"name": "subm_ext_conv", "route": "cuda",
+              "source": "coocc_tpu_torch/csrc/subm_conv.cu",
+              "replaces": "coocc_tpu/ops/pallas/subm_conv.py:53",
+              "launches": launches["subm_ext_conv"], "max_abs_err": k2_err,
+              **k2_times16, "dtype": "bfloat16",
+              "fp32": {"launches": launches32["subm_ext_conv"],
+                       "max_abs_err": k2_err32, **k2_times32}}
+    rows = [k1_row, k2_row, k3_row]
+    for row in (k1_row, k3_row):
+        row["launches"] = launches[row["name"]]
+    log(f"[{time.perf_counter() - t0:.1f} s] bench and tiny config:")
+    phase_bench()
     phase_tiny_agreement()
 
-    log(f"card: {card_line()}")
+    log(f"[{time.perf_counter() - t0:.1f} s] card: {card_line()}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

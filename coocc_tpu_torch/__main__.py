@@ -2,6 +2,8 @@
 
     python -m coocc_tpu_torch coocc_multi_r50_256x704 --requests 3
 
+The twin of `tools/test.py --synthetic`: the model computes in the config's
+`compute_dtype` (bf16 for the flagship), as tools/test.py:76-78 maps it.
 Request i uses the synthetic batch of seed i; the weights are random (seed
 0). Raises when there is no CUDA card.
 """
@@ -14,7 +16,7 @@ import torch
 
 from .config import get_config
 from .data.synthetic import synthetic_batch
-from .entry import FLAGSHIP, build_model
+from .entry import FLAGSHIP, served_model
 
 
 def main(argv=None):
@@ -25,10 +27,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.config)
-    model = build_model(cfg, "cuda", seed=0)
+    model = served_model(cfg, "cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"device: {torch.cuda.get_device_name()} (fp32, TF32 off)")
+    print(f"device: {torch.cuda.get_device_name()} (compute dtype "
+          f"{str(model.dtype)[6:]}, TF32 off)")
     for i in range(args.requests):
         batch = synthetic_batch(cfg, batch_size=1, seed=i).to("cuda")
         torch.cuda.synchronize()

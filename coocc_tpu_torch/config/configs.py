@@ -1,8 +1,9 @@
 """The shipped config names, reproduced with the reference's exact knobs.
 
 A copy of coocc_tpu/config/configs.py (tests/test_torch_data.py pins every
-registered config equal across the two packages). `compute_dtype` is read by
-no code of the port yet: its forward computes in fp32.
+registered config equal across the two packages). `compute_dtype` picks the
+model dtype where the JAX CLIs pick it: `python -m coocc_tpu_torch` serves
+in it (`entry.served_model`).
 
 Reference config files (projects/configs/coocc_nusc/):
   coocc_lidar.py, coocc_cam_r101_896x1600.py, coocc_multi_r50_256x704.py,

@@ -1,13 +1,15 @@
 """Entry point: the flagship eval forward with seeded random weights.
 
 The twin of `__graft_entry__.entry()`: `entry()` builds CoOccRay for
-coocc_multi_r50_256x704 (fp32, B=1) with random weights drawn from a seeded
-`torch.Generator` and a synthetic batch, and returns `(fn, args)` with
-`fn(*args)` the eval forward.
+coocc_multi_r50_256x704 (fp32, B=1, as the JAX entry is) with random
+weights drawn from a seeded `torch.Generator` and a synthetic batch, and
+returns `(fn, args)` with `fn(*args)` the eval forward. `served_model`
+builds the model the CLI serves, in the config's `compute_dtype`.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -62,9 +64,20 @@ def init_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     return model
 
 
-def build_model(cfg: CoOccConfig, device="cuda", seed: int = 0) -> CoOccRay:
+def build_model(cfg: CoOccConfig, device="cuda", seed: int = 0,
+                dtype: Optional[torch.dtype] = None) -> CoOccRay:
+    """CoOccRay(cfg, dtype) with the seeded random weights, in eval mode, on
+    `device`; the weights are drawn in fp32 and stay fp32."""
     device = resolve_device(device)
-    return init_weights(CoOccRay(cfg), seed).eval().to(device)
+    return init_weights(CoOccRay(cfg, dtype), seed).eval().to(device)
+
+
+def served_model(cfg: CoOccConfig, device="cuda") -> CoOccRay:
+    """The model `python -m coocc_tpu_torch` answers with: weights of seed
+    0, in the config's compute dtype, mapped as the JAX CLIs map it
+    (tools/test.py:76-78)."""
+    dtype = {"bfloat16": torch.bfloat16, "float32": None}[cfg.compute_dtype]
+    return build_model(cfg, device, seed=0, dtype=dtype)
 
 
 def entry(device="cuda"):

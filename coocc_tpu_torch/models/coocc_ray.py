@@ -74,7 +74,7 @@ class Batch(NamedTuple):
         return Batch(*(move(a) for a in self))
 
 
-def _lidar_encoder(pts) -> nn.Module:
+def _lidar_encoder(pts, compute_dtype: torch.dtype) -> nn.Module:
     """The encoder `pts.impl` names, resolved as the JAX model resolves it
     (coocc_tpu/models/coocc_ray.py:130-178): 'auto' is 'packed' for
     SparseLiDAREnc8x. Both impls have one set of parameters."""
@@ -89,13 +89,21 @@ def _lidar_encoder(pts) -> nn.Module:
             f"pts.ztap_levels={tuple(pts.ztap_levels)} (the z-batch tap "
             "form) is not ported")
     cls = PackedLiDAREnc8x if impl == "packed" else DenseLiDAREnc8x
-    return cls(pts.input_channel, pts.base_channel, pts.out_channel)
+    return cls(pts.input_channel, pts.base_channel, pts.out_channel,
+               compute_dtype)
 
 
 class CoOccRay(nn.Module):
-    def __init__(self, cfg: CoOccConfig):
+    """dtype is the JAX model's: None computes in fp32, torch.bfloat16 in
+    bf16 (coocc_tpu/models/coocc_ray.py:69). The parameters and BN
+    statistics stay fp32 either way and are cast where they are used; the
+    model casts its inputs (the images, the LiDAR occupancy) to the compute
+    dtype and each layer follows its input's dtype (nn/layers.py)."""
+
+    def __init__(self, cfg: CoOccConfig, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype or torch.float32
         if cfg.use_camera:
             if cfg.img_backbone.type != "ResNet":
                 raise NotImplementedError(
@@ -109,7 +117,7 @@ class CoOccRay(nn.Module):
                                       cfg.img_neck.upsample_strides)
             self.img_view_transformer = LSSViewTransformerVoxel(cfg)
         if cfg.use_lidar:
-            self.pts_middle_encoder = _lidar_encoder(cfg.pts)
+            self.pts_middle_encoder = _lidar_encoder(cfg.pts, self.dtype)
         fz = cfg.fuser
         if fz is not None:
             self.occ_fuser = BiFuserN(
@@ -132,8 +140,9 @@ class CoOccRay(nn.Module):
 
     def _image_voxels(self, batch: Batch):
         B, N, H, W, _ = batch.imgs.shape
+        # the images enter the compute dtype at the first conv, as flax's
         x = batch.imgs.reshape(B * N, H, W, 3).permute(0, 3, 1, 2)
-        x = self.img_neck(self.img_backbone(x))
+        x = self.img_neck(self.img_backbone(x.to(self.dtype)))
         img_feats = x.reshape(B, N, *x.shape[1:])  # [B, N, C, fH, fW]
         mlp_input = get_mlp_input(batch.rots, batch.trans, batch.intrins,
                                   batch.post_rots, batch.post_trans,
@@ -150,7 +159,8 @@ class CoOccRay(nn.Module):
                           cfg.pts.sparse_shape_xyz,
                           max_voxels=cfg.pts.max_voxels_test)
             for p, m in zip(batch.points, batch.points_mask)])
-        return self.pts_middle_encoder(occupancy)
+        # the encoders return fp32 (JAX coocc_ray.py:178 casts back)
+        return self.pts_middle_encoder(occupancy).to(self.dtype)
 
     @torch.no_grad()
     def forward(self, batch: Batch, stop_at: Optional[str] = None):
@@ -159,7 +169,9 @@ class CoOccRay(nn.Module):
         'img' -> img_voxel, 'pts' -> + pts_voxel ([B, X, Y, Z, C]),
         'fuse' -> voxel_feats, 'sem' -> semantic (list), 'coarse' -> occ.
         The full forward returns occ, fine_logits, fine_coords, fine_valid
-        and fine_overflow."""
+        and fine_overflow. Every feature output is in the compute dtype
+        but fine_logits, which the cascade's last fc makes in fp32, as
+        JAX's prefixes return them."""
         if stop_at is not None and stop_at not in STAGES:
             raise ValueError(f"stop_at must be one of {STAGES}")
         cfg = self.cfg

@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.window_knn import make_offsets, window_knn
-from .layers import BatchNorm
+from .layers import BatchNorm, Conv3d, Linear
 
 
 class BiFuserN(nn.Module):
@@ -28,12 +28,12 @@ class BiFuserN(nn.Module):
         self.offsets = make_offsets(*window, dist_thresh)
         self.offsets_img = make_offsets(*window_img, dist_thresh)
         c = out_channels
-        self.knn_enc = nn.Sequential(nn.Linear(in_channels * knum, c),
+        self.knn_enc = nn.Sequential(Linear(in_channels * knum, c),
                                      nn.ReLU())
         self.con_enc = nn.Sequential(
-            nn.Conv3d(in_channels * 4, c * 2, 3, padding=1, bias=False),
+            Conv3d(in_channels * 4, c * 2, 3, padding=1, bias=False),
             BatchNorm(c * 2), nn.ReLU(),
-            nn.Conv3d(c * 2, c, 3, padding=1, bias=False),
+            Conv3d(c * 2, c, 3, padding=1, bias=False),
             BatchNorm(c), nn.ReLU())
 
     @staticmethod

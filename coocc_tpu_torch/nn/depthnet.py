@@ -13,14 +13,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dcn import deform_conv2d
-from .layers import BatchNorm
+from .layers import BatchNorm, Conv2d, Linear
 
 
 class Mlp(nn.Module):
     def __init__(self, cin: int, hidden: int, cout: int):
         super().__init__()
-        self.fc1 = nn.Linear(cin, hidden)
-        self.fc2 = nn.Linear(hidden, cout)
+        self.fc1 = Linear(cin, hidden)
+        self.fc2 = Linear(hidden, cout)
 
     def forward(self, x):
         return self.fc2(F.relu(self.fc1(x)))
@@ -32,22 +32,23 @@ class SELayer(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv_reduce = nn.Conv2d(channels, channels, 1)
-        self.conv_expand = nn.Conv2d(channels, channels, 1)
+        self.conv_reduce = Conv2d(channels, channels, 1)
+        self.conv_expand = Conv2d(channels, channels, 1)
 
     def forward(self, x, x_se):
-        se = F.relu(F.linear(x_se, self.conv_reduce.weight.flatten(1),
-                             self.conv_reduce.bias))
-        se = F.linear(se, self.conv_expand.weight.flatten(1),
-                      self.conv_expand.bias)
+        dt = x_se.dtype
+        se = F.relu(F.linear(x_se, self.conv_reduce.weight.flatten(1).to(dt),
+                             self.conv_reduce.bias.to(dt)))
+        se = F.linear(se, self.conv_expand.weight.flatten(1).to(dt),
+                      self.conv_expand.bias.to(dt))
         return x * torch.sigmoid(se)[:, :, None, None]
 
 
 class _ASPPModule(nn.Module):
     def __init__(self, cin, planes, k, padding, dilation):
         super().__init__()
-        self.atrous_conv = nn.Conv2d(cin, planes, k, 1, padding, dilation,
-                                     bias=False)
+        self.atrous_conv = Conv2d(cin, planes, k, 1, padding, dilation,
+                                  bias=False)
         self.bn = BatchNorm(planes)
 
     def forward(self, x):
@@ -66,9 +67,9 @@ class ASPP(nn.Module):
         self.aspp4 = _ASPPModule(inplanes, mid, 3, 18, 18)
         self.global_avg_pool = nn.Sequential(
             nn.AdaptiveAvgPool2d((1, 1)),
-            nn.Conv2d(inplanes, mid, 1, bias=False), BatchNorm(mid),
+            Conv2d(inplanes, mid, 1, bias=False), BatchNorm(mid),
             nn.ReLU())
-        self.conv1 = nn.Conv2d(mid * 5, mid, 1, bias=False)
+        self.conv1 = Conv2d(mid * 5, mid, 1, bias=False)
         self.bn1 = BatchNorm(mid)
 
     def forward(self, x):
@@ -85,9 +86,9 @@ class BasicBlock2D(nn.Module):
 
     def __init__(self, planes: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv1 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn1 = BatchNorm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm(planes)
 
     def forward(self, x):
@@ -104,7 +105,7 @@ class DCN(nn.Module):
         self.groups = groups
         self.weight = nn.Parameter(
             torch.zeros(channels, channels // groups, 3, 3))
-        self.conv_offset = nn.Conv2d(channels, 18, 3, 1, 1)
+        self.conv_offset = Conv2d(channels, 18, 3, 1, 1)
 
     def forward(self, x):
         return deform_conv2d(x, self.conv_offset(x), self.weight, padding=1,
@@ -117,9 +118,9 @@ class DepthNet(nn.Module):
                  cam_channels: int = 27):
         super().__init__()
         self.reduce_conv = nn.Sequential(
-            nn.Conv2d(in_channels, mid_channels, 3, 1, 1),
+            Conv2d(in_channels, mid_channels, 3, 1, 1),
             BatchNorm(mid_channels), nn.ReLU())
-        self.context_conv = nn.Conv2d(mid_channels, context_channels, 1)
+        self.context_conv = Conv2d(mid_channels, context_channels, 1)
         self.bn = BatchNorm(cam_channels)
         self.depth_mlp = Mlp(cam_channels, mid_channels, mid_channels)
         self.depth_se = SELayer(mid_channels)
@@ -129,11 +130,13 @@ class DepthNet(nn.Module):
             BasicBlock2D(mid_channels), BasicBlock2D(mid_channels),
             BasicBlock2D(mid_channels), ASPP(mid_channels, mid_channels),
             DCN(mid_channels, groups=4),
-            nn.Conv2d(mid_channels, depth_channels, 1))
+            Conv2d(mid_channels, depth_channels, 1))
 
     def forward(self, x, mlp_input):
-        """x [BN, Cin, fH, fW]; mlp_input [BN, cam_channels]."""
-        mlp_input = self.bn(mlp_input)
+        """x [BN, Cin, fH, fW] in the compute dtype; mlp_input [BN,
+        cam_channels] fp32, normalized in fp32 and rounded to x's dtype (the
+        JAX BatchNorm's `dtype=self.dtype`)."""
+        mlp_input = self.bn(mlp_input).to(x.dtype)
         x = self.reduce_conv(x)
         context = self.context_se(x, self.context_mlp(mlp_input))
         context = self.context_conv(context)

@@ -12,7 +12,7 @@ from typing import Sequence
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm
+from .layers import BatchNorm, Conv3d
 
 
 class ConvModule3d(nn.Module):
@@ -20,7 +20,7 @@ class ConvModule3d(nn.Module):
 
     def __init__(self, cin: int, cout: int, k: int, p: int):
         super().__init__()
-        self.conv = nn.Conv3d(cin, cout, k, 1, p, bias=False)
+        self.conv = Conv3d(cin, cout, k, 1, p, bias=False)
         self.bn = BatchNorm(cout)
 
     def forward(self, x):

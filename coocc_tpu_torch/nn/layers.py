@@ -1,12 +1,26 @@
-"""Normalization with the reference's parameter names and eps (eval mode).
+"""Layers with the reference's parameter names, computing in the dtype of
+their input (eval mode).
 
-Counterpart of coocc_tpu/nn/layers.py. Convolutions, Linear and GroupNorm
-are torch's own modules (`nn.Conv2d`, `nn.Conv3d`, `nn.Linear`,
-`nn.GroupNorm`); their state_dict names already are the reference
-checkpoint's. BatchNorm gets one class here because this slice is the eval
-forward only: it always normalizes with the running statistics, and it keeps
-no `num_batches_tracked` counter (a counter the JAX variables cannot carry,
-so `convert.state_dict_from_jax` round-trips exactly).
+Counterpart of coocc_tpu/nn/layers.py. The flax modules there take a
+compute `dtype` and keep their parameters in fp32, casting them at use; the
+port's model casts its inputs to the compute dtype once (models/coocc_ray.py)
+and every layer here follows the dtype of the activation it is given:
+
+  * `Conv2d`, `Conv3d`, `ConvTranspose2d`, `Linear`: torch's modules (their
+    state_dict names are the reference checkpoint's) with the weight and
+    bias cast to the input's dtype at the call (`ops/conv.py`). A bf16
+    convolution sums in fp32 and rounds once, as JAX's conv with
+    `preferred_element_type=fp32` followed by `astype(bf16)` does; the bias
+    is added inside the same call, where flax adds it in bf16 after the
+    rounding (one bf16 ulp apart at most).
+  * `BatchNorm`: fp32 running statistics and affine, one rounding to the
+    input's dtype (flax's BatchNorm with `dtype` set). It keeps no
+    `num_batches_tracked` counter (a counter the JAX variables cannot carry,
+    so `convert.state_dict_from_jax` round-trips exactly).
+  * `softmax`: jax.nn.softmax's roundings.
+
+Parameters and BN statistics stay fp32 whatever the compute dtype: the model
+is never cast as a whole.
 """
 from __future__ import annotations
 
@@ -14,9 +28,43 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.conv import conv
+
+
+class Conv2d(nn.Conv2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a dilated kernel that spans the whole input (ASPP's dilations 12
+        # and 18 on the flagship's 16-row maps) gets cuDNN's direct kernel
+        # in bf16, 12-20x slower than the fp32 conv of the same values
+        # (PERF.md): those take the fp32 route, the same numerics
+        wide = any(d * (k - 1) >= n for d, k, n in zip(
+            self.dilation, self.kernel_size, x.shape[2:]))
+        return conv(F.conv2d, x, self.weight, self.bias, self.stride,
+                    self.padding, self.dilation, self.groups,
+                    via_fp32=wide and self.dilation != (1, 1))
+
+
+class Conv3d(nn.Conv3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv(F.conv3d, x, self.weight, self.bias, self.stride,
+                    self.padding, self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv(F.conv_transpose2d, x, self.weight, self.bias,
+                    self.stride, self.padding, self.output_padding,
+                    self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv(F.linear, x, self.weight, self.bias)
+
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over dim 1 of [N, C, ...] (1d, 2d and 3d alike).
+    """Eval-mode BatchNorm over dim 1 of [N, C, ...] (1d, 2d and 3d alike),
+    in fp32 with one rounding to the input's dtype.
 
     eps follows the call site, as in the reference: 1e-5 is torch's and the
     JAX BatchNorm's default; SECONDFPN passes 1e-3.
@@ -41,3 +89,13 @@ class BatchNorm(nn.Module):
 
     def extra_repr(self) -> str:
         return f"{self.weight.shape[0]}, eps={self.eps}"
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """jax.nn.softmax with its roundings: in fp32 torch's softmax; in a
+    narrower dtype the shift, the exp and the quotient each round to it and
+    the sum is taken in fp32 and rounded once, as JAX computes it."""
+    if x.dtype == torch.float32:
+        return x.softmax(dim)
+    e = torch.exp(x - x.amax(dim, keepdim=True))
+    return e / e.sum(dim, keepdim=True, dtype=torch.float32).to(x.dtype)

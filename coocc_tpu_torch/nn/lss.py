@@ -12,6 +12,7 @@ from ..config.base import CoOccConfig
 from ..geometry.frustum import create_frustum, gen_dx_bx, get_geometry
 from ..ops.lift_splat import lift_splat
 from .depthnet import DepthNet
+from .layers import softmax
 
 
 class LSSViewTransformerVoxel(nn.Module):
@@ -30,22 +31,23 @@ class LSSViewTransformerVoxel(nn.Module):
 
     def forward(self, x, rots, trans, intrins, post_rots, post_trans, bda,
                 mlp_input):
-        """Returns (voxels [B, X, Y, Z, C], depth_prob [B, N, fH, fW, D],
-        geom [B, N, D, fH, fW, 3])."""
+        """Returns (voxels [B, X, Y, Z, C] in x's dtype, depth_prob [B, N,
+        fH, fW, D], geom [B, N, D, fH, fW, 3]). The splat weights and sums
+        are fp32 whatever the compute dtype (JAX lss.py:85-90)."""
         cfg = self.cfg
         B, N, Cin, fH, fW = x.shape
         D = cfg.grid.num_depth_bins
         out = self.depth_net(x.reshape(B * N, Cin, fH, fW),
                              mlp_input.reshape(B * N, -1))
-        depth_prob = out[:, :D].softmax(dim=1)  # [BN, D, fH, fW]
+        depth_prob = softmax(out[:, :D], dim=1)  # [BN, D, fH, fW]
         img_feat = out[:, D:D + cfg.lss.numC_Trans]
         geom = get_geometry(self.frustum, rots, trans, intrins, post_rots,
                             post_trans, bda)
         dx, bx, nx = gen_dx_bx(cfg.grid.xbound, cfg.grid.ybound,
                                cfg.grid.zbound)
-        bev = lift_splat(depth_prob.reshape(B, N, D, fH, fW),
+        bev = lift_splat(depth_prob.reshape(B, N, D, fH, fW).float(),
                          img_feat.reshape(B, N, -1, fH, fW)
                          .permute(0, 1, 3, 4, 2),
                          geom, dx, bx, nx)
-        return (bev, depth_prob.reshape(B, N, D, fH, fW)
+        return (bev.to(x.dtype), depth_prob.reshape(B, N, D, fH, fW)
                 .permute(0, 1, 3, 4, 2), geom)

@@ -3,14 +3,17 @@
 Counterpart of coocc_tpu/nn/occ_head.py `OccHead` at eval (reference
 dense_heads/occ_head.py:16-237). The coarse half: per-level conv+BN+ReLU,
 softmax-weighted blend of all levels at the finest one, 1x1x1 prediction
-stack. The cascade re-classifies the ratio^3 children of the occupied
-coarse cells: the first `max_coarse_occupied` occupied cells in index order
-(a static capacity, exactly as the JAX package caps it), their children's
-trilinear samples of the blended features (F.grid_sample 3D,
-align_corners=False) and the masked camera-sum of bilinear samples of the
-image features (F.grid_sample 2D, align_corners=True), then the fine MLP.
-The fc layers run after the sampling, as in the reference; the JAX package
-folds them into the sampled tables, which is the same linear map.
+stack, in the compute dtype. The cascade re-classifies the ratio^3 children
+of the occupied coarse cells: the first `max_coarse_occupied` occupied cells
+in index order (a static capacity, exactly as the JAX package caps it),
+their children's trilinear samples of the blended features
+(align_corners=False) and the masked camera-sum of bilinear samples of the
+image features (align_corners=True), then the fine MLP. It follows the JAX
+package's order, which sets its roundings in bf16: the fc weights are
+folded into the sampled tables first (the same linear map), the samplers
+round their weights to the compute dtype and sum in fp32
+(ops/grid_sample.py), the accumulator, the GroupNorms and the last fc are
+fp32.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config.base import OccHeadConfig
-from .layers import BatchNorm
+from ..ops.grid_sample import cascade_sample_3d, multicam_bilinear
+from .layers import BatchNorm, Conv3d, softmax
 
 
 def select_occupied(coarse_mask: torch.Tensor, capacity: int):
@@ -74,7 +78,7 @@ def project_points_on_img(points, rots, trans, intrins, post_rots, post_trans,
 
 
 def _conv_bn_relu(cin, cout, k, p):
-    return nn.Sequential(nn.Conv3d(cin, cout, k, 1, p, bias=False),
+    return nn.Sequential(Conv3d(cin, cout, k, 1, p, bias=False),
                          BatchNorm(cout), nn.ReLU())
 
 
@@ -86,17 +90,18 @@ class OccHead(nn.Module):
             _conv_bn_relu(c, c // 2, 3, 1) for c in cfg.in_channels)
         mid = cfg.in_channels[0] // 2
         pred = _conv_bn_relu(mid, mid // 2, 1, 0)
-        pred.append(nn.Conv3d(mid // 2, cfg.out_channel, 1, bias=False))
+        pred.append(Conv3d(mid // 2, cfg.out_channel, 1, bias=False))
         self.occ_pred_conv = pred
         if cfg.soft_weights:
             soft = _conv_bn_relu(mid, mid // 2, 1, 0)
-            soft.append(nn.Conv3d(mid // 2, cfg.num_level, 1, bias=False))
+            soft.append(Conv3d(mid // 2, cfg.num_level, 1, bias=False))
             self.voxel_soft_weights = soft
         self.cascade = cfg.cascade_ratio != 1 and (
             cfg.sample_from_voxel or cfg.sample_from_img)
         if not self.cascade:
             return
-        # the reference's hardcoded cascade widths (occ_head.py:66-82)
+        # the reference's hardcoded cascade widths (occ_head.py:66-82); the
+        # cascade reads these modules' parameters (see _fine)
         vox_dim = mid if cfg.sample_from_voxel else 0
         img_dim = 64 if cfg.sample_from_img else 0
         if cfg.sample_from_img:
@@ -111,11 +116,12 @@ class OccHead(nn.Module):
 
     def coarse(self, voxel_feats):
         """list of [B, C_i, X_i, Y_i, Z_i] -> (blended [B, mid, X, Y, Z],
-        logits [B, out, X, Y, Z]) at the finest level."""
+        logits [B, out, X, Y, Z]) at the finest level, in the features'
+        dtype (the blend weights too, JAX occ_head.py:223)."""
         cfg = self.cfg
         outs = [conv(f) for conv, f in zip(self.occ_convs, voxel_feats)]
         if cfg.soft_weights:
-            w = self.voxel_soft_weights(outs[0]).softmax(dim=1)
+            w = softmax(self.voxel_soft_weights(outs[0]), dim=1)
         else:
             w = outs[0].new_full(
                 (outs[0].shape[0], cfg.num_level, *outs[0].shape[2:]),
@@ -129,35 +135,35 @@ class OccHead(nn.Module):
             blended = blended + f * w[:, i:i + 1]
         return blended, self.occ_pred_conv(blended)
 
-    def _fine(self, blended, imf, tr, coarse_mask):
-        """One sample: blended [C, X, Y, Z]; imf [N, 128, fH, fW] or None;
-        tr its six calibration tensors -> (logits, coords, valid)."""
+    def _fine(self, vox_t, img_t, tr, coarse_mask, cd):
+        """One sample: vox_t [X, Y, Z, 64] (cd) the blended features times
+        fc1's voxel rows, img_t [N, fH, fW, 64] (fp32) the image features
+        times img_mlp's fc, or None each; tr its six calibration tensors ->
+        (logits, coords, valid)."""
         cfg = self.cfg
         ratio = cfg.cascade_ratio
         coords, valid = select_occupied(coarse_mask, cfg.max_coarse_occupied)
         fine = fine_coordinates(coords, ratio)
         fvalid = valid.repeat_interleave(ratio ** 3)
-        fc = fine.float()
-        W_occ, H_occ, D_occ = cfg.final_occ_size
-        feats = []
-        if cfg.sample_from_voxel:
-            scale = torch.tensor([W_occ - 1, H_occ - 1, D_occ - 1],
-                                 dtype=torch.float32, device=fc.device)
-            grid = ((fc / scale - 0.5) * 2).reshape(1, -1, 1, 1, 3)
-            # grid (x, y, z) indexes the volume's (W, H, D) = (X, Y, Z) axes
-            vol = blended.permute(0, 3, 2, 1)[None]  # [1, C, Z, Y, X]
-            s = F.grid_sample(vol, grid, mode="bilinear",
-                              padding_mode="zeros", align_corners=False)
-            feats.append(s[0, :, :, 0, 0].T)
-        if imf is not None:
+        fc1, gn, fc2 = self.fine_mlp[0], self.fine_mlp[1], self.fine_mlp[3]
+        # fp32 accumulator seeded with fc1's bias (JAX occ_head.py:317-319)
+        acc = fc1.bias.float().expand(fine.shape[0], -1)
+        if vox_t is not None:
+            acc = acc + cascade_sample_3d(vox_t, fine,
+                                          cfg.final_occ_size).float()
+        if img_t is not None:
             uv, m = project_points_on_img(
-                fc, *tr, pts_range=cfg.point_cloud_range,
+                fine.float(), *tr, pts_range=cfg.point_cloud_range,
                 img_hw=cfg.input_size, occ_whd=cfg.final_occ_size)
-            s = F.grid_sample(imf, uv[:, :, None], mode="bilinear",
-                              padding_mode="zeros", align_corners=True)
-            s = (s[..., 0] * m[:, None]).sum(dim=0)  # [128, P]
-            feats.append(self.img_mlp(s.T))
-        return self.fine_mlp(torch.cat(feats, dim=1)), fine, fvalid
+            fci, gni = self.img_mlp[0], self.img_mlp[1]
+            s = multicam_bilinear(img_t, uv, m, cd) + fci.bias.to(cd)
+            s = F.relu(F.group_norm(s.float(), gni.num_groups, gni.weight,
+                                    gni.bias, gni.eps)).to(cd)
+            k1_img = fc1.weight[:, fc1.in_features - s.shape[1]:]
+            acc = acc + (s @ k1_img.T.to(cd)).float()
+        x = F.relu(F.group_norm(acc, gn.num_groups, gn.weight, gn.bias,
+                                gn.eps))
+        return F.linear(x, fc2.weight, fc2.bias), fine, fvalid
 
     def forward(self, voxel_feats, img_feats=None, transform=None,
                 coarse_only: bool = False):
@@ -174,19 +180,33 @@ class OccHead(nn.Module):
         out = {"occ": logits.permute(0, 2, 3, 4, 1)}
         if coarse_only or not self.cascade:
             return out
-        imf = None
+        # the fc weights are folded into the sampled tables (JAX
+        # occ_head.py:300-304): sample(T) @ W == sample(T @ W)
+        cd = blended.dtype
+        fc1 = self.fine_mlp[0]
+        vox_t = img_t = None
+        if cfg.sample_from_voxel:
+            vox_t = blended.permute(0, 2, 3, 4, 1) @ fc1.weight[
+                :, :blended.shape[1]].T.to(cd)             # [B, X, Y, Z, 64]
         if cfg.sample_from_img and img_feats is not None:
+            # flax's default dtype: img_mlp_0 runs in fp32, and its product
+            # with the fc (rounded to cd) too
             B, N = img_feats.shape[:2]
-            imf = self.img_mlp_0(img_feats.flatten(0, 1))
-            imf = imf.reshape(B, N, *imf.shape[1:])
+            imf = self.img_mlp_0(img_feats.flatten(0, 1).float())
+            img_t = imf.permute(0, 2, 3, 1) @ self.img_mlp[0].weight.T.to(
+                cd).float()
+            img_t = img_t.reshape(B, N, *img_t.shape[1:])  # [B, N, fH, fW, 64]
         occ_mask = logits.argmax(dim=1) != cfg.empty_idx  # [B, X, Y, Z]
-        per = [self._fine(blended[b], None if imf is None else imf[b],
-                          None if imf is None
-                          else tuple(t[b] for t in transform), occ_mask[b])
+        per = [self._fine(None if vox_t is None else vox_t[b],
+                          None if img_t is None else img_t[b],
+                          None if img_t is None
+                          else tuple(t[b] for t in transform), occ_mask[b],
+                          cd)
                for b in range(logits.shape[0])]
         out["fine_logits"] = torch.stack([p[0] for p in per])
         out["fine_coords"] = torch.stack([p[1] for p in per])
         out["fine_valid"] = torch.stack([p[2] for p in per])
         n_occ = occ_mask.flatten(1).sum(dim=1)
-        out["fine_overflow"] = (n_occ - cfg.max_coarse_occupied).clamp(min=0)
+        out["fine_overflow"] = (n_occ - cfg.max_coarse_occupied).clamp(
+            min=0).to(torch.int32)
         return out

@@ -13,14 +13,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm
+from .layers import BatchNorm, Conv2d
 
 RESNET_LAYERS = {10: (1, 1, 1, 1), 18: (2, 2, 2, 2), 34: (3, 4, 6, 3),
                  50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
 
 def _downsample(cin, cout, stride):
-    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False),
+    return nn.Sequential(Conv2d(cin, cout, 1, stride, bias=False),
                          BatchNorm(cout))
 
 
@@ -29,11 +29,11 @@ class Bottleneck(nn.Module):
 
     def __init__(self, cin: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.conv1 = Conv2d(cin, planes, 1, bias=False)
         self.bn1 = BatchNorm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = BatchNorm(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = BatchNorm(planes * 4)
         self.downsample = (_downsample(cin, planes * 4, stride)
                            if stride != 1 or cin != planes * 4 else None)
@@ -51,9 +51,9 @@ class BasicBlock2d(nn.Module):
 
     def __init__(self, cin: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(cin, planes, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm(planes)
         self.downsample = (_downsample(cin, planes, stride)
                            if stride != 1 or cin != planes else None)
@@ -73,7 +73,7 @@ class ResNet(nn.Module):
         super().__init__()
         self.out_indices = tuple(out_indices)
         block = Bottleneck if depth >= 50 else BasicBlock2d
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm(64)
         cin = 64
         self.out_channels = []

@@ -12,7 +12,7 @@ from typing import Sequence
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm
+from .layers import BatchNorm, Conv3d
 
 RESNET3D_LAYERS = {10: (1, 1, 1, 1), 18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 
@@ -20,14 +20,14 @@ RESNET3D_LAYERS = {10: (1, 1, 1, 1), 18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 class BasicBlock3D(nn.Module):
     def __init__(self, cin: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv3d(cin, planes, 3, stride, 1, bias=False)
+        self.conv1 = Conv3d(cin, planes, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm(planes)
-        self.conv2 = nn.Conv3d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv3d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm(planes)
         self.downsample = None
         if stride != 1 or cin != planes:
             self.downsample = nn.Sequential(
-                nn.Conv3d(cin, planes, 1, stride, bias=False),
+                Conv3d(cin, planes, 1, stride, bias=False),
                 BatchNorm(planes))
 
     def forward(self, x):
@@ -47,7 +47,7 @@ class CustomResNet3D(nn.Module):
         super().__init__()
         self.out_indices = tuple(out_indices)
         self.input_proj = nn.Sequential(
-            nn.Conv3d(cin, block_inplanes[0], 1, 1, bias=False),
+            Conv3d(cin, block_inplanes[0], 1, 1, bias=False),
             BatchNorm(block_inplanes[0]), nn.ReLU())
         self.layers = nn.ModuleList()
         in_planes = block_inplanes[0]

@@ -11,7 +11,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from .layers import BatchNorm
+from .layers import BatchNorm, Conv2d, ConvTranspose2d
 
 
 class SECONDFPN(nn.Module):
@@ -23,10 +23,10 @@ class SECONDFPN(nn.Module):
         for cin, cout, s in zip(in_channels, out_channels, upsample_strides):
             if s >= 1:
                 k = int(round(s))
-                up = nn.ConvTranspose2d(cin, cout, k, k, bias=False)
+                up = ConvTranspose2d(cin, cout, k, k, bias=False)
             else:
                 k = int(round(1.0 / s))
-                up = nn.Conv2d(cin, cout, k, k, bias=False)
+                up = Conv2d(cin, cout, k, k, bias=False)
             deblocks.append(nn.Sequential(up, BatchNorm(cout, eps=1e-3),
                                           nn.ReLU()))
         self.deblocks = nn.ModuleList(deblocks)

@@ -76,13 +76,19 @@ class SparseBasicBlock(nn.Module):
 
 
 class DenseLiDAREnc8x(nn.Module):
-    """[B, X, Y, Z] bool occupancy -> [B, out_channel, X/8, Y/8, Z/8]."""
+    """[B, X, Y, Z] bool occupancy -> [B, out_channel, X/8, Y/8, Z/8] fp32.
+
+    compute_dtype is JAX's: the stem (the conv of the mask) runs in it and
+    rounds once; every layer after it is fp32, as in JAX, whose masked
+    BatchNorm promotes a bf16 input to its fp32 statistics."""
 
     def __init__(self, input_channel: int = 4, base_channel: int = 16,
-                 out_channel: int = 128):
+                 out_channel: int = 128,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if base_channel != 16:
             raise ValueError("the level-0 collapse assumes GroupNorm(16, 16)")
+        self.compute_dtype = compute_dtype
         b = base_channel
         self.conv_input = nn.ModuleList([
             SpConvWeight(input_channel, b), nn.GroupNorm(16, b), nn.ReLU()])
@@ -97,7 +103,8 @@ class DenseLiDAREnc8x(nn.Module):
             nn.ReLU()])
 
     def forward(self, occupancy: torch.Tensor) -> torch.Tensor:
-        mask = occupancy[:, None].to(self.conv_out[1].weight.dtype)
+        cd = self.compute_dtype
+        mask = occupancy[:, None].to(cd)
         # Level 0 collapses. The stem is SubM -> GroupNorm(16, 16) -> ReLU;
         # with one channel per group the GN maps every value to its bias, so
         # the stem output is exactly relu(gn_bias) at active cells (in the
@@ -107,7 +114,8 @@ class DenseLiDAREnc8x(nn.Module):
         stem = F.relu(self.conv_input[1].bias)
         down = self.conv1[0]
         w_eff = torch.einsum("oixyz,i->oxyz", down[0].conv_weight(), stem)
-        y = F.conv3d(mask, w_eff[:, None], stride=2, padding=1)
+        y = F.conv3d(mask, w_eff[:, None].to(cd), stride=2, padding=1)
+        y, mask = y.float(), mask.float()
         for lvl in (1, 2, 3):
             blocks = getattr(self, f"conv{lvl}")
             down = blocks[0]

@@ -28,10 +28,16 @@ either) and the same math, computed so that every convolution is a 2D one:
     where they are made.
 
 Numerics: the SubM convolutions take bf16 operands with fp32 sums (K2's, on
-the card and in its plain version alike), everything else is fp32. So in
-fp32 this encoder equals the JAX packed encoder run with COOCC_PALLAS_SUBM
-(its Pallas kernel path), not the JAX pure-fp32 XLA path, and differs from
-`DenseLiDAREnc8x` by the bf16 rounding of the SubM operands.
+the card and in its plain version alike). With compute_dtype fp32
+everything else is fp32: the encoder then equals the JAX packed encoder run
+with COOCC_PALLAS_SUBM (its Pallas kernel path), not the JAX pure-fp32 XLA
+path, and differs from `DenseLiDAREnc8x` by the bf16 rounding of the SubM
+operands. With compute_dtype bf16 (JAX `compute_dtype=cd`) the mask, the
+stem, the strided and mask-count convs and every packed activation are bf16
+(K2 reads, writes and adds its residual in bf16); the downsamples' BN and
+K2's epilogue compute in fp32 and round once where JAX rounds each of its
+bf16 ops; the per-cell GroupNorm runs on fp32 and the output is fp32, as in
+JAX (sparse_enc_packed.py:769-775).
 
 Not ported: the z-batch tap forms (`ztap_levels`, `zb_down`) and the
 COOCC_STRIDED_MODE=lm|packed variants, among them the lane-major strided
@@ -190,12 +196,14 @@ def packed_basic_block(block, x_pb: torch.Tensor, mcell: torch.Tensor,
 
 class PackedLiDAREnc8x(DenseLiDAREnc8x):
     """[B, X, Y, Z] bool occupancy -> [B, out_channel, X/8, Y/8, Z/8] fp32,
-    with DenseLiDAREnc8x's parameters."""
+    with DenseLiDAREnc8x's parameters; the activations up to the per-cell
+    GroupNorm are in compute_dtype."""
 
     def forward(self, occupancy: torch.Tensor) -> torch.Tensor:
         b = self.conv_input[1].weight.shape[0]
         Z0 = occupancy.shape[-1]
-        mask0f = occupancy.to(torch.float32)
+        cd = self.compute_dtype
+        mask0f = occupancy.to(cd)
 
         # level-0 collapse: the stem is relu(gn bias) at active cells, so
         # down1 is a conv of the mask, its z taps unrolled into the weight
@@ -212,8 +220,9 @@ class PackedLiDAREnc8x(DenseLiDAREnc8x):
         # pass after this one, K2 among them, reads them densely
         d = lm_to_pb(d_lm, Z, C, p).contiguous()
         mcell = mask_pb(cnt > 0.5, p).contiguous()    # [B, bz, X, Y, p]
-        # the downsample's masked BN + ReLU: K2's BN+ReLU epilogue ops
-        d = epilogue_plain(d, mcell, bn_affine(down[1]))
+        # the downsample's masked BN + ReLU: K2's BN+ReLU epilogue ops, in
+        # fp32 with one rounding to cd
+        d = epilogue_plain(d, mcell, bn_affine(down[1])).to(cd)
         d = packed_basic_block(self.conv1[1], d, mcell, C)
         d = packed_basic_block(self.conv1[2], d, mcell, C)
 
@@ -230,19 +239,19 @@ class PackedLiDAREnc8x(DenseLiDAREnc8x):
             d = conv2d_pb(shift_ext(d, C),
                           strided_packed_weight(tap_weight(down[0]), p,
                                                 p_out), 2).contiguous()
-            cnt = conv2d_pb(shift_ext(mcell.to(torch.float32), 1),
+            cnt = conv2d_pb(shift_ext(mcell.to(cd), 1),
                             dilate_packed_weight(p, p_out, d.device), 2)
             mcell = (cnt > 0.5).contiguous()          # [B, bz, X, Y, p_out]
             Z, C, p = Z // 2, C_out, p_out
-            d = epilogue_plain(d, mcell, bn_affine(down[1]))
+            d = epilogue_plain(d, mcell, bn_affine(down[1])).to(cd)
             d = packed_basic_block(blocks[1], d, mcell, C)
             d = packed_basic_block(blocks[2], d, mcell, C)
 
         d = packed_subm(self.conv_out[0], d, mcell, C)
         Co = self.conv_out[1].weight.shape[0]
         d5 = d.reshape(*d.shape[:-1], p, Co)
-        # each cell normalized over its own channel groups
-        g = per_cell_group_norm(d5.reshape(-1, Co, 1, 1, 1),
+        # each cell normalized over its own channel groups, in fp32
+        g = per_cell_group_norm(d5.float().reshape(-1, Co, 1, 1, 1),
                                 self.conv_out[1]).reshape(d5.shape)
         g = F.relu(g * mcell[..., None].to(g.dtype))
         # packed [B, bz, X, Y, p, Co] -> [B, Co, X, Y, Z]

@@ -33,13 +33,21 @@ def _bilinear_taps(x, py, px):
             idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))  # [B, T, P]
             v = torch.gather(flat.expand(B, idx.shape[1], C, H * W), 3,
                              idx[:, :, None, :].expand(-1, -1, C, -1))
-            out = out + v * (w_y * w_x * inb)[:, :, None, :]
+            # the JAX order of the products: each rounds in x's dtype
+            v = v * inb[:, :, None, :].to(x.dtype)
+            out = out + v * w_y[:, :, None, :] * w_x[:, :, None, :]
     return out.permute(0, 2, 1, 3)  # [B, C, T, P]
 
 
 def deform_conv2d(x, offset, weight, *, padding=1, stride=1, groups=1,
                   bias=None):
-    """DCNv1 forward with one offset group. Returns [B, Cout, Ho, Wo]."""
+    """DCNv1 forward with one offset group. Returns [B, Cout, Ho, Wo] in
+    x's dtype.
+
+    Numerics of the JAX version in any dtype: the sample positions are
+    x's dtype (base + offset, one rounding), the bilinear taps are formed
+    in it, and the contraction with the weight (fp32, uncast) runs in fp32
+    and rounds once to x's dtype."""
     B, Cin, H, W = x.shape
     Cout, cin_g, K, _ = weight.shape
     Ho = (H + 2 * padding - K) // stride + 1
@@ -56,8 +64,9 @@ def deform_conv2d(x, offset, weight, *, padding=1, stride=1, groups=1,
     px = px.reshape(K * K, Ho * Wo)[None] + off[:, :, 1]
     cols = _bilinear_taps(x, py, px)  # [B, Cin, K*K, Ho*Wo]
     cols = cols.reshape(B, groups, cin_g, K * K, Ho * Wo)
-    w = weight.reshape(groups, Cout // groups, cin_g, K * K)
-    out = torch.einsum("bgctp,gdct->bgdp", cols, w).reshape(B, Cout, Ho, Wo)
+    w = weight.reshape(groups, Cout // groups, cin_g, K * K).float()
+    out = torch.einsum("bgctp,gdct->bgdp", cols.float(), w).reshape(
+        B, Cout, Ho, Wo).to(x.dtype)
     if bias is not None:
         out = out + bias[None, :, None, None]
     return out

@@ -20,9 +20,11 @@ from .voxelize import linearize
 
 def lift_splat(depth_prob: torch.Tensor, img_feat: torch.Tensor,
                geom: torch.Tensor, dx, bx, nx) -> torch.Tensor:
-    """depth_prob [B, N, D, fH, fW]; img_feat [B, N, fH, fW, C];
-    geom [B, N, D, fH, fW, 3]; dx/bx/nx the grid (gen_dx_bx).
-    Returns [B, X, Y, Z, C]."""
+    """depth_prob [B, N, D, fH, fW]; img_feat [B, N, fH, fW, C] in any
+    dtype; geom [B, N, D, fH, fW, 3]; dx/bx/nx the grid (gen_dx_bx).
+    Returns [B, X, Y, Z, C] in depth_prob's dtype: the features are
+    gathered in their own dtype and upcast after the gather, as the JAX
+    version does (the same values, half the gathered bytes in bf16)."""
     B, N, D, fH, fW = depth_prob.shape
     C = img_feat.shape[-1]
     nx = [int(v) for v in nx]
@@ -34,8 +36,8 @@ def lift_splat(depth_prob: torch.Tensor, img_feat: torch.Tensor,
     pix = pix.expand(N, D, fH, fW).reshape(-1)
     outs = []
     for b in range(B):
-        contrib = img_feat[b].reshape(N * fH * fW, C)[pix] \
-            * depth_prob[b].reshape(-1, 1)
+        contrib = img_feat[b].reshape(N * fH * fW, C)[pix].to(
+            depth_prob.dtype) * depth_prob[b].reshape(-1, 1)
         out = contrib.new_zeros(n_vox + 1, C)
         out.index_add_(0, vox_id[b].long(), contrib)
         outs.append(out[:n_vox].reshape(nx[0], nx[1], nx[2], C))

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from ._build import load_kernel_library
 from .constants import device_constant
+from .conv import conv
 
 ZERO_TAP = 3          # a z-tap table entry that selects a zero block
 KB = 16               # input lanes per K-block of the kernel
@@ -103,10 +104,11 @@ def shift_ext(x_pb: torch.Tensor, C: int) -> torch.Tensor:
 
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor,
                 stride: int = 1) -> torch.Tensor:
-    """[N, H, W, Ci] x [3, 3, Ci, Co] (HWIO) -> [N, H/s, W/s, Co], pad 1;
-    the convolution runs on channels_last views."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 stride=stride, padding=1)
+    """[N, H, W, Ci] x [3, 3, Ci, Co] (HWIO) -> [N, H/s, W/s, Co], pad 1,
+    in x's dtype (w is cast to it, as JAX's `_conv2d` casts); the
+    convolution runs on channels_last views."""
+    y = conv(F.conv2d, x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), None,
+             stride, 1)
     return y.permute(0, 2, 3, 1)
 
 

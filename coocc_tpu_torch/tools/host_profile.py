@@ -1,0 +1,85 @@
+"""Where the served flagship's host time goes, on the card:
+
+    python -m coocc_tpu_torch.tools.host_profile
+
+Builds the flagship as `python -m coocc_tpu_torch` serves it (its config's
+compute dtype, seeded random weights), warms it up, then prints for one
+request each:
+  * the synchronizing calls (file:line in the port), from
+    torch.cuda.set_sync_debug_mode: each stalls the host until the device
+    has caught up;
+  * the kernel launches and ATen ops, and the host's own time
+    (torch.profiler);
+  * per `stop_at` prefix, when the host returns from the forward and when
+    the device is done: where the two are close, the host sets the pace.
+Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import collections
+import time
+import warnings
+
+import torch
+
+from ..config import get_config
+from ..data.synthetic import synthetic_batch
+from ..entry import FLAGSHIP, served_model
+from ..models.coocc_ray import STAGES
+from ..ops._build import load_all_kernel_libraries
+
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cuLaunchKernelEx")
+
+
+def main():
+    from torch.profiler import ProfilerActivity, profile
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    load_all_kernel_libraries()
+    cfg = get_config(FLAGSHIP)
+    model = served_model(cfg, "cuda")
+    requests = [synthetic_batch(cfg, batch_size=1, seed=s).to("cuda")
+                for s in range(3)]
+    print(f"{torch.cuda.get_device_name()}: {FLAGSHIP}, compute dtype "
+          f"{str(model.dtype)[6:]}")
+    with torch.no_grad():
+        model(requests[0])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model(requests[1])
+        torch.cuda.set_sync_debug_mode(0)
+        where = collections.Counter(
+            f"{w.filename.split('coocc_tpu_torch/')[-1]}:{w.lineno}"
+            for w in caught if "synchronizing" in str(w.message))
+        print(f"synchronizing calls in one forward: {sum(where.values())}")
+        for loc, n in sorted(where.items()):
+            print(f"  {n} x coocc_tpu_torch/{loc}")
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(requests[2])
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        launches = sum(e.count for e in events if e.key in LAUNCHES)
+        aten = sum(e.count for e in events if e.key.startswith("aten::"))
+        host = sum(e.self_cpu_time_total for e in events) / 1e3
+        print(f"one forward: {launches} kernel launches, {aten} ATen ops, "
+              f"{host:.3f} ms of host time (profiled)")
+
+        for stop in STAGES + (None,):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(requests[2], stop_at=stop)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            print(f"prefix {stop or 'full':6s}: the host returns after "
+                  f"{(t1 - t0) * 1e3:8.3f} ms, the device is done after "
+                  f"{(t2 - t0) * 1e3:8.3f} ms")
+
+
+if __name__ == "__main__":
+    main()

@@ -8,6 +8,8 @@ import pkgutil
 import subprocess
 import sys
 
+import pytest
+
 import coocc_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,7 +41,7 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     for m in ("ops.window_knn", "ops.subm_conv", "ops.knn",
-              "nn.sparse_enc_packed"):
+              "nn.sparse_enc_packed", "bench"):
         assert f"coocc_tpu_torch.{m}" in mods
     _run_clean("\n".join(["import coocc_tpu_torch"]
                          + [f"import {m}" for m in mods]))
@@ -52,3 +54,18 @@ def test_chip_smoke_imports_without_jax():
                "mod = importlib.util.module_from_spec(spec)\n"
                "spec.loader.exec_module(mod)\n"
                "assert callable(mod.main)")
+
+
+@pytest.mark.parametrize("env,error", [
+    ({}, "torch.cuda.is_available() is False"),
+    ({"BENCH_CONFIG": "coocc_lidar"}, "NotImplementedError")])
+def test_bench_prints_no_result_without_a_card(env, error):
+    """`python -m coocc_tpu_torch.bench` raises, and prints no JSON line,
+    without a card or for a config the port does not run."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "coocc_tpu_torch.bench"], cwd=ROOT,
+        env={**os.environ, **env}, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert error in proc.stderr

@@ -23,6 +23,22 @@ summation-order differences into bf16 rounding flips that compound
 |pts_voxel| and mean 2.3e-4 of it, with 1% of the elements outside 5e-3.
 It is held to the encoder test's bf16 bound (max 4%, mean 1e-3 of the
 scale); the fuser and the semantic stack average the noise out again.
+That fixture (and the bf16 one) compiles only the JAX full forward and
+reads the pts, fuse and sem prefixes from the modules it captures.
+
+bf16: the port's CoOccRay(cfg, torch.bfloat16) against JAX's
+CoOccRay(cfg, dtype=jnp.bfloat16), default packed encoder, one state_dict.
+JAX's SubM takes its XLA route (no COOCC_PALLAS_SUBM), which equals its
+Pallas kernel (tests/test_pallas_subm.py), and JAX compiles with
+xla_allow_excess_precision off so that it rounds each bf16 op as its code
+says, as eager torch does. The yardstick is JAX's own bf16 drift, |jax_bf16
+- jax_fp32| with the fp32 side from the packed fixture: per output, max and
+mean of |port_bf16 - jax_bf16| within 2x and 1.5x of it. Measured ratios
+(max, mean): img_voxel 1.00, 0.72; pts_voxel 1.21, 1.04; voxel_feats 1.01,
+0.93; semantic levels 0-3 1.48, 0.92 / 1.33, 0.95 / 0.75, 0.92 / 0.70,
+0.93; occ 1.35, 0.96; fine_logits (on the cells both runs refine) 0.64,
+0.52. Every prefix returns JAX's dtypes; the coarse argmax picks the same
+cells; K1's two masks are equal across packages and dtypes.
 """
 import dataclasses
 import functools
@@ -31,14 +47,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from coocc_tpu.data.synthetic import synthetic_batch as jax_synthetic_batch
 from coocc_tpu.data.synthetic import tiny_config as jax_tiny_config
 from coocc_tpu.models.coocc_ray import CoOccRay as JaxCoOccRay
 from coocc_tpu.train.convert_torch import convert_coocc_ray
 
+from coocc_tpu_torch.config import get_config
 from coocc_tpu_torch.data.synthetic import synthetic_batch, tiny_config
-from coocc_tpu_torch.entry import build_model
+from coocc_tpu_torch.entry import FLAGSHIP, build_model, entry, served_model
 from coocc_tpu_torch.models.coocc_ray import STAGES, CoOccRay
 
 TOL = dict(atol=5e-3, rtol=5e-3)
@@ -59,14 +77,46 @@ def _dense(cfg):
     return _with_impl(cfg, "dense")
 
 
-def _run_both(jax_cfg, torch_cfg, stops, pts_from_full=False):
-    model = build_model(torch_cfg, "cpu", seed=7)
+# the modules whose outputs are the prefixes' (coocc_ray.py:265-309): a
+# full JAX forward that captures them gives every prefix with one compile
+_CAPTURED = ("img_view_transformer", "pts_middle_encoder", "occ_fuser",
+             "semantic_neck")
+
+
+def _np(x):
+    """-> (float or integer numpy array, dtype name); bf16 widens to fp32."""
+    if isinstance(x, torch.Tensor):
+        name = str(x.dtype)[6:]
+        x = x.float() if x.dtype == torch.bfloat16 else x
+        return x.numpy(), name
+    x = np.asarray(x)
+    return (x.astype(np.float32) if x.dtype.name == "bfloat16" else x), \
+        x.dtype.name
+
+
+def _run_both(jax_cfg, torch_cfg, stops, capture=False, bf16=False):
+    """-> {stop: (jax outputs, port outputs)} as numpy (bf16 widened to
+    fp32), plus "dtypes": {stop: {key: (jax dtype, port dtype)}}.
+
+    capture: JAX compiles only its full forward and reads every prefix
+    from the modules it captures on the way (_CAPTURED). bf16: both models
+    compute in bf16 (the port's dtype=torch.bfloat16, JAX's
+    dtype=jnp.bfloat16), and JAX compiles with xla_allow_excess_precision
+    off, so that its CPU program rounds each bf16 op where its code says it
+    does, as eager torch does; XLA's CPU default keeps fp32 across chains of
+    elementwise ops instead."""
+    model = build_model(torch_cfg, "cpu", seed=7,
+                        dtype=torch.bfloat16 if bf16 else None)
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
     variables = convert_coocc_ray(sd, jax_cfg)
     batch_np = jax_synthetic_batch(jax_cfg, batch_size=1, seed=3)
     jbatch = jax.tree.map(lambda x: None if x is None else jnp.asarray(x),
                           batch_np, is_leaf=lambda x: x is None)
-    jmodel = JaxCoOccRay(cfg=jax_cfg)
+    jdtype = jnp.bfloat16 if bf16 else None
+    jmodel = JaxCoOccRay(cfg=jax_cfg, dtype=jdtype)
+    jit = functools.partial(
+        jax.jit, compiler_options={"xla_allow_excess_precision": False}) \
+        if bf16 else jax.jit
     tbatch = synthetic_batch(torch_cfg, batch_size=1, seed=3).to("cpu")
     jax_out = {}
 
@@ -74,22 +124,28 @@ def _run_both(jax_cfg, torch_cfg, stops, pts_from_full=False):
         if stop not in jax_out:
             # jitted: one compile per prefix costs less than eager dispatch
             fn = functools.partial(jmodel.apply, train=False, stop_at=stop)
-            if stop is None and pts_from_full:
-                # the encoder's output captured on the way through the full
-                # forward is the "pts" prefix's pts_voxel: one compile less
+            if stop is None and capture:
                 fn = functools.partial(
                     fn, mutable=["intermediates"],
-                    capture_intermediates=lambda m, _: m.name ==
-                    "pts_middle_encoder")
-                j, state = jax.jit(fn)(variables, jbatch)
-                enc = state["intermediates"]["pts_middle_encoder"]
-                jax_out["pts"] = {"pts_voxel": np.asarray(enc["__call__"][0])}
+                    capture_intermediates=lambda m, _: m.name in _CAPTURED)
+                j, state = jit(fn)(variables, jbatch)
+                cap = {k: v["__call__"][0]
+                       for k, v in state["intermediates"].items()}
+                # the encoder returns fp32; the pts prefix casts it to the
+                # model dtype (coocc_ray.py:178)
+                pts = cap["pts_middle_encoder"].astype(jdtype or jnp.float32)
+                jax_out["pts"] = {"img_voxel": cap["img_view_transformer"][0],
+                                  "pts_voxel": pts}
+                jax_out["fuse"] = {"voxel_feats": cap["occ_fuser"]}
+                jax_out["sem"] = {"semantic": list(cap["semantic_neck"])}
             else:
-                j = jax.jit(fn)(variables, jbatch)
-            jax_out[stop] = jax.tree.map(np.asarray, j)
+                j = jit(fn)(variables, jbatch)
+            jax_out[stop] = j
         return jax_out[stop]
 
-    out = {}
+    if capture:
+        jax_prefix(None)
+    out = {"dtypes": {}}
     for stop in stops:
         # JAX's "img" output is the img_voxel of its "pts" prefix and its
         # "coarse" output the occ of the full forward (coocc_ray.py:265-271,
@@ -104,9 +160,19 @@ def _run_both(jax_cfg, torch_cfg, stops, pts_from_full=False):
             # the JAX semantic stack returns its z-batch layout [B, Z, X, Y, C]
             j["semantic"] = [a.transpose(0, 2, 3, 1, 4) for a in j["semantic"]]
         t = model(tbatch, stop_at=stop)
-        out[stop] = (j,
-                     {k: [x.numpy() for x in v] if isinstance(v, list)
-                      else v.numpy() for k, v in t.items()})
+        jn = {k: [_np(x) for x in v] if isinstance(v, list) else _np(v)
+              for k, v in j.items()}
+        tn = {k: [_np(x) for x in v] if isinstance(v, list) else _np(v)
+              for k, v in t.items()}
+        out[stop] = ({k: [a for a, _ in v] if isinstance(v, list) else v[0]
+                      for k, v in jn.items()},
+                     {k: [a for a, _ in v] if isinstance(v, list) else v[0]
+                      for k, v in tn.items()})
+        out["dtypes"][stop] = {
+            k: ([d for _, d in jn[k]] if isinstance(jn[k], list)
+                else jn[k][1],
+                [d for _, d in tn[k]] if isinstance(tn[k], list)
+                else tn[k][1]) for k in jn if k in tn}
     return out
 
 
@@ -127,8 +193,8 @@ def packed():
     assert jax_tiny_config().pts.impl == tiny_config().pts.impl == "auto"
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("COOCC_PALLAS_SUBM", "interpret")
-        return _run_both(jax_tiny_config(), tiny_config(), (None, "pts"),
-                         pts_from_full=True)
+        return _run_both(jax_tiny_config(), tiny_config(),
+                         (None, "pts", "fuse", "sem"), capture=True)
 
 
 @pytest.mark.parametrize("stop", STAGES)
@@ -219,3 +285,92 @@ def test_batch_of_two_runs_per_sample():
     for key, v in one.items():
         np.testing.assert_allclose(both[key][1:2].numpy(), v.numpy(),
                                    atol=1e-4, rtol=1e-4, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def packed_bf16():
+    """The default packed encoder in bf16 on both sides. JAX's SubM runs
+    through its XLA route (no COOCC_PALLAS_SUBM), which equals its Pallas
+    kernel (tests/test_pallas_subm.py) and compiles faster."""
+    return _run_both(jax_tiny_config(), tiny_config(),
+                     STAGES + (None,), capture=True, bf16=True)
+
+
+def _drift_cases():
+    return [("pts", "img_voxel", None), ("pts", "pts_voxel", None),
+            ("fuse", "voxel_feats", None)] \
+        + [("sem", "semantic", i) for i in range(4)] \
+        + [(None, "occ", None), (None, "fine_logits", None)]
+
+
+def _common_fine(*outs):
+    """fine_logits [n, C] of the refined cells every output refines."""
+    rows = [_fine_by_coord(o) for o in outs]
+    common = sorted(set.intersection(*(set(r) for r in rows)))
+    assert len(common) > 0
+    return [np.stack([r[c] for c in common]) for r in rows]
+
+
+@pytest.mark.parametrize("stop,key,level", _drift_cases())
+def test_bf16_matches_jax_bf16_within_its_own_drift(packed, packed_bf16,
+                                                    stop, key, level):
+    jb, tb = packed_bf16[stop]
+    jf = packed[stop][0]
+    if key == "fine_logits":
+        tb, jb, jf = _common_fine(tb, jb, jf)
+    else:
+        tb, jb, jf = tb[key], jb[key], jf[key]
+        if level is not None:
+            tb, jb, jf = tb[level], jb[level], jf[level]
+    assert tb.shape == jb.shape == jf.shape
+    port, own = np.abs(tb - jb), np.abs(jb - jf)
+    assert own.max() > 0
+    assert port.max() <= 2.0 * own.max(), (port.max(), own.max())
+    assert port.mean() <= 1.5 * own.mean(), (port.mean(), own.mean())
+
+
+@pytest.mark.parametrize("stop", STAGES + (None,))
+def test_bf16_prefix_dtypes_match_jax(packed_bf16, stop):
+    dtypes = packed_bf16["dtypes"][stop]
+    assert dtypes
+    for key, (jd, td) in dtypes.items():
+        assert jd == td, (stop, key)
+    if stop is not None:
+        assert "bfloat16" in str(dtypes)
+
+
+def test_bf16_refines_the_cells_jax_bf16_refines(packed_bf16):
+    """The cascade's cells come from the argmax of bf16 coarse logits; on
+    these inputs no near-tie flips it between the packages."""
+    j, t = packed_bf16[None]
+    np.testing.assert_array_equal(t["fine_valid"], j["fine_valid"])
+    np.testing.assert_array_equal(t["fine_overflow"], j["fine_overflow"])
+    np.testing.assert_array_equal(t["fine_coords"], j["fine_coords"])
+    assert int(j["fine_overflow"][0]) > 0, "the cap was not exercised"
+
+
+def test_bf16_k1_masks_equal_across_dtypes_and_packages(packed, packed_bf16):
+    """K1 reads |feats|.sum(-1) != 0 of the fuser's two inputs: zeros are
+    structural there (the masked encoder output, empty frustum cells), so
+    the masks do not depend on the dtype or the package."""
+    for key in ("img_voxel", "pts_voxel"):
+        masks = [np.abs(run["pts"][side][key][0]).sum(-1) != 0
+                 for run in (packed_bf16, packed) for side in (0, 1)]
+        assert masks[0].any() and not masks[0].all(), key
+        for m in masks[1:]:
+            np.testing.assert_array_equal(m, masks[0], err_msg=key)
+
+
+def test_served_flagship_is_bf16_and_entry_stays_fp32():
+    """The JAX package's CLIs serve the flagship in its config's bf16
+    (tools/test.py:76-78) while __graft_entry__.entry() builds fp32; the
+    port's CLI model and entry() do the same. Parameters stay fp32."""
+    assert CoOccRay(tiny_config()).dtype == torch.float32
+    assert CoOccRay(tiny_config(), torch.bfloat16).dtype == torch.bfloat16
+    model, (batch,) = entry("cpu")
+    assert model.dtype == torch.float32
+    served = served_model(get_config(FLAGSHIP), "cpu")
+    assert served.dtype == torch.bfloat16
+    assert served.pts_middle_encoder.compute_dtype == torch.bfloat16
+    assert {p.dtype for p in served.parameters()} == {torch.float32}
+    assert {b.dtype for b in served.buffers()} == {torch.float32}
