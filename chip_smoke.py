@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      weights, the default z-packed LiDAR encoder), warmed up once, then 3
      requests (synthetic batches of seeds 0, 1, 2) with the kernels' launch
      counts set to 0 before them and read after them (per request:
-     window_knn 2, subm_ext_conv 13 on bf16 tensors, knn2 0); per-request
+     window_knn 2, subm_ext_conv 13 on bf16 tensors, subm_ext_conv_dx
+     and knn2 0); per-request
      and per-stage (stop_at prefixes) times, peak memory, and a
      torch.profiler breakdown of device time by kernel (full forward and
      pts stage) with the device's busy share; every K2 call of a pts
@@ -21,7 +22,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      JAX entry's twin), with its own counts set to 0 (request times, peak
      memory and the full forward's profile, no stages); K1's masks equal to
      phase 2's; phase 2's outputs against these (occ drift, coarse argmax
-     agreement, common refined cells, each within a bound below);
+     agreement, common refined cells, logged; JAX's own bf16 drift bounds
+     them in phase 8);
   4. dense path: the same weights with pts.impl="dense"; its pts prefix
      and request times and profile, and the packed encoder's pts_voxel
      held against the dense one at flagship shapes;
@@ -37,14 +39,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   7. the tiny config on the card against the same model on the CPU (the
      route the tests hold against the JAX package), dense and packed in
      fp32, packed in bf16.
+  8. real-shape parity: the flagship at its own shapes against JAX's
+     committed fingerprint (coocc_tpu_torch/parity/flagship_real.npz): the
+     weights' and batch's digests, then the card's fp32 and bf16 outputs at
+     every prefix within 2x (max) and 1.5x (mean) of the CPU port's own
+     distance to JAX;
+  9. train path: the flagship's train step at full width in bf16
+     (entry.train_steps), a warm-up step then 3 steps with the counts set
+     to 0 before them and read after them (per step: window_knn 2,
+     subm_ext_conv 13, subm_ext_conv_dx 13), times, peak memory, a profiled
+     step, finite losses, moved parameters and BN statistics, and K2's dX
+     on its 13 calls' own inputs against its plain version; then a tiny
+     train step on the card against the CPU.
 Prints the card, the kernels' JSON line (the served bf16 path's launches
-and K2 times, K2's fp32 ones beside them) and, last, the result line. Needs
-a CUDA card and the repository around it; it imports nothing of JAX.
+and K2 times, K2's fp32 ones beside them; the train path's launches and
+K2's dX row) and, last, the result line. Needs a CUDA card and the
+repository around it; it imports nothing of JAX.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -71,21 +87,9 @@ PACKED_VS_DENSE_MEAN = 2e-3
 # rounding boundary).
 K2_FP32_REL = 2e-5
 BF16_ULP_REL = 2.0 ** -7
-# the served bf16 flagship against the fp32 one (same weights, same
-# requests). The drift starts in the image branch's depth net: at the
-# flagship's image shapes its logits reach 37 with seeded random weights,
-# and JAX's own bf16 forward moves them by up to 17% of that scale, 1.4% on
-# average (test_torch_bf16_modules.py, which holds the port to that drift).
-# The tiny config's logits are smaller and drift less, so its drift
-# understates the flagship's. The bounds allow about three times
-# (max) and twice (mean) the source's drift at the output, and the coarse
-# argmax to flip where the drift exceeds the top-2 gap; a wrong cast or a
-# wrong kernel instantiation moves occ by O(1) of its scale and the argmax
-# to chance (1 in 17).
-BF16_OCC_MAX = 0.5
-BF16_OCC_MEAN = 0.03
-BF16_ARGMAX_AGREE = 0.85
-BF16_COMMON_CELLS = 0.9
+# K2 launches per train step: 13 forward (mask epilogue) and 13 dX
+PER_TRAIN_STEP = {"window_knn": 2, "subm_ext_conv": 13,
+                  "subm_ext_conv_dx": 13, "knn2": 0}
 
 
 def log(*a):
@@ -153,7 +157,8 @@ def check_outputs(out, cfg):
         raise AssertionError("the cascade refined no cell")
 
 
-PER_REQUEST = {"window_knn": 2, "subm_ext_conv": 13, "knn2": 0}
+PER_REQUEST = {"window_knn": 2, "subm_ext_conv": 13, "subm_ext_conv_dx": 0,
+               "knn2": 0}
 
 
 def phase_main_path(kernels, requests):
@@ -872,9 +877,8 @@ def check_bf16_masks(masks16, masks32):
 
 def check_bf16_drift(outs16, outs32):
     """The bf16 run's outputs against the fp32 run's, request by request:
-    JAX's output dtypes, finite values, and the occ drift, the coarse
-    argmax agreement and the share of common refined cells within the
-    BF16_* bounds."""
+    JAX's output dtypes and finite values; the drift is logged (the bounds
+    that hold it are JAX's own, in phase_real_shape_parity)."""
     import torch
     for key, t32 in outs32[0]["stages"].items():
         t16 = outs16[0]["stages"][key]
@@ -904,17 +908,292 @@ def check_bf16_drift(outs16, outs32):
         c16, c32 = cells(o16), cells(o32)
         common = len(c16 & c32) / max(1, len(c32))
         log(f"bf16 vs fp32, request {i}: occ max |diff| {rel_max:.6g} and "
-            f"mean {rel_mean:.6g} of max |fp32 occ| {scale:.6g} (bounds "
-            f"{BF16_OCC_MAX}, {BF16_OCC_MEAN}); coarse argmax agreement "
-            f"{agree:.6f} (bound {BF16_ARGMAX_AGREE}); common fine cells "
-            f"{common:.6f} of {len(c32)} (bound {BF16_COMMON_CELLS})")
-        finite = all(bool(torch.isfinite(o16[k].float()).all())
-                     for k in ("occ", "fine_logits"))
-        if not (finite and rel_max <= BF16_OCC_MAX
-                and rel_mean <= BF16_OCC_MEAN and agree >= BF16_ARGMAX_AGREE
-                and common >= BF16_COMMON_CELLS):
-            raise AssertionError(f"bf16 outputs drift from fp32 (request "
-                                 f"{i})")
+            f"mean {rel_mean:.6g} of max |fp32 occ| {scale:.6g}; coarse "
+            f"argmax agreement {agree:.6f}; common fine cells {common:.6f} "
+            f"of {len(c32)}")
+        if not all(bool(torch.isfinite(o16[k].float()).all())
+                   for k in ("occ", "fine_logits")):
+            raise AssertionError(f"bf16 outputs are not finite (request {i})")
+
+
+def phase_real_shape_parity():
+    """The flagship at real shapes against JAX's fingerprint
+    (coocc_tpu_torch/parity/flagship_real.npz, written on a CPU by
+    tests/test_torch_real_shapes.py): the weights' and the batch's digests
+    first, then the card's fp32 (TF32 off) and bf16 forwards, every prefix
+    within 2x (max) and 1.5x (mean) of the CPU port's own distance to JAX
+    (`parity.check`); both dtypes are read before a failure is raised.
+    -> {dtype: [(name, card, cpu port, ok)]}."""
+    import torch
+    from coocc_tpu_torch import parity
+    from coocc_tpu_torch.config import get_config
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.entry import FLAGSHIP
+    fp = parity.load()
+    cfg = get_config(FLAGSHIP)
+    batch_np = synthetic_batch(cfg, batch_size=1, seed=0)
+    if parity.batch_digest(batch_np) != str(fp["batch_digest"]):
+        raise AssertionError("the fingerprint's batch digest differs")
+    batch = batch_np.to("cuda")
+    results = {}
+    for prefix, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        model = parity.fingerprint_model(cfg, "cuda", dtype)
+        digest = parity.state_digest(model)
+        if digest != str(fp["state_digest"]):
+            raise AssertionError(f"the fingerprint's state_dict digest "
+                                 f"differs: {digest}")
+        out = parity.capture(model, batch)
+        del model
+        torch.cuda.empty_cache()
+        res = parity.check(fp, prefix, out)
+        for name, (dmax, dmean), (pmax, pmean), ok in res:
+            log(f"real-shape parity {prefix} {name}: card max {dmax:.6g} "
+                f"mean {dmean:.6g}; cpu port max {pmax:.6g} mean "
+                f"{pmean:.6g} ({'ok' if ok else 'FAIL'})")
+        results[prefix] = res
+    bad = [(prefix, r[0]) for prefix, res in results.items()
+           for r in res if not r[3]]
+    if bad:
+        raise AssertionError(f"flagship outputs differ from JAX's "
+                             f"fingerprint: {bad}")
+    log("real-shape parity: digests equal, fp32 and bf16 within the bounds")
+    return results
+
+
+def k2_dx_check(dy, w27, p):
+    """K2's dX (the mirrored-tap conv of the masked cotangent) against its
+    plain version on one input, under k2_check's rule: -> (max abs err,
+    ok)."""
+    import torch
+    from coocc_tpu_torch.ops.subm_conv import (ext_conv_plain, flip_taps,
+                                               subm_ext_conv_dx,
+                                               subm_ext_conv_plain,
+                                               subm_ext_weight)
+    wf = flip_taps(w27)
+    ones = torch.ones(dy.shape[:-1] + (p,), dtype=torch.bool,
+                      device=dy.device)
+    got = subm_ext_conv_dx(dy, w27, p).float()
+    ref = subm_ext_conv_plain(dy, wf, p, ones).float()
+    conv_scale = float(ext_conv_plain(dy.float(), subm_ext_weight(wf, p),
+                                      dy.shape[1], dy.shape[-1] // p)
+                       .abs().max())
+    tol = K2_FP32_REL * conv_scale + 2.0 ** -21 * float(ref.abs().max())
+    err = (got - ref).abs()
+    if dy.dtype == torch.float32:
+        return float(err.max()), float(err.max()) <= tol
+    ulp = BF16_ULP_REL * torch.maximum(got.abs(), ref.abs())
+    return float(err.max()), bool((err <= ulp + tol).all())
+
+
+def phase_train(kernels):
+    """The flagship's train step at full width in its config's bf16
+    (entry.train_steps: seeded weights, AdamW, BN on batch statistics,
+    the renderer, every loss): one warm-up step, then 3 steps on the
+    synthetic batches of seeds 0, 1, 2 with the kernels' counts set to 0
+    before them and read after them (per step: window_knn 2, subm_ext_conv
+    13, subm_ext_conv_dx 13); ms per step, peak memory, every loss term
+    finite, parameters and BN statistics moved; a profiled step's device
+    time by kernel; K2's dX on its 13 calls' own inputs against its plain
+    version, with its times and bound, and dW's time. -> (launches, the dX
+    kernel's JSON row)."""
+    import torch
+    import torch.nn.functional as F
+    from coocc_tpu_torch.config import get_config
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.entry import FLAGSHIP, train_steps
+    from coocc_tpu_torch.ops import subm_conv as k2
+    cfg = get_config(FLAGSHIP)
+    t0 = time.perf_counter()
+    trainer, [warm] = train_steps(cfg, 1, "cuda")
+    sync()
+    model = trainer.model
+    if model.dtype != torch.bfloat16:
+        raise AssertionError(f"the flagship trains in {model.dtype}")
+    log(f"train warm-up step (seed 0, model build included): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, loss_total "
+        f"{float(warm['loss_total']):.6g}")
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batches = [synthetic_batch(cfg, batch_size=1, seed=i).to("cuda")
+               for i in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    step_ms = []
+    for i, b in enumerate(batches):
+        counts = {n: k.launches for n, k in kernels.items()}
+        sync()
+        t1 = time.perf_counter()
+        metrics = trainer.step(b)
+        sync()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        grew = {n: k.launches - counts[n] for n, k in kernels.items()}
+        if grew != PER_TRAIN_STEP:
+            raise AssertionError(f"train step {i}: launches {grew}, want "
+                                 f"{PER_TRAIN_STEP}")
+        values = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in values.values()):
+            raise AssertionError(f"train step {i}: {values}")
+        log(f"train step {i} (seed {i}): {step_ms[-1]:.3f} ms; " + ", ".join(
+            f"{k} {v:.6g}" for k, v in values.items()))
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train launches over 3 steps: {launches}")
+    log(f"train step ms: {[round(t, 3) for t in step_ms]} (median "
+        f"{statistics.median(step_ms):.3f}); peak memory allocated "
+        f"{peak / 2**30:.3f} GiB")
+    after = model.state_dict()
+    params = dict(model.named_parameters())
+    moved = [k for k in params if not torch.equal(before[k], after[k])]
+    stats = [k for k in after if "running" in k]
+    still = [k for k in stats if torch.equal(before[k], after[k])]
+    log(f"train moved {len(moved)} of {len(params)} parameter tensors and "
+        f"{len(stats) - len(still)} of {len(stats)} BN statistics")
+    if still or len(moved) < 0.95 * len(params):
+        raise AssertionError(f"the steps left BN statistics {still[:5]} or "
+                             f"{len(params) - len(moved)} parameters still")
+    log("profile, one train step (device time by kernel):")
+    device_breakdown(trainer.step, batches[:1], 15)
+
+    # K2's dX and dW on one step's own inputs
+    calls = {"dx": [], "dw": []}
+    inner_dx, inner_dw = k2.subm_ext_conv_dx, k2.subm_ext_weight_grad
+
+    def keep_dx(dy, w27, p):
+        calls["dx"].append((dy.detach().clone(), w27.detach().clone(), p))
+        return inner_dx(dy, w27, p)
+
+    def keep_dw(x_pb, dy, p):
+        calls["dw"].append((x_pb.detach().clone(), dy.detach().clone(), p))
+        return inner_dw(x_pb, dy, p)
+    # the wrapper counts its launch on its module's name, keep_dx while this
+    # step runs; the counts of the main path were read above
+    keep_dx.launches = 0
+    k2.subm_ext_conv_dx, k2.subm_ext_weight_grad = keep_dx, keep_dw
+    try:
+        trainer.step(batches[1])
+    finally:
+        k2.subm_ext_conv_dx, k2.subm_ext_weight_grad = inner_dx, inner_dw
+    if len(calls["dx"]) != 13 or len(calls["dw"]) != 13:
+        raise AssertionError(f"{len(calls['dx'])} dX, {len(calls['dw'])} dW"
+                             " calls in one step")
+    max_err = 0.0
+    dx_ms = plain_ms = lib_ms = dw_ms = 0.0
+    ops = nbytes = 0
+    for dy, w27, p in calls["dx"]:
+        err, ok = k2_dx_check(dy, w27, p)
+        log(f"subm_ext_conv_dx vs plain [train step input "
+            f"{tuple(dy.shape)} p={p} {str(dy.dtype)[6:]}]: max_abs_err "
+            f"{err:.6g}, scale {float(dy.abs().max()):.6g}")
+        if not ok:
+            raise AssertionError("K2's dX differs from its plain version")
+        max_err = max(max_err, err)
+        wf = k2.flip_taps(w27)
+        ones = torch.ones(dy.shape[:-1] + (p,), dtype=torch.bool,
+                          device="cuda")
+        dx_ms += timed_ms(lambda: k2.subm_ext_conv_dx(dy, w27, p), 5)
+        plain_ms += timed_ms(lambda: k2.subm_ext_conv_plain(dy, wf, p,
+                                                            ones), 2)
+        C = dy.shape[-1] // p
+        G, X, Y = dy.shape[0] * dy.shape[1], dy.shape[2], dy.shape[3]
+        ext = k2.shift_ext(dy, C).reshape(G, X, Y, -1).permute(0, 3, 1, 2)
+        wb = k2.subm_ext_weight(wf, p).to(dy.dtype).permute(
+            3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        F.conv2d(ext, wb, padding=1)
+        lib_ms += timed_ms(lambda: F.conv2d(ext, wb, padding=1), 5)
+        o, b = k2_work(tuple(dy.shape), p, w27.shape[1], "mask",
+                       dy.element_size())
+        ops, nbytes = ops + o, nbytes + b
+    for x_pb, dy, p in calls["dw"]:
+        dw_ms += timed_ms(lambda: k2.subm_ext_weight_grad(x_pb, dy, p), 5)
+    del calls
+    torch.cuda.empty_cache()
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"subm_ext_conv_dx bf16 per train step: kernel {dx_ms:.4f} ms (13 "
+        f"launches, {ops / dx_ms / 1e9:.1f} TFLOP/s useful), plain "
+        f"{plain_ms:.4f} ms, cuDNN bf16 on the concatenated input "
+        f"{lib_ms:.4f} ms; bound {ops} FLOP -> {ops_ms:.4f} ms, {nbytes} "
+        f"bytes -> {bytes_ms:.4f} ms; dW (torch ops) {dw_ms:.4f} ms per "
+        "step")
+    row = {"name": "subm_ext_conv_dx", "route": "cuda",
+           "source": "coocc_tpu_torch/csrc/subm_conv.cu",
+           "replaces": "coocc_tpu/ops/pallas/subm_conv.py:107 (its VJP, "
+                       "which JAX takes through coocc_tpu/nn/"
+                       "sparse_enc_packed.py:431-433)",
+           "launches": launches["subm_ext_conv_dx"], "max_abs_err": max_err,
+           "ms": dx_ms, "plain_ms": plain_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "library_ms": lib_ms, "dtype": "bfloat16", "dW_ms": dw_ms}
+    del trainer, model, before, after
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def phase_tiny_train_agreement():
+    """One tiny-config train step (fp32, dropout off, one set of cascade
+    priorities) on the card against the CPU, the route the tests hold
+    against JAX: with K2 swapped for an fp32 conv at the encoder's seam,
+    the raw loss terms to 1e-3, the moved BN statistics to 1e-3 of their
+    scale, the gradients under tests/test_torch_train.py's aggregate rule
+    (median leaf within 6% of its scale, 90th percentile within 20%); with
+    K2 (the card's kernel and its dX), the raw losses within 5%."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from coocc_tpu_torch.data.synthetic import synthetic_batch, tiny_config
+    from coocc_tpu_torch.entry import build_model
+    from coocc_tpu_torch.models.losses import compute_losses
+    from coocc_tpu_torch.nn import sparse_enc_packed
+    from coocc_tpu_torch.nn.layers import Dropout
+    from coocc_tpu_torch.ops.subm_conv import subm_conv_unrounded
+    cfg = tiny_config()
+    raw_cfg = dc.replace(cfg, loss_norm=False)
+    n = math.prod(cfg.lss_grid_size)
+    prio = torch.rand((1, n), generator=torch.Generator().manual_seed(0))
+    runs = {}
+    inner = sparse_enc_packed.subm_conv
+    for swap in (True, False):
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, dev, seed=7).train()
+            for m in model.modules():
+                if isinstance(m, Dropout):
+                    m.p = 0.0
+            batch = synthetic_batch(cfg, batch_size=1, seed=3).to(dev)
+            if swap:
+                sparse_enc_packed.subm_conv = subm_conv_unrounded
+            try:
+                outs = model(batch, fine_priorities=prio.to(dev))
+                raw = compute_losses(outs, batch, raw_cfg)
+                sum(v for k, v in compute_losses(outs, batch, cfg).items()
+                    if k.startswith("loss")).backward()
+            finally:
+                sparse_enc_packed.subm_conv = inner
+            runs[(swap, dev)] = (
+                {k: float(v.detach()) for k, v in raw.items()},
+                {k: p.grad.cpu() for k, p in model.named_parameters()
+                 if p.grad is not None},
+                {k: v.cpu() for k, v in model.state_dict().items()
+                 if "running" in k})
+    (la, ga, sa), (lb, gb, sb) = runs[(True, "cpu")], runs[(True, "cuda")]
+    worst_loss = max(abs(lb[k] - la[k]) / abs(la[k]) for k in la)
+    worst_stat = max(float((sb[k] - sa[k]).abs().max())
+                     / float(sa[k].abs().max()) for k in sa)
+    rel = np.array([float((gb[k] - g).abs().max()) / float(g.abs().max())
+                    for k, g in ga.items() if float(g.abs().max()) > 0])
+    lk = runs[(False, "cuda")][0]
+    k2_loss = max(abs(lk[k] - runs[(False, "cpu")][0][k]) / abs(la[k])
+                  for k in la)
+    log(f"tiny train step, cuda vs cpu (fp32, K2 as fp32 conv): raw losses "
+        f"worst rel {worst_loss:.6g}, BN statistics worst {worst_stat:.6g}"
+        f" of scale, gradient leaves median {np.median(rel):.6g} and 90th "
+        f"percentile {np.quantile(rel, 0.9):.6g} of scale ({len(rel)} "
+        f"leaves); with K2: raw losses worst rel {k2_loss:.6g}")
+    if not (worst_loss <= 1e-3 and worst_stat <= 1e-3
+            and np.median(rel) <= 0.06 and np.quantile(rel, 0.9) <= 0.2
+            and k2_loss <= 5e-2 and len(rel) > 250):
+        raise AssertionError("the tiny train step differs between the card "
+                             "and the CPU")
 
 
 def phase_bench():
@@ -1016,7 +1295,7 @@ def main():
     from coocc_tpu_torch.entry import FLAGSHIP
     from coocc_tpu_torch.ops._build import load_all_kernel_libraries
     from coocc_tpu_torch.ops.knn import knn2
-    from coocc_tpu_torch.ops.subm_conv import subm_ext_conv
+    from coocc_tpu_torch.ops.subm_conv import subm_ext_conv, subm_ext_conv_dx
     from coocc_tpu_torch.ops.window_knn import window_knn
 
     card = card_line()
@@ -1033,7 +1312,7 @@ def main():
             "parallel)")
 
     kernels = {"window_knn": window_knn, "subm_ext_conv": subm_ext_conv,
-               "knn2": knn2}
+               "subm_ext_conv_dx": subm_ext_conv_dx, "knn2": knn2}
     cfg = get_config(FLAGSHIP)
     requests = [synthetic_batch(cfg, batch_size=1, seed=s).to("cuda")
                 for s in range(3)]
@@ -1077,6 +1356,16 @@ def main():
     log(f"[{time.perf_counter() - t0:.1f} s] bench and tiny config:")
     phase_bench()
     phase_tiny_agreement()
+    log(f"[{time.perf_counter() - t0:.1f} s] real-shape parity against JAX's "
+        "fingerprint:")
+    phase_real_shape_parity()
+    log(f"[{time.perf_counter() - t0:.1f} s] train path (bf16, the config's "
+        "compute_dtype):")
+    train_launches, dx_row = phase_train(kernels)
+    for row in (k1_row, k2_row):
+        row["train_launches"] = train_launches[row["name"]]
+    rows.insert(2, dx_row)
+    phase_tiny_train_agreement()
 
     log(f"[{time.perf_counter() - t0:.1f} s] card: {card_line()}")
     log(json.dumps({"kernels": rows}))

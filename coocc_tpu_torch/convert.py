@@ -14,7 +14,9 @@ Layouts (JAX -> torch):
   BN                       scale/bias + batch_stats mean/var
                            -> weight/bias/running_mean/running_var
   GN                       scale/bias -> weight/bias
-The renderer's sigma_head / rgb_head (off at eval) are skipped.
+The renderer's heads (renderer/sigma_head, renderer/rgb_head, which JAX
+creates in training) become sigma_head / rgb_head, the names
+convert_coocc_ray reads (convert_torch.py:518-521).
 """
 from __future__ import annotations
 
@@ -208,6 +210,12 @@ def _occ_head(w: _Writer, t, f, num_level):
         w.gn(f"{t}.img_mlp.1", f"{f}/img_mlp_gn/gn")
 
 
+def _nerf_mlp(w: _Writer, t, f, depth):
+    for i in range(depth):
+        w.dense(f"{t}.hidden_layers.{i}", f"{f}/hidden{i}")
+    w.dense(f"{t}.output_layer", f"{f}/output")
+
+
 def state_dict_from_jax(variables_np: Dict[str, Any],
                         cfg: CoOccConfig) -> Dict[str, torch.Tensor]:
     """JAX {"params", "batch_stats"} trees (nested dicts of arrays) of a
@@ -228,4 +236,8 @@ def state_dict_from_jax(variables_np: Dict[str, Any],
     _fpn3d(w, "semantic_neck", "semantic_neck",
            len(cfg.semantic.block_inplanes))
     _occ_head(w, "pts_bbox_head", "pts_bbox_head", cfg.occ_head.num_level)
+    if cfg.render.use_rendering:
+        _nerf_mlp(w, "sigma_head", "renderer/sigma_head", 1)
+        if cfg.use_camera:
+            _nerf_mlp(w, "rgb_head", "renderer/rgb_head", 3)
     return w.sd

@@ -1,10 +1,13 @@
-"""Entry point: the flagship eval forward with seeded random weights.
+"""Entry points: the flagship eval forward and train steps with seeded
+random weights.
 
 The twin of `__graft_entry__.entry()`: `entry()` builds CoOccRay for
 coocc_multi_r50_256x704 (fp32, B=1, as the JAX entry is) with random
 weights drawn from a seeded `torch.Generator` and a synthetic batch, and
 returns `(fn, args)` with `fn(*args)` the eval forward. `served_model`
 builds the model the CLI serves, in the config's `compute_dtype`.
+`train_steps` trains it on synthetic batches in the config's
+`compute_dtype`, as `tools/train.py --synthetic` does.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from .config.base import CoOccConfig
 from .data.synthetic import synthetic_batch
 from .models.coocc_ray import CoOccRay
 from .nn.layers import BatchNorm
+from .parallel.train_step import train_step
+from .train.state import make_optimizer
 
 FLAGSHIP = "coocc_multi_r50_256x704"
 
@@ -72,12 +77,43 @@ def build_model(cfg: CoOccConfig, device="cuda", seed: int = 0,
     return init_weights(CoOccRay(cfg, dtype), seed).eval().to(device)
 
 
+def compute_dtype(cfg: CoOccConfig) -> Optional[torch.dtype]:
+    """The config's compute dtype as the JAX CLIs map it
+    (tools/test.py:76-78, tools/train.py:116-118)."""
+    return {"bfloat16": torch.bfloat16, "float32": None}[cfg.compute_dtype]
+
+
 def served_model(cfg: CoOccConfig, device="cuda") -> CoOccRay:
     """The model `python -m coocc_tpu_torch` answers with: weights of seed
-    0, in the config's compute dtype, mapped as the JAX CLIs map it
-    (tools/test.py:76-78)."""
-    dtype = {"bfloat16": torch.bfloat16, "float32": None}[cfg.compute_dtype]
-    return build_model(cfg, device, seed=0, dtype=dtype)
+    0, in the config's compute dtype."""
+    return build_model(cfg, device, seed=0, dtype=compute_dtype(cfg))
+
+
+class Trainer:
+    """A model in training (seeded weights, the config's compute dtype),
+    its optimizer (train/state.py) and the generator its dropout and
+    cascade priorities draw from. `step(batch)` is one train step."""
+
+    def __init__(self, cfg: CoOccConfig, device="cuda", seed: int = 0):
+        device = resolve_device(device)
+        self.model = build_model(cfg, device, seed,
+                                 compute_dtype(cfg)).train()
+        self.optimizer = make_optimizer(self.model, cfg.optim)
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+
+    def step(self, batch):
+        return train_step(self.model, self.optimizer, batch, self.generator)
+
+
+def train_steps(cfg: CoOccConfig, steps: int, device="cuda", seed: int = 0):
+    """`steps` train steps of a new Trainer(cfg, device, seed) on the
+    synthetic batches of seeds 0..steps-1 (B=1). -> (trainer, [each step's
+    metrics])."""
+    trainer = Trainer(cfg, device, seed)
+    device = next(trainer.model.parameters()).device
+    metrics = [trainer.step(synthetic_batch(cfg, batch_size=1, seed=i)
+                            .to(device)) for i in range(steps)]
+    return trainer, metrics
 
 
 def entry(device="cuda"):

@@ -1,21 +1,29 @@
-"""CoOccRay: the multi-modal occupancy model, eval forward.
+"""CoOccRay: the multi-modal occupancy model.
 
-Counterpart of coocc_tpu/models/coocc_ray.py `CoOccRay.__call__(batch,
-train=False)` (reference detectors/coocc_ray.py:31-723):
+Counterpart of coocc_tpu/models/coocc_ray.py `CoOccRay.__call__`
+(reference detectors/coocc_ray.py:31-723):
 
   image branch   ResNet -> SECONDFPN -> DepthNet/LSS splat -> img_voxel
   lidar branch   occupancy voxelize -> PackedLiDAREnc8x (pts.impl 'auto'
                  or 'packed'; 'dense' gives DenseLiDAREnc8x) -> pts_voxel
   fusion         BiFuserN grid-space window-KNN fusion
   semantics      CustomResNet3D -> FPN3D -> OccHead (+ cascade)
+  regularizer    frustum volume renderer (training only)
 
 Submodule names are the reference checkpoint's top-level prefixes
 (img_backbone, img_neck, img_view_transformer.depth_net, pts_middle_encoder,
-occ_fuser, semantic_encoder, semantic_neck, pts_bbox_head), so a Co-Occ
-state_dict loads straight in (the renderer's sigma_head / rgb_head are off at
-eval and not part of this model). Inputs and outputs are channels-last like
-the JAX package's; inside, tensors are NCHW / NCDHW. B > 1 runs the
-per-sample steps (voxelize, KNN, cascade) in a loop.
+occ_fuser, semantic_encoder, semantic_neck, pts_bbox_head, and the
+renderer's sigma_head / rgb_head), so a Co-Occ state_dict loads straight
+in. Inputs and outputs are channels-last like the JAX package's; inside,
+tensors are NCHW / NCDHW. B > 1 runs the per-sample steps (voxelize, KNN,
+cascade, the renderer's lookup) in a loop.
+
+`model.eval()` runs JAX's `train=False` forward under no_grad; `.train()`
+runs its `train=True` one: BatchNorm on batch statistics, ASPP's dropout,
+the LiDAR voxel cap `pts.max_voxels`, the cascade on `fine_topk` random
+cells (priorities passed in), and the extra outputs the losses read
+(depth_prob, voxel_feats, geom, and the renderer's render_depth and
+render_rgb).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from ..geometry.frustum import get_mlp_input
 from ..nn.bifuser import BiFuserN
 from ..nn.fpn3d import FPN3D
 from ..nn.lss import LSSViewTransformerVoxel
+from ..nn.nerf_mlp import NeRFMLP
 from ..nn.occ_head import OccHead
 from ..nn.resnet2d import ResNet
 from ..nn.resnet3d import CustomResNet3D
@@ -37,6 +46,7 @@ from ..nn.second_fpn import SECONDFPN
 from ..nn.sparse_enc_dense import DenseLiDAREnc8x
 from ..nn.sparse_enc_packed import PackedLiDAREnc8x
 from ..ops.voxelize import voxelize_mask
+from .renderer import render
 
 STAGES = ("img", "pts", "fuse", "sem", "coarse")
 
@@ -129,14 +139,27 @@ class CoOccRay(nn.Module):
                  else fz.window_ry,
                  fz.window_img_rz if fz.window_img_rz is not None
                  else fz.window_rz))
+        else:
+            # JAX's semantic stack then reads img_voxel or pts_voxel
+            # (coocc_tpu/models/coocc_ray.py:288)
+            raise NotImplementedError(
+                "a model without the fuser (camera-only or LiDAR-only) is "
+                "not ported")
         sem = cfg.semantic
         self.semantic_encoder = CustomResNet3D(
-            fz.out_channels if fz is not None else cfg.pts.out_channel,
-            sem.depth, sem.block_inplanes, sem.block_strides, sem.out_indices)
-        self.semantic_neck = FPN3D(sem.block_inplanes, sem.neck_out_channels)
+            fz.out_channels, sem.depth, sem.block_inplanes,
+            sem.block_strides, sem.out_indices)
+        self.semantic_neck = FPN3D(sem.block_inplanes, sem.neck_out_channels,
+                                   with_cp=sem.neck_with_cp)
         self.pts_bbox_head = OccHead(
             cfg.occ_head, img_channels=sum(cfg.img_neck.out_channels)
             if cfg.use_camera else 0)
+        if cfg.render.use_rendering:
+            # the renderer's heads (JAX models/renderer.py:97-103), on the
+            # fused features; training only
+            self.sigma_head = NeRFMLP(fz.out_channels, 1, 1)
+            if cfg.use_camera:
+                self.rgb_head = NeRFMLP(fz.out_channels, 3, 3)
 
     def _image_voxels(self, batch: Batch):
         B, N, H, W, _ = batch.imgs.shape
@@ -147,41 +170,49 @@ class CoOccRay(nn.Module):
         mlp_input = get_mlp_input(batch.rots, batch.trans, batch.intrins,
                                   batch.post_rots, batch.post_trans,
                                   batch.bda)
-        bev, _, _ = self.img_view_transformer(
+        bev, depth_prob, geom = self.img_view_transformer(
             img_feats, batch.rots, batch.trans, batch.intrins,
             batch.post_rots, batch.post_trans, batch.bda, mlp_input)
-        return bev.permute(0, 4, 1, 2, 3), img_feats
+        return bev.permute(0, 4, 1, 2, 3), img_feats, depth_prob, geom
 
     def _pts_voxels(self, batch: Batch):
         cfg = self.cfg
+        cap = cfg.pts.max_voxels if self.training else cfg.pts.max_voxels_test
         occupancy = torch.stack([
             voxelize_mask(p, m, cfg.point_cloud_range, cfg.pts.voxel_size,
-                          cfg.pts.sparse_shape_xyz,
-                          max_voxels=cfg.pts.max_voxels_test)
+                          cfg.pts.sparse_shape_xyz, max_voxels=cap)
             for p, m in zip(batch.points, batch.points_mask)])
         # the encoders return fp32 (JAX coocc_ray.py:178 casts back)
         return self.pts_middle_encoder(occupancy).to(self.dtype)
 
-    @torch.no_grad()
-    def forward(self, batch: Batch, stop_at: Optional[str] = None):
-        """Eval forward. stop_at in STAGES truncates after that stage and
-        returns its outputs, as the JAX model's stop_at does:
-        'img' -> img_voxel, 'pts' -> + pts_voxel ([B, X, Y, Z, C]),
+    def forward(self, batch: Batch, stop_at: Optional[str] = None,
+                fine_priorities=None):
+        """The forward, under no_grad in eval. stop_at in STAGES truncates
+        after that stage and returns its outputs, as the JAX model's stop_at
+        does: 'img' -> img_voxel, 'pts' -> + pts_voxel ([B, X, Y, Z, C]),
         'fuse' -> voxel_feats, 'sem' -> semantic (list), 'coarse' -> occ.
         The full forward returns occ, fine_logits, fine_coords, fine_valid
-        and fine_overflow. Every feature output is in the compute dtype
-        but fine_logits, which the cascade's last fc makes in fp32, as
-        JAX's prefixes return them."""
+        and fine_overflow, and in training depth_prob [B, N, fH, fW, D],
+        voxel_feats, geom and, with rendering on, render_depth [B, N, H, W]
+        and render_rgb [B, N, H, W, 3]. Every feature output is in the
+        compute dtype but fine_logits, which the cascade's last fc makes in
+        fp32, as JAX's prefixes return them. fine_priorities [B, n coarse
+        cells]: the training cascade's (nn/occ_head.py:select_occupied)."""
         if stop_at is not None and stop_at not in STAGES:
             raise ValueError(f"stop_at must be one of {STAGES}")
+        with torch.set_grad_enabled(self.training
+                                    and torch.is_grad_enabled()):
+            return self._forward(batch, stop_at, fine_priorities)
+
+    def _forward(self, batch: Batch, stop_at, fine_priorities):
         cfg = self.cfg
 
         def cl(t):  # NCDHW -> channels-last
             return None if t is None else t.permute(0, 2, 3, 4, 1)
 
-        img_voxel = img_feats = None
+        img_voxel = img_feats = depth_prob = geom = None
         if cfg.use_camera and batch.imgs is not None:
-            img_voxel, img_feats = self._image_voxels(batch)
+            img_voxel, img_feats, depth_prob, geom = self._image_voxels(batch)
         if stop_at == "img":
             return {"img_voxel": cl(img_voxel)}
         pts_voxel = None
@@ -203,6 +234,21 @@ class CoOccRay(nn.Module):
         if batch.rots is not None:
             transform = (batch.rots, batch.trans, batch.intrins,
                          batch.post_rots, batch.post_trans, batch.bda)
-        return self.pts_bbox_head(list(semantic), img_feats=img_feats,
+        outs = self.pts_bbox_head(list(semantic), img_feats=img_feats,
                                   transform=transform,
-                                  coarse_only=(stop_at == "coarse"))
+                                  coarse_only=(stop_at == "coarse"),
+                                  fine_priorities=fine_priorities)
+        if stop_at == "coarse" or not self.training:
+            return outs
+        # the losses' inputs (JAX coocc_ray.py:324-330)
+        outs.update(depth_prob=depth_prob, voxel_feats=cl(voxel_feats),
+                    geom=geom)
+        if cfg.render.use_rendering and geom is not None:
+            # on the FUSED voxel features, before the semantic stack
+            rgbs, depths = render(self.sigma_head,
+                                  getattr(self, "rgb_head", None),
+                                  cfg.render, outs["voxel_feats"], geom)
+            if rgbs is not None:
+                outs["render_rgb"] = rgbs
+            outs["render_depth"] = depths
+        return outs

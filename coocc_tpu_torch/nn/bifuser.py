@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..ops.gather import gather_rows
 from ..ops.window_knn import make_offsets, window_knn
 from .layers import BatchNorm, Conv3d, Linear
 
@@ -40,7 +41,7 @@ class BiFuserN(nn.Module):
     def _gather(feats, ids):
         """feats [X, Y, Z, C]; ids [X, Y, Z, k] -> [X, Y, Z, k*C]."""
         C = feats.shape[-1]
-        g = feats.reshape(-1, C)[ids.clamp(min=0).long()]
+        g = gather_rows(feats.reshape(-1, C), ids.clamp(min=0).long())
         return (g * (ids >= 0)[..., None]).flatten(-2)
 
     def forward(self, img, pts):

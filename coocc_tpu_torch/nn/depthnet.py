@@ -13,7 +13,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dcn import deform_conv2d
-from .layers import BatchNorm, Conv2d, Linear
+from .layers import BatchNorm, Conv2d, Dropout, Linear
 
 
 class Mlp(nn.Module):
@@ -56,8 +56,10 @@ class _ASPPModule(nn.Module):
 
 
 class ASPP(nn.Module):
-    """Atrous spatial pyramid pooling (dilations 1/6/12/18 + global pool).
-    The eval forward has no dropout."""
+    """Atrous spatial pyramid pooling (dilations 1/6/12/18 + global pool),
+    then dropout (p = 0.5, training only; JAX nn/depthnet.py:92-93). In
+    training the pooled branch's BatchNorm takes its statistics over the
+    B*N pooled maps, as JAX's gap_bn does."""
 
     def __init__(self, inplanes: int, mid: int):
         super().__init__()
@@ -71,6 +73,7 @@ class ASPP(nn.Module):
             nn.ReLU())
         self.conv1 = Conv2d(mid * 5, mid, 1, bias=False)
         self.bn1 = BatchNorm(mid)
+        self.dropout = Dropout(0.5)
 
     def forward(self, x):
         x4 = self.aspp4(x)
@@ -78,7 +81,7 @@ class ASPP(nn.Module):
         x5 = self.global_avg_pool(x).expand_as(x4)
         y = torch.cat([self.aspp1(x), self.aspp2(x), self.aspp3(x), x4, x5],
                       dim=1)
-        return F.relu(self.bn1(self.conv1(y)))
+        return self.dropout(F.relu(self.bn1(self.conv1(y))))
 
 
 class BasicBlock2D(nn.Module):

@@ -1,5 +1,5 @@
 """Layers with the reference's parameter names, computing in the dtype of
-their input (eval mode).
+their input.
 
 Counterpart of coocc_tpu/nn/layers.py. The flax modules there take a
 compute `dtype` and keep their parameters in fp32, casting them at use; the
@@ -14,9 +14,14 @@ and every layer here follows the dtype of the activation it is given:
     is added inside the same call, where flax adds it in bf16 after the
     rounding (one bf16 ulp apart at most).
   * `BatchNorm`: fp32 running statistics and affine, one rounding to the
-    input's dtype (flax's BatchNorm with `dtype` set). It keeps no
+    input's dtype (flax's BatchNorm with `dtype` set). In training it
+    normalizes with the batch's statistics as flax does (fp32 mean and
+    biased variance E[x^2] - E[x]^2) and moves the running statistics by
+    0.1 towards them, the variance biased too (torch's training BatchNorm
+    would move it towards the unbiased one). It keeps no
     `num_batches_tracked` counter (a counter the JAX variables cannot carry,
     so `convert.state_dict_from_jax` round-trips exactly).
+  * `Dropout`: flax's, its keep mask drawn from the module's `generator`.
   * `softmax`: jax.nn.softmax's roundings.
 
 Parameters and BN statistics stay fp32 whatever the compute dtype: the model
@@ -62,25 +67,53 @@ class Linear(nn.Linear):
         return conv(F.linear, x, self.weight, self.bias)
 
 
-class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over dim 1 of [N, C, ...] (1d, 2d and 3d alike),
-    in fp32 with one rounding to the input's dtype.
+# the running statistics keep this share of their value at each training
+# step (torch's momentum 0.1; flax's `momentum` is this decay); SECONDFPN's
+# BatchNorms keep 1 - 0.01
+BN_DECAY = 1.0 - 0.1
 
-    eps follows the call site, as in the reference: 1e-5 is torch's and the
-    JAX BatchNorm's default; SECONDFPN passes 1e-3.
+
+class BatchNorm(nn.Module):
+    """BatchNorm over dim 1 of [N, C, ...] (1d, 2d and 3d alike), in fp32
+    with one rounding to the input's dtype: the running statistics in eval,
+    the batch's in training (see the module note).
+
+    eps and momentum follow the call site, as in the reference: 1e-5 and
+    0.1 are torch's and the JAX BatchNorm's defaults; SECONDFPN passes 1e-3
+    and 0.01.
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.decay = 1.0 - momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+    def forward(self, x: torch.Tensor,
+                update_stats: bool = True) -> torch.Tensor:
+        """update_stats=False normalizes with the batch's statistics without
+        moving the running ones (a recomputation under checkpointing)."""
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.float()
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+        if update_stats:
+            with torch.no_grad():
+                self.running_mean.copy_(self.decay * self.running_mean
+                                        + (1 - self.decay) * mean)
+                self.running_var.copy_(self.decay * self.running_var
+                                       + (1 - self.decay) * var)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         # reference checkpoints carry torch BN's step counter; eval ignores it
@@ -88,7 +121,32 @@ class BatchNorm(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def extra_repr(self) -> str:
-        return f"{self.weight.shape[0]}, eps={self.eps}"
+        return (f"{self.weight.shape[0]}, eps={self.eps}, "
+                f"momentum={1.0 - self.decay:g}")
+
+
+class Dropout(nn.Module):
+    """flax.linen.Dropout in training (identity in eval or at p = 0): keep
+    each element with probability 1 - p, drawn from `generator` (set by the
+    train step; None draws from torch's default generator), and scale the
+    kept ones by 1 / (1 - p) in the input's dtype."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        keep = 1.0 - self.p
+        m = torch.rand(x.shape, generator=self.generator,
+                       device=x.device) < keep
+        return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
 
 
 def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:

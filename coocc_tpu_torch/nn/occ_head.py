@@ -1,6 +1,6 @@
 """Occupancy head: multi-scale blend -> class logits + cascade refinement.
 
-Counterpart of coocc_tpu/nn/occ_head.py `OccHead` at eval (reference
+Counterpart of coocc_tpu/nn/occ_head.py `OccHead` (reference
 dense_heads/occ_head.py:16-237). The coarse half: per-level conv+BN+ReLU,
 softmax-weighted blend of all levels at the finest one, 1x1x1 prediction
 stack, in the compute dtype. The cascade re-classifies the ratio^3 children
@@ -13,7 +13,14 @@ package's order, which sets its roundings in bf16: the fc weights are
 folded into the sampled tables first (the same linear map), the samplers
 round their weights to the compute dtype and sum in fp32
 (ops/grid_sample.py), the accumulator, the GroupNorms and the last fc are
-fp32.
+fp32. In training the cascade takes `fine_topk` cells instead, a random
+subset of the occupied ones: the occupied cells in descending order of
+their priorities (uniform draws, one per coarse cell, given by the caller)
+by a stable sort, as JAX's `select_occupied` with an rng (JAX
+occ_head.py:103-121, 271).
+
+Only the nuScenes camera layout ('nus') is ported: the 'kitti' branch of
+`project_points_on_img` (a 4x4 BDA, 3x4 intrinsics) raises.
 """
 from __future__ import annotations
 
@@ -26,16 +33,28 @@ from ..ops.grid_sample import cascade_sample_3d, multicam_bilinear
 from .layers import BatchNorm, Conv3d, softmax
 
 
-def select_occupied(coarse_mask: torch.Tensor, capacity: int):
-    """[X, Y, Z] bool -> ([capacity, 3] int32 coords, [capacity] bool valid):
-    the first `capacity` occupied cells in index order; unused slots hold
-    cell (0, 0, 0) with valid False."""
+def select_occupied(coarse_mask: torch.Tensor, capacity: int,
+                    priorities: torch.Tensor = None):
+    """[X, Y, Z] bool -> ([capacity, 3] int32 coords, [capacity] bool valid).
+
+    Eval (no priorities): the first `capacity` occupied cells in index
+    order; unused slots hold cell (0, 0, 0) with valid False. Training
+    (priorities [X*Y*Z] uniform in [0, 1)): the cells in descending order
+    of priority, unoccupied ones at -inf, by a stable sort (JAX's
+    argsort(-score)), the first `capacity` kept."""
     X, Y, Z = coarse_mask.shape
-    occupied = coarse_mask.reshape(-1).nonzero()[:capacity, 0]
-    idx = torch.zeros(capacity, dtype=torch.int64, device=coarse_mask.device)
-    idx[:occupied.shape[0]] = occupied
-    valid = torch.arange(capacity, device=coarse_mask.device) \
-        < occupied.shape[0]
+    flat = coarse_mask.reshape(-1)
+    if priorities is not None:
+        score = torch.where(flat, priorities, float("-inf"))
+        idx = torch.sort(-score, stable=True).indices[:capacity]
+        valid = flat[idx]
+    else:
+        occupied = flat.nonzero()[:capacity, 0]
+        idx = torch.zeros(capacity, dtype=torch.int64,
+                          device=coarse_mask.device)
+        idx[:occupied.shape[0]] = occupied
+        valid = torch.arange(capacity, device=coarse_mask.device) \
+            < occupied.shape[0]
     coords = torch.stack([idx // (Y * Z), (idx // Z) % Y, idx % Z], dim=-1)
     return coords.to(torch.int32), valid
 
@@ -85,6 +104,10 @@ def _conv_bn_relu(cin, cout, k, p):
 class OccHead(nn.Module):
     def __init__(self, cfg: OccHeadConfig, img_channels: int = 512):
         super().__init__()
+        if cfg.data_type != "nus":
+            raise NotImplementedError(
+                f"OccHead data_type={cfg.data_type!r}: only the 'nus' branch "
+                "of project_points_on_img is ported")
         self.cfg = cfg
         self.occ_convs = nn.ModuleList(
             _conv_bn_relu(c, c // 2, 3, 1) for c in cfg.in_channels)
@@ -135,14 +158,14 @@ class OccHead(nn.Module):
             blended = blended + f * w[:, i:i + 1]
         return blended, self.occ_pred_conv(blended)
 
-    def _fine(self, vox_t, img_t, tr, coarse_mask, cd):
+    def _fine(self, vox_t, img_t, tr, coarse_mask, cd, cap, priorities):
         """One sample: vox_t [X, Y, Z, 64] (cd) the blended features times
         fc1's voxel rows, img_t [N, fH, fW, 64] (fp32) the image features
-        times img_mlp's fc, or None each; tr its six calibration tensors ->
-        (logits, coords, valid)."""
+        times img_mlp's fc, or None each; tr its six calibration tensors;
+        cap cells chosen by `select_occupied` -> (logits, coords, valid)."""
         cfg = self.cfg
         ratio = cfg.cascade_ratio
-        coords, valid = select_occupied(coarse_mask, cfg.max_coarse_occupied)
+        coords, valid = select_occupied(coarse_mask, cap, priorities)
         fine = fine_coordinates(coords, ratio)
         fvalid = valid.repeat_interleave(ratio ** 3)
         fc1, gn, fc2 = self.fine_mlp[0], self.fine_mlp[1], self.fine_mlp[3]
@@ -166,10 +189,11 @@ class OccHead(nn.Module):
         return F.linear(x, fc2.weight, fc2.bias), fine, fvalid
 
     def forward(self, voxel_feats, img_feats=None, transform=None,
-                coarse_only: bool = False):
+                coarse_only: bool = False, fine_priorities=None):
         """voxel_feats: list of [B, C_i, X_i, Y_i, Z_i]; img_feats:
         [B, N, C2, fH, fW]; transform: (rots, trans, intrins, post_rots,
-        post_trans, bda), batched.
+        post_trans, bda), batched; fine_priorities [B, X*Y*Z] the training
+        cascade's (see select_occupied), required in training.
 
         Returns {'occ': [B, X, Y, Z, out]} and, with the cascade,
         'fine_logits' [B, K*r^3, out], 'fine_coords' [B, K*r^3, 3],
@@ -197,16 +221,19 @@ class OccHead(nn.Module):
                 cd).float()
             img_t = img_t.reshape(B, N, *img_t.shape[1:])  # [B, N, fH, fW, 64]
         occ_mask = logits.argmax(dim=1) != cfg.empty_idx  # [B, X, Y, Z]
+        cap = cfg.fine_topk if self.training else cfg.max_coarse_occupied
+        if self.training and fine_priorities is None:
+            raise ValueError("the training cascade needs fine_priorities")
         per = [self._fine(None if vox_t is None else vox_t[b],
                           None if img_t is None else img_t[b],
                           None if img_t is None
                           else tuple(t[b] for t in transform), occ_mask[b],
-                          cd)
+                          cd, cap, None if not self.training
+                          else fine_priorities[b])
                for b in range(logits.shape[0])]
         out["fine_logits"] = torch.stack([p[0] for p in per])
         out["fine_coords"] = torch.stack([p[1] for p in per])
         out["fine_valid"] = torch.stack([p[2] for p in per])
         n_occ = occ_mask.flatten(1).sum(dim=1)
-        out["fine_overflow"] = (n_occ - cfg.max_coarse_occupied).clamp(
-            min=0).to(torch.int32)
+        out["fine_overflow"] = (n_occ - cap).clamp(min=0).to(torch.int32)
         return out

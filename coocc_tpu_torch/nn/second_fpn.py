@@ -2,7 +2,8 @@
 
 Counterpart of coocc_tpu/nn/second_fpn.py. deblock rules
 (mmdet3d second_fpn.py:45-62): stride >= 1 -> deconv(k=s, s); stride < 1 ->
-conv(k=round(1/s), s=round(1/s)). The deblock BN uses eps 1e-3.
+conv(k=round(1/s), s=round(1/s)). The deblock BN uses eps 1e-3 and
+momentum 0.01.
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ class SECONDFPN(nn.Module):
             else:
                 k = int(round(1.0 / s))
                 up = Conv2d(cin, cout, k, k, bias=False)
-            deblocks.append(nn.Sequential(up, BatchNorm(cout, eps=1e-3),
-                                          nn.ReLU()))
+            deblocks.append(nn.Sequential(
+                up, BatchNorm(cout, eps=1e-3, momentum=0.01), nn.ReLU()))
         self.deblocks = nn.ModuleList(deblocks)
 
     def forward(self, feats):

@@ -103,6 +103,12 @@ class DenseLiDAREnc8x(nn.Module):
             nn.ReLU()])
 
     def forward(self, occupancy: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            # its BatchNorms would take statistics over every cell, where
+            # JAX's masked ones take the active cells only
+            raise NotImplementedError("the dense LiDAR encoder's training "
+                                      "path is not ported (pts.impl='dense'"
+                                      "); train the packed one")
         cd = self.compute_dtype
         mask = occupancy[:, None].to(cd)
         # Level 0 collapses. The stem is SubM -> GroupNorm(16, 16) -> ReLU;

@@ -39,6 +39,14 @@ K2's epilogue compute in fp32 and round once where JAX rounds each of its
 bf16 ops; the per-cell GroupNorm runs on fp32 and the output is fp32, as in
 JAX (sparse_enc_packed.py:769-775).
 
+Training (`.train()`): every BatchNorm takes its statistics over the active
+cells only and moves its running variance towards the unbiased n/(n-1) one
+(JAX `_PackedBNCore`, sparse_enc_packed.py:255-275, its affine in the
+compute dtype); a SparseBasicBlock is K2 (mask, `subm_conv`, which has a
+gradient), BN, ReLU, K2 (mask), BN, + x, ReLU, mask (JAX :441-449), and the
+downsamples' BN follows the same rule. K2's fused BN epilogues read running
+statistics and run in eval only.
+
 Not ported: the z-batch tap forms (`ztap_levels`, `zb_down`) and the
 COOCC_STRIDED_MODE=lm|packed variants, among them the lane-major strided
 downsample taken when p != 2*p_out; the model raises for them.
@@ -53,9 +61,9 @@ import torch.nn.functional as F
 
 from ..ops.constants import device_constant
 from ..ops.subm_conv import (ZERO_TAP, BNAffine, conv2d_nhwc,
-                             epilogue_plain, gather_taps, shift_ext,
-                             subm_ext_conv)
-from .layers import BatchNorm
+                             epilogue_plain, gather_taps, masked, shift_ext,
+                             subm_conv, subm_ext_conv)
+from .layers import BN_DECAY, BatchNorm
 from .sparse_enc_dense import (DenseLiDAREnc8x, SpConvWeight,
                                per_cell_group_norm)
 
@@ -194,10 +202,61 @@ def packed_basic_block(block, x_pb: torch.Tensor, mcell: torch.Tensor,
     return packed_subm(net[3], y, mcell, C, bn=net[4], identity=x_pb)
 
 
+def packed_bn_train(bn: BatchNorm, x_pb: torch.Tensor,
+                    mcell: torch.Tensor) -> torch.Tensor:
+    """JAX `_PackedBNCore` in training: statistics of the active cells of
+    x_pb [..., p*C] (fp32 sums; n the active cells), the running ones moved
+    towards them with the variance scaled by n/(n-1), and the affine with
+    mean, inverse and bias rounded to x_pb's dtype, times the mask."""
+    p, C = mcell.shape[-1], bn.weight.shape[0]
+    x5 = x_pb.reshape(*x_pb.shape[:-1], p, C)
+    m = mcell[..., None].to(x_pb.dtype)
+    xm = (x5 * m).float()
+    dims = tuple(range(x5.dim() - 1))
+    n = mcell.sum().float().clamp(min=1.0)
+    mean = xm.sum(dims) / n
+    var = ((xm * x5).sum(dims) / n - mean * mean).clamp(min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_DECAY * bn.running_mean
+                              + (1 - BN_DECAY) * mean)
+        bn.running_var.copy_(BN_DECAY * bn.running_var + (1 - BN_DECAY)
+                             * var * n / (n - 1).clamp(min=1.0))
+    dt = x_pb.dtype
+    inv = (1.0 / torch.sqrt(var + bn.eps)) * bn.weight
+    y = ((x5 - mean.to(dt)) * inv.to(dt) + bn.bias.to(dt)) * m
+    return y.reshape(x_pb.shape)
+
+
+def packed_basic_block_train(block, x_pb: torch.Tensor, mcell: torch.Tensor,
+                             C: int) -> torch.Tensor:
+    """SparseBasicBlock in training (JAX `_PackedBasicBlock`)."""
+    net = block.net
+    p = x_pb.shape[-1] // C
+    y = subm_conv(x_pb, tap_weight(net[0]), p, mcell)
+    y = F.relu(packed_bn_train(net[1], y, mcell))
+    y = subm_conv(y, tap_weight(net[3]), p, mcell)
+    y = packed_bn_train(net[4], y, mcell)
+    return masked(F.relu(y + x_pb), mcell)
+
+
 class PackedLiDAREnc8x(DenseLiDAREnc8x):
     """[B, X, Y, Z] bool occupancy -> [B, out_channel, X/8, Y/8, Z/8] fp32,
     with DenseLiDAREnc8x's parameters; the activations up to the per-cell
     GroupNorm are in compute_dtype."""
+
+    def _down_bn_relu(self, bn: BatchNorm, d: torch.Tensor,
+                      mcell: torch.Tensor) -> torch.Tensor:
+        """A downsample's masked BN + ReLU: in eval K2's BN+ReLU epilogue
+        ops, in fp32 with one rounding to d's dtype; in training JAX's
+        (`down("norm", d * mf, mf, train)`, then ReLU)."""
+        if self.training:
+            return F.relu(packed_bn_train(bn, masked(d, mcell), mcell))
+        return epilogue_plain(d, mcell, bn_affine(bn)).to(d.dtype)
+
+    def _block(self, block, d, mcell, C):
+        if self.training:
+            return packed_basic_block_train(block, d, mcell, C)
+        return packed_basic_block(block, d, mcell, C)
 
     def forward(self, occupancy: torch.Tensor) -> torch.Tensor:
         b = self.conv_input[1].weight.shape[0]
@@ -220,11 +279,9 @@ class PackedLiDAREnc8x(DenseLiDAREnc8x):
         # pass after this one, K2 among them, reads them densely
         d = lm_to_pb(d_lm, Z, C, p).contiguous()
         mcell = mask_pb(cnt > 0.5, p).contiguous()    # [B, bz, X, Y, p]
-        # the downsample's masked BN + ReLU: K2's BN+ReLU epilogue ops, in
-        # fp32 with one rounding to cd
-        d = epilogue_plain(d, mcell, bn_affine(down[1])).to(cd)
-        d = packed_basic_block(self.conv1[1], d, mcell, C)
-        d = packed_basic_block(self.conv1[2], d, mcell, C)
+        d = self._down_bn_relu(down[1], d, mcell)
+        d = self._block(self.conv1[1], d, mcell, C)
+        d = self._block(self.conv1[2], d, mcell, C)
 
         for lvl in (2, 3):
             blocks = getattr(self, f"conv{lvl}")
@@ -243,11 +300,14 @@ class PackedLiDAREnc8x(DenseLiDAREnc8x):
                             dilate_packed_weight(p, p_out, d.device), 2)
             mcell = (cnt > 0.5).contiguous()          # [B, bz, X, Y, p_out]
             Z, C, p = Z // 2, C_out, p_out
-            d = epilogue_plain(d, mcell, bn_affine(down[1])).to(cd)
-            d = packed_basic_block(blocks[1], d, mcell, C)
-            d = packed_basic_block(blocks[2], d, mcell, C)
+            d = self._down_bn_relu(down[1], d, mcell)
+            d = self._block(blocks[1], d, mcell, C)
+            d = self._block(blocks[2], d, mcell, C)
 
-        d = packed_subm(self.conv_out[0], d, mcell, C)
+        if self.training:
+            d = subm_conv(d, tap_weight(self.conv_out[0]), p, mcell)
+        else:
+            d = packed_subm(self.conv_out[0], d, mcell, C)
         Co = self.conv_out[1].weight.shape[0]
         d5 = d.reshape(*d.shape[:-1], p, Co)
         # each cell normalized over its own channel groups, in fp32

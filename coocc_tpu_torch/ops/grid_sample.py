@@ -14,6 +14,8 @@ import itertools
 
 import torch
 
+from .gather import gather_rows
+
 
 def _axis_corners(fine: torch.Tensor, S: int, V: int):
     """Trilinear corners of fine coords [P] along one axis of a V-cell grid
@@ -46,7 +48,7 @@ def cascade_sample_3d(vol: torch.Tensor, fine: torch.Tensor,
                       device=vol.device)
     for (xi, wx), (yi, wy), (zi, wz) in itertools.product(*corners):
         w = (wx * wy * wz).to(vol.dtype).float()
-        out += w[:, None] * table[(xi * Y + yi) * Z + zi].float()
+        out += w[:, None] * gather_rows(table, (xi * Y + yi) * Z + zi).float()
     return out.to(vol.dtype)
 
 
@@ -74,6 +76,6 @@ def multicam_bilinear(imgs: torch.Tensor, uv: torch.Tensor,
             inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
             w = (w_y * md * inb.to(dtype)) * w_x             # [N, P]
             rows = cam + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
-            v = table[rows.reshape(-1)].reshape(N, -1, C)
+            v = gather_rows(table, rows.reshape(-1)).reshape(N, -1, C)
             out += (w.float()[..., None] * v.float()).sum(0)
     return out.to(dtype)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry.frustum import voxel_indices
+from .gather import gather_rows
 from .voxelize import linearize
 
 
@@ -36,7 +37,7 @@ def lift_splat(depth_prob: torch.Tensor, img_feat: torch.Tensor,
     pix = pix.expand(N, D, fH, fW).reshape(-1)
     outs = []
     for b in range(B):
-        contrib = img_feat[b].reshape(N * fH * fW, C)[pix].to(
+        contrib = gather_rows(img_feat[b].reshape(N * fH * fW, C), pix).to(
             depth_prob.dtype) * depth_prob[b].reshape(-1, 1)
         out = contrib.new_zeros(n_vox + 1, C)
         out.index_add_(0, vox_id[b].long(), contrib)

@@ -32,6 +32,25 @@ hand-written kernel `csrc/subm_conv.cu` or raises. The kernel replaces the
 Pallas kernel `_kernel` (called from `subm_ext_conv`,
 coocc_tpu/ops/pallas/subm_conv.py:53,107); its design note is in the
 source.
+
+Training: `subm_conv` is the mask-only conv with a gradient (a
+`torch.autograd.Function`; the fused BN epilogues read running statistics
+and stay eval-only). The Pallas kernel has no backward of its own: JAX
+trains through the XLA route of the same conv (nn/sparse_enc_packed.py:
+431-433), whose custom VJP (ops/conv_acc.py:29-58) casts the cotangent to
+the operands' dtype. Here, with dY the masked cotangent:
+
+  * dX is a SubM conv of dY with the mirrored stencil, tap t taking
+    w27[26 - t] transposed (`flip_taps`): one more K2 launch per conv
+    (`subm_ext_conv_dx`, with an all-ones mask), at K2's numerics;
+  * dW [27, C, Co] is the extended weight's gradient, the shifted inputs
+    (rounded to bf16, as the forward reads them) against dY summed over
+    the cells in the activations' dtype (one rounding, as JAX's conv
+    transpose rounds it), then folded back onto the 27 taps in fp32
+    (`gather_taps_transpose`): PyTorch ops, no kernel of its own.
+
+On the CPU both take the plain versions: the autograd of an fp32 ext conv of
+the bf16-rounded operands, with dY rounded to bf16 as K2 reads it.
 """
 from __future__ import annotations
 
@@ -89,6 +108,27 @@ def subm_ext_weight(w27: torch.Tensor, p: int) -> torch.Tensor:
     return gather_taps(w27, subm_ext_table(p))
 
 
+def gather_taps_transpose(g: torch.Tensor, table: np.ndarray, Ci: int,
+                          Co: int) -> torch.Tensor:
+    """The transpose of `gather_taps`: a block weight's gradient [3, 3,
+    n_in*Ci, n_out*Co] -> the taps' [27, Ci, Co], each tap summing the
+    blocks that read it, in fp32."""
+    n_in, n_out = table.shape
+    blocks = g.float().reshape(3, 3, n_in, Ci, n_out, Co).permute(
+        0, 1, 2, 4, 3, 5).reshape(3, 3, n_in * n_out, Ci, Co)
+    idx = device_constant(table.reshape(-1), g.device)
+    w3 = g.new_zeros((3, 3, ZERO_TAP + 1, Ci, Co), dtype=torch.float32)
+    w3.index_add_(2, idx, blocks)
+    return w3[:, :, :ZERO_TAP].reshape(27, Ci, Co)
+
+
+def flip_taps(w27: torch.Tensor) -> torch.Tensor:
+    """[27, C, Co] -> [27, Co, C], tap t holding w27[26 - t] transposed:
+    the SubM conv's transpose is the SubM conv with the mirrored stencil
+    (taps kx-major, so 26 - t mirrors kx, ky and kz at once)."""
+    return w27.flip(0).transpose(1, 2)
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -135,6 +175,19 @@ def ext_conv_plain(x_pb: torch.Tensor, w_ext: torch.Tensor, bz: int,
     ext = shift_ext(xr, C).reshape(B * bz, X, Y, pC + 2 * C)
     y = conv2d_nhwc(ext, wr)
     return y.reshape(B, bz, X, Y, -1).to(x_pb.dtype)
+
+
+def subm_conv_unrounded(x_pb: torch.Tensor, w27: torch.Tensor, p: int,
+                        mcell: torch.Tensor) -> torch.Tensor:
+    """The mask-only SubM conv on operands NOT rounded to bf16, as JAX's
+    fp32 XLA route computes it (a conv of shift_ext(x) with the extended
+    weight, times the mask), differentiable by autograd: what the tests and
+    chip_smoke.py swap in for `subm_conv` to hold the training encoder's
+    wiring at fp32 tolerances."""
+    B, bz, X, Y, pC = x_pb.shape
+    ext = shift_ext(x_pb, pC // p).reshape(B * bz, X, Y, -1)
+    y = conv2d_nhwc(ext, subm_ext_weight(w27, p)).reshape(B, bz, X, Y, -1)
+    return masked(y, mcell)
 
 
 class BNAffine(NamedTuple):
@@ -278,6 +331,87 @@ def subm_ext_conv(x_pb: torch.Tensor, w27: torch.Tensor, p: int,
     kernel (and counts the launch in `subm_ext_conv.launches`)."""
     if x_pb.device.type == "cpu":
         return subm_ext_conv_plain(x_pb, w27, p, mcell, bn, identity)
+    out = _launch(x_pb, w27, p, mcell, bn, identity)
+    subm_ext_conv.launches += 1
+    return out
+
+
+subm_ext_conv.launches = 0
+
+
+def subm_ext_conv_dx(dy_pb: torch.Tensor, w27: torch.Tensor,
+                     p: int) -> torch.Tensor:
+    """dX of the SubM conv with tap weights w27 [27, C, Co], given the
+    masked cotangent dy_pb [B, bz, X, Y, p*Co]: K2 with the mirrored taps
+    and no mask, [B, bz, X, Y, p*C] in dy_pb's dtype. A CPU tensor takes
+    the plain version; a CUDA tensor launches K2 (counted in
+    `subm_ext_conv_dx.launches`, not in subm_ext_conv's)."""
+    ones = torch.ones(dy_pb.shape[:-1] + (p,), dtype=torch.bool,
+                      device=dy_pb.device)
+    if dy_pb.device.type == "cpu":
+        return subm_ext_conv_plain(dy_pb, flip_taps(w27), p, ones)
+    out = _launch(dy_pb, flip_taps(w27), p, ones, None, None)
+    subm_ext_conv_dx.launches += 1
+    return out
+
+
+subm_ext_conv_dx.launches = 0
+
+
+def subm_ext_weight_grad(x_pb: torch.Tensor, dy_pb: torch.Tensor,
+                         p: int) -> torch.Tensor:
+    """dW [27, C, Co] fp32 of the SubM conv of x_pb [B, bz, X, Y, p*C]
+    given the masked cotangent dy_pb [B, bz, X, Y, p*Co] (see the module
+    note): the extended weight's gradient in the activations' dtype, summed
+    in fp32 and rounded once (on the CPU a bf16 one is the fp32 sum of the
+    bf16 values, as ops/conv.py computes), folded onto the taps."""
+    B, bz, X, Y, pC = x_pb.shape
+    C, Co = pC // p, dy_pb.shape[-1] // p
+    dt = x_pb.dtype
+    ext = shift_ext(x_pb.to(torch.bfloat16), C).to(dt).reshape(
+        B * bz, X, Y, pC + 2 * C).permute(0, 3, 1, 2)
+    dy = dy_pb.to(dt).reshape(B * bz, X, Y, p * Co).permute(0, 3, 1, 2)
+    if dt != torch.float32 and x_pb.device.type == "cpu":
+        ext, dy = ext.float(), dy.float()
+    g = torch.nn.grad.conv2d_weight(ext, (p * Co, pC + 2 * C, 3, 3), dy,
+                                    padding=1).to(dt)
+    return gather_taps_transpose(g.permute(2, 3, 1, 0), subm_ext_table(p),
+                                 C, Co)
+
+
+class _SubMConv(torch.autograd.Function):
+    """The mask-only K2 conv with the gradient of the module note."""
+
+    @staticmethod
+    def forward(ctx, x_pb, w27, p, mcell):
+        ctx.p = p
+        ctx.save_for_backward(x_pb, w27, mcell)
+        return subm_ext_conv(x_pb, w27, p, mcell)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x_pb, w27, mcell = ctx.saved_tensors
+        # the cotangent in the operands' dtype (JAX ops/conv_acc.py:47-54),
+        # times the output mask the forward applied
+        dy = masked(dy.to(x_pb.dtype), mcell).contiguous()
+        dx = subm_ext_conv_dx(dy, w27, ctx.p) \
+            if ctx.needs_input_grad[0] else None
+        dw = subm_ext_weight_grad(x_pb, dy, ctx.p).to(w27.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return dx, dw, None, None
+
+
+def subm_conv(x_pb: torch.Tensor, w27: torch.Tensor, p: int,
+              mcell: torch.Tensor) -> torch.Tensor:
+    """`subm_ext_conv` with its mask-only epilogue, differentiable in x_pb
+    and w27 (the training encoder's SubM conv)."""
+    return _SubMConv.apply(x_pb, w27, p, mcell)
+
+
+def _launch(x_pb: torch.Tensor, w27: torch.Tensor, p: int,
+            mcell: torch.Tensor, bn: Optional[BNAffine],
+            identity: Optional[torch.Tensor]) -> torch.Tensor:
+    """Check the inputs and launch K2 on the card (or raise)."""
     if x_pb.device.type != "cuda":
         raise ValueError(f"subm_ext_conv: unsupported device {x_pb.device}")
     if x_pb.dtype not in _DTYPE_CODE or x_pb.dim() != 5:
@@ -330,8 +464,4 @@ def subm_ext_conv(x_pb: torch.Tensor, w27: torch.Tensor, p: int,
     if err != 0:
         raise RuntimeError(f"subm_ext_conv kernel launch failed: CUDA error "
                            f"{err}")
-    subm_ext_conv.launches += 1
     return out
-
-
-subm_ext_conv.launches = 0

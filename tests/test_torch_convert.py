@@ -3,8 +3,10 @@
 1. The port's seeded tiny model: its state_dict -> the JAX package's
    convert_coocc_ray -> the port's state_dict_from_jax gives back the same
    state_dict, key for key and value for value.
-2. A JAX-initialized tiny CoOccRay (utils/init_utils.jit_init) goes through
-   state_dict_from_jax and loads into the port with strict=True.
+2. A JAX-initialized tiny CoOccRay (utils/init_utils.jit_init, with
+   train=True so that the renderer's heads exist, as train/loop.py:146-147
+   initializes it) goes through state_dict_from_jax and loads into the port
+   with strict=True.
 """
 import jax
 import jax.numpy as jnp
@@ -40,9 +42,10 @@ def test_jax_initialized_weights_load_strict():
     batch = jax.tree.map(lambda x: None if x is None else jnp.asarray(x),
                          jax_synthetic_batch(jcfg, batch_size=1, seed=0),
                          is_leaf=lambda x: x is None)
+    key = jax.random.PRNGKey(0)
     variables = jit_init(JaxCoOccRay(cfg=jcfg),
-                         {"params": jax.random.PRNGKey(0)}, batch,
-                         train=False)
+                         {"params": key, "dropout": key}, batch,
+                         train=True, fine_rng=key)
     variables = jax.tree.map(np.asarray, dict(variables))
     sd = state_dict_from_jax(variables, tiny_config())
     model = CoOccRay(tiny_config())
@@ -52,3 +55,7 @@ def test_jax_initialized_weights_load_strict():
         model.state_dict()[k].numpy(),
         np.asarray(variables["params"]["semantic_encoder"]["layer1_0"]
                    ["conv1"]["conv"]["kernel"]).transpose(4, 3, 0, 1, 2))
+    np.testing.assert_array_equal(
+        model.state_dict()["rgb_head.hidden_layers.2.weight"].numpy(),
+        np.asarray(variables["params"]["renderer"]["rgb_head"]["hidden2"]
+                   ["kernel"]).T)

@@ -41,7 +41,11 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     for m in ("ops.window_knn", "ops.subm_conv", "ops.knn",
-              "nn.sparse_enc_packed", "bench"):
+              "nn.sparse_enc_packed", "bench", "nn.nerf_mlp",
+              "models.renderer", "models.losses", "losses.ssc",
+              "losses.lovasz", "losses.gt_pool", "losses.depth",
+              "config.nuscenes", "train.state", "train.__main__",
+              "parallel.train_step", "parity"):
         assert f"coocc_tpu_torch.{m}" in mods
     _run_clean("\n".join(["import coocc_tpu_torch"]
                          + [f"import {m}" for m in mods]))
@@ -69,3 +73,16 @@ def test_bench_prints_no_result_without_a_card(env, error):
     assert proc.returncode != 0
     assert proc.stdout == ""
     assert error in proc.stderr
+
+
+def test_train_cli_raises_without_a_card():
+    """`python -m coocc_tpu_torch.train` runs on the card unless `--device
+    cpu` is given: without one it raises before any step, and imports no
+    JAX on the way (its module is in the list above)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "coocc_tpu_torch.train",
+         "coocc_multi_r50_256x704", "--synthetic", "--steps", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "step 0" not in proc.stdout
+    assert "torch.cuda.is_available() is False" in proc.stderr

@@ -272,6 +272,16 @@ def test_pts_impl_resolves_like_jax(impl, encoder):
         assert type(model.pts_middle_encoder).__name__ == encoder
 
 
+@pytest.mark.parametrize("name", ["coocc_cam_r101_896x1600", "coocc_kitti"])
+def test_unported_configs_raise_not_implemented(name):
+    """A model without the fuser (the camera-only config) and the kitti
+    camera layout of OccHead (project_points_on_img's 4x4 BDA and 3x4
+    intrinsics, the 30-d camera vector) are not ported: building them
+    raises NotImplementedError, not another error and not a wrong model."""
+    with pytest.raises(NotImplementedError):
+        CoOccRay(get_config(name))
+
+
 def test_batch_of_two_runs_per_sample():
     """B > 1 runs the per-sample steps in a loop: each sample of a B=2 batch
     gives what it gives alone (to 1e-4: batched convolutions sum in another

@@ -14,6 +14,15 @@ JAX's `_shift_ext` builds. The block weights and layout helpers of
 nn/sparse_enc_packed.py equal the JAX ones exactly on seeded weights. The
 CUDA kernel runs only on the card: chip_smoke.py holds it against the same
 plain version there.
+
+K2's gradient (`subm_conv`, the training encoder's conv): on the CPU its
+backward takes the plain versions of dX (K2 with the mirrored taps) and dW;
+with operands and cotangent that hold bf16 values (so that K2's roundings
+are exact) it equals torch.autograd of the plain fp32 ext conv; the
+mirrored-tap conv is the conv's adjoint; and it matches jax.vjp of JAX's
+XLA route of the same SubM layer (`_conv2d_pb(_shift_ext(x))` times the
+mask, nn/sparse_enc_packed.py:431-433) in fp32 (bf16-valued inputs) and
+bf16.
 """
 import functools
 
@@ -27,7 +36,10 @@ from coocc_tpu.ops.pallas.subm_conv import subm_ext_conv as jax_subm_ext_conv
 
 from coocc_tpu_torch.nn import sparse_enc_packed as tpk
 from coocc_tpu_torch.ops.subm_conv import (KB, BNAffine, _panel_index,
-                                           kblocks, shift_ext, subm_ext_conv,
+                                           flip_taps, kblocks, shift_ext,
+                                           subm_conv, subm_conv_unrounded,
+                                           subm_ext_conv, subm_ext_conv_dx,
+                                           subm_ext_conv_plain,
                                            subm_ext_weight, weight_panels)
 
 SHAPES = [(1, 3, 12, 16, 32, 4), (2, 2, 9, 11, 64, 2),
@@ -225,3 +237,100 @@ def test_layout_helpers_match_jax(C, Z):
     np.testing.assert_array_equal(
         shift_ext(x_pb, C).numpy(),
         np.asarray(jpk._shift_ext(jnp.asarray(x_pb.numpy()), C)))
+
+
+# ---------------------------------------------------------------------------
+# K2's gradient
+# ---------------------------------------------------------------------------
+
+def _bf16_valued(a):
+    return torch.from_numpy(a).to(torch.bfloat16).float()
+
+
+@functools.lru_cache(maxsize=None)
+def _grad_case(B, bz, X, Y, C, p):
+    """Seeded x, w27, cotangent and mask, each holding bf16 values."""
+    rng = np.random.RandomState(1)
+    x = _bf16_valued(rng.randn(B, bz, X, Y, p * C).astype(np.float32))
+    w27 = _bf16_valued((0.1 * rng.randn(27, C, C)).astype(np.float32))
+    dy = _bf16_valued(rng.randn(B, bz, X, Y, p * C).astype(np.float32))
+    mcell = torch.from_numpy(rng.rand(B, bz, X, Y, p) < 0.6)
+    return x, w27, dy, mcell
+
+
+def _port_grads(x, w27, dy, mcell, p, fn=subm_conv):
+    x, w27 = x.clone().requires_grad_(), w27.clone().requires_grad_()
+    fn(x, w27, p, mcell).backward(dy)
+    return x.grad, w27.grad
+
+
+@pytest.mark.parametrize("B,bz,X,Y,C,p", SHAPES)
+def test_subm_conv_plain_backward_is_autograd_of_the_plain_conv(
+        B, bz, X, Y, C, p):
+    """On bf16-valued operands and cotangent K2's roundings are exact, so
+    the Function's plain backward (dX through the mirrored-tap K2, dW from
+    the extended weight's gradient) equals torch.autograd of the plain fp32
+    ext conv to fp32 summation order. (Autograd through
+    `subm_ext_conv_plain` itself would round dX to bf16 on its way back
+    through the operand cast; K2's dX sums in fp32 and rounds only to dY's
+    dtype.)"""
+    x, w27, dy, mcell = _grad_case(B, bz, X, Y, C, p)
+    y = subm_conv(x, w27, p, mcell)
+    np.testing.assert_array_equal(
+        y.numpy(), subm_ext_conv_plain(x, w27, p, mcell).numpy())
+    dx, dw = _port_grads(x, w27, dy, mcell, p)
+    rx, rw = _port_grads(x, w27, dy, mcell, p, subm_conv_unrounded)
+    for got, ref in ((dx, rx), (dw, rw)):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("B,bz,X,Y,C,p", SHAPES)
+def test_dx_is_the_conv_with_the_mirrored_taps(B, bz, X, Y, C, p):
+    """<dy, conv_w(x)> = <conv_flip(w)(dy), x> for the unmasked SubM conv,
+    and subm_ext_conv_dx computes conv_flip(w) (fp32, bf16-valued)."""
+    x, w27, dy, _ = _grad_case(B, bz, X, Y, C, p)
+    ones = torch.ones_like(_grad_case(B, bz, X, Y, C, p)[3])
+    y = subm_conv_unrounded(x, w27, p, ones)
+    lhs = float((dy.double() * y.double()).sum())
+    dx = subm_ext_conv_dx(dy, w27, p)
+    np.testing.assert_allclose(
+        dx.numpy(), subm_conv_unrounded(dy, flip_taps(w27), p, ones).numpy(),
+        rtol=1e-5, atol=1e-5 * float(dx.abs().max()))
+    rhs = float((dx.double() * x.double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+    assert flip_taps(w27).shape == (27, C, C)
+    assert torch.equal(flip_taps(w27)[0], w27[26].T)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,bz,X,Y,C,p", SHAPES)
+def test_subm_conv_backward_matches_jax_vjp(B, bz, X, Y, C, p, dtype):
+    """dX and dW against jax.vjp of JAX's XLA SubM route. fp32 (inputs and
+    cotangent hold bf16 values, so K2's roundings are exact): to fp32
+    summation order. bf16: JAX rounds the extended dX and each extended
+    weight element's sum to bf16 and adds the carries' dX in bf16, the port
+    rounds dX once and dW per extended element (then sums in fp32): within
+    2^-7 of each output's scale."""
+    import jax
+    x, w27, dy, mcell = _grad_case(B, bz, X, Y, C, p)
+    jd = getattr(jnp, dtype)
+
+    def layer(xj, wj):
+        wext = jpk._subm_ext_weight(wj, p)
+        y = jpk._conv2d_pb(jpk._shift_ext(xj, C), wext).astype(xj.dtype)
+        mf = jnp.repeat(jnp.asarray(mcell.numpy()), C, axis=-1)
+        return y * mf.astype(xj.dtype)
+
+    _, vjp = jax.vjp(layer, jnp.asarray(x.numpy()).astype(jd),
+                     jnp.asarray(w27.numpy()))
+    jdx, jdw = vjp(jnp.asarray(dy.numpy()).astype(jd))
+    td = getattr(torch, dtype)
+    dx, dw = _port_grads(x.to(td), w27, dy.to(td), mcell, p)
+    assert dx.dtype == td and dw.dtype == torch.float32
+    for got, ref in ((dx, jdx), (dw, jdw)):
+        ref = np.asarray(ref, np.float32)
+        scale = np.abs(ref).max()
+        tol = 1e-5 * scale if dtype == "float32" else 2.0 ** -7 * scale
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
+                                   atol=tol)
