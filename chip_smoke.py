@@ -50,10 +50,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      subm_ext_conv 13, subm_ext_conv_dx 13), times, peak memory, a profiled
      step, finite losses, moved parameters and BN statistics, and K2's dX
      on its 13 calls' own inputs against its plain version; then a tiny
-     train step on the card against the CPU.
+     train step on the card against the CPU;
+ 10. the epoch loop (train/loop.py:train, the train CLI's function): the
+     flagship in bf16 from flax's initial weights, 1 epoch of 2 steps and
+     the eval hook on 2 batches, with the counts set to 0 before it and
+     read after it (window_knn 8, subm_ext_conv 52, subm_ext_conv_dx 26);
+     step and eval times, the SSC summary, the checkpoint's bytes and save
+     and restore times; the restored checkpoint bit-equal to the trained
+     state; the eval repeated bit for bit, and the test CLI's eval of the
+     work dir equal to the loop's.
 Prints the card, the kernels' JSON line (the served bf16 path's launches
-and K2 times, K2's fp32 ones beside them; the train path's launches and
-K2's dX row) and, last, the result line. Needs a CUDA card and the
+and K2 times, K2's fp32 ones beside them; the train path's and the loop's
+launches and K2's dX row) and, last, the result line. Needs a CUDA card and the
 repository around it; it imports nothing of JAX.
 """
 from __future__ import annotations
@@ -1196,6 +1204,182 @@ def phase_tiny_train_agreement():
                              "and the CPU")
 
 
+# launches in the loop phase: 2 train steps (13 forward + 13 dX each) and
+# the eval hook's 2 forwards
+PER_LOOP = {"window_knn": 2 * 4, "subm_ext_conv": 13 * 4,
+            "subm_ext_conv_dx": 13 * 2, "knn2": 0}
+# the eval repeats bit for bit on the card (the lift-splat sums each
+# voxel's points in sorted order, ops/lift_splat.py): the in-memory model's
+# eval forwards, repeated, give equal logits, each repeat of the eval the
+# loop's own hists, and the test CLI's eval of the work dir (the same
+# weights and batches) the loop's hists, and so its metrics, exactly.
+LOOP_REPEATS = 2
+
+
+def phase_loop(kernels):
+    """The flagship through the epoch loop (train/loop.py:train) at full
+    width in its config's bf16: 1 epoch of 2 steps (synthetic seeds 0-1)
+    and the eval hook on seeds 1000-1001, from flax's initial weights, into
+    a temporary work dir, with the kernels' counts set to 0 before it and
+    read after it (PER_LOOP); each step's and eval batch's ms (host clock,
+    synced at each batch), the eval summary, the checkpoint's bytes and its
+    save and restore seconds. The checkpoint restored into a fresh model
+    and optimizer is bit-equal to the trained ones. The in-memory model's
+    eval forwards repeat bit for bit, and LOOP_REPEATS evals of it and the
+    test CLI's evaluate_checkpoint on the work dir and the same 2 batches
+    each give the loop's own eval hists. -> launches."""
+    import tempfile
+    import torch
+    from coocc_tpu_torch.config import get_config
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.entry import FLAGSHIP, Trainer
+    from coocc_tpu_torch.parallel.train_step import eval_step
+    from coocc_tpu_torch.test.__main__ import evaluate_checkpoint
+    from coocc_tpu_torch.train import loop
+    from coocc_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
+    cfg = get_config(FLAGSHIP)
+    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, max_epochs=1))
+    train_b = [synthetic_batch(cfg, batch_size=1, seed=i).to("cuda")
+               for i in range(2)]
+    val_b = [synthetic_batch(cfg, batch_size=1, seed=1000 + i).to("cuda")
+             for i in range(2)]
+
+    def timed(batches, ms):
+        """An iterator over batches that records the ms from handing each
+        out to being asked for the next (the loop's work on it)."""
+        def it():
+            for b in batches:
+                sync()
+                t0 = time.perf_counter()
+                yield b
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return it
+
+    saved, seen = [], {}
+
+    class TimedCheckpoints(CheckpointManager):
+        def save(self, *a, **k):
+            t0 = time.perf_counter()
+            super().save(*a, **k)
+            saved.append(time.perf_counter() - t0)
+
+    def keep_sums(*a, **k):
+        seen["sums"] = inner_sums(*a, **k)
+        return seen["sums"]
+    inner_ckpt, inner_sums = loop.CheckpointManager, loop.sum_eval_hists
+    step_ms, eval_ms = [], []
+    with tempfile.TemporaryDirectory() as d:
+        wd = os.path.join(d, "work_dir")
+        loop.CheckpointManager, loop.sum_eval_hists = TimedCheckpoints, \
+            keep_sums
+        for k in kernels.values():
+            k.launches = 0
+        try:
+            t0 = time.perf_counter()
+            trainer = loop.train(cfg, timed(train_b, step_ms),
+                                 timed(val_b, eval_ms), steps_per_epoch=2,
+                                 work_dir=wd, seed=0, log_interval=1,
+                                 device="cuda")
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            loop.CheckpointManager, loop.sum_eval_hists = inner_ckpt, \
+                inner_sums
+        launches = {n: k.launches for n, k in kernels.items()}
+        log(f"loop launches (2 train steps, 2 eval batches): {launches}")
+        if launches != PER_LOOP:
+            raise AssertionError(f"loop launches {launches}, want "
+                                 f"{PER_LOOP}")
+        if trainer.model.dtype != torch.bfloat16:
+            raise AssertionError(f"the loop trained in {trainer.model.dtype}")
+        with open(os.path.join(wd, "ckpt_meta.json")) as f:
+            summary = json.load(f)["metrics"]["0"]
+        with open(os.path.join(wd, "metrics.jsonl")) as f:
+            records = [json.loads(ln) for ln in f]
+        for r in records:
+            if r["kind"] == "train":
+                if not all(math.isfinite(v) for k, v in r.items()
+                           if isinstance(v, float)):
+                    raise AssertionError(f"loop: {r}")
+        state = os.path.join(wd, "epoch_0", STATE_FILE)
+        nbytes = os.path.getsize(state)
+        linked = os.path.samefile(state, os.path.join(wd, "best",
+                                                      STATE_FILE))
+        log(f"loop: {wall:.3f} s in all (model build and init_flax "
+            f"included); step ms {[round(t, 3) for t in step_ms]}; eval ms "
+            f"per batch {[round(t, 3) for t in eval_ms]}")
+        log("loop eval summary: " + ", ".join(
+            f"{k} {summary[k]:.6g}" for k in (
+                "SC_IoU", "SSC_mIoU", "SSC_mIoU_fine", "lidarseg_mIoU")))
+        log(f"loop checkpoint: {nbytes} bytes (epoch_0/{STATE_FILE}; "
+            f"best/ hard-linked: {linked}), saved in {saved[0]:.3f} s")
+        if not (len(step_ms) == len(eval_ms) == 2 and len(saved) == 1
+                and linked):
+            raise AssertionError("the loop did not take 2 steps, 2 eval "
+                                 "batches and 1 save")
+
+        # restore into a fresh model and optimizer: bit-equal
+        fresh = Trainer(cfg, "cuda", seed=1, steps_per_epoch=2)
+        sync()
+        t0 = time.perf_counter()
+        tree, epoch = CheckpointManager(wd).restore(map_location="cuda")
+        fresh.model.load_state_dict(tree["model"])
+        fresh.optimizer.load_state_dict(tree["optimizer"])
+        sync()
+        restore_s = time.perf_counter() - t0
+        del tree
+        got, want = fresh.model.state_dict(), trainer.model.state_dict()
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        go, wo = fresh.optimizer.state_dict(), trainer.optimizer.state_dict()
+        for i, s in wo["adamw"]["state"].items():
+            for k, v in s.items():
+                if not torch.equal(go["adamw"]["state"][i][k], v):
+                    bad.append(f"adamw state {i}/{k}")
+        if go["schedule"] != wo["schedule"] or epoch != 0:
+            bad.append("schedule")
+        log(f"loop checkpoint restored in {restore_s:.3f} s: "
+            f"{len(want)} model tensors, {len(wo['adamw']['state'])} AdamW "
+            f"states, schedule count {go['schedule']['last_epoch']}; "
+            f"{len(bad)} differ")
+        if bad:
+            raise AssertionError(f"the restored checkpoint differs: "
+                                 f"{bad[:5]}")
+        del fresh, got, go, want, wo
+        torch.cuda.empty_cache()
+
+        model = trainer.model
+        ndiff = 0
+        for batch in val_b:
+            a, b = (eval_step(model, batch, cfg) for _ in range(2))
+            ndiff += sum(int((a[k] != b[k]).sum())
+                         for k in ("occ_logits", "fine_logits"))
+        repeats = [loop.sum_eval_hists(model, cfg, iter(val_b), 2)
+                   for _ in range(LOOP_REPEATS)]
+        del model, trainer
+        # the test CLI's function on the same work dir and batches
+        cli, sums = evaluate_checkpoint(cfg, wd, lambda: iter(val_b),
+                                        "cuda", max_steps=2)
+    loop_sums = seen["sums"]
+
+    def hist_l1(a):
+        return {k: int(abs(a[k] - loop_sums[k]).sum()) for k in loop_sums}
+    ious = ("SC_IoU", "SSC_mIoU", "SSC_mIoU_fine", "lidarseg_mIoU")
+    log(f"eval of the in-memory model: {ndiff} logits differ between two "
+        f"forwards; hist L1 of {LOOP_REPEATS} repeats against the loop's "
+        f"own eval: {[hist_l1(x) for x in repeats]}")
+    log(f"test CLI vs the loop's eval: hist L1 {hist_l1(sums)}, metric "
+        f"moves {({k: cli[k] - summary[k] for k in ious})}")
+    if ndiff or any(set(x) != set(loop_sums) or any(hist_l1(x).values())
+                    for x in [sums] + repeats):
+        raise AssertionError("an eval of the trained weights, repeated or "
+                             "through the test CLI, differs from the "
+                             "loop's")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_bench():
     """`python -m coocc_tpu_torch.bench` once (BENCH_ITERS=3, its default
     bf16), in a process of its own; its JSON line is logged behind a
@@ -1366,6 +1550,11 @@ def main():
         row["train_launches"] = train_launches[row["name"]]
     rows.insert(2, dx_row)
     phase_tiny_train_agreement()
+    log(f"[{time.perf_counter() - t0:.1f} s] the epoch loop (bf16, eval hook, "
+        "checkpoint, test CLI):")
+    loop_launches = phase_loop(kernels)
+    for row in rows:
+        row["loop_launches"] = loop_launches[row["name"]]
 
     log(f"[{time.perf_counter() - t0:.1f} s] card: {card_line()}")
     log(json.dumps({"kernels": rows}))

@@ -1,14 +1,24 @@
-"""nuScenes class metadata: the balanced CE class weights.
+"""nuScenes class metadata: the class names and the balanced CE class
+weights.
 
-A copy of the part of coocc_tpu/config/nuscenes.py the losses read (the
-reference's nusc_param.py:10-12 voxel counts and occ_head.py:135-139's
-1 / log(freq) weighting); tests/test_torch_losses.py pins it equal.
+A copy of the part of coocc_tpu/config/nuscenes.py the port reads: the 17
+occupancy class names the eval tables print (reference
+coocc_multi_r50_256x704.py:17-21), the nusc_param.py:10-12 voxel counts
+and occ_head.py:135-139's 1 / log(freq) weighting;
+tests/test_torch_losses.py and tests/test_torch_eval.py pin them equal.
 """
 from __future__ import annotations
 
 import numpy as np
 
-NUM_NUSC_CLASSES = 17
+NUSC_CLASS_NAMES = [
+    "empty", "barrier", "bicycle", "bus", "car",
+    "construction_vehicle", "motorcycle", "pedestrian",
+    "traffic_cone", "trailer", "truck", "driveable_surface",
+    "other_flat", "sidewalk", "terrain", "manmade", "vegetation",
+]
+
+NUM_NUSC_CLASSES = len(NUSC_CLASS_NAMES)  # 17
 
 # voxel counts per class over the nuScenes-Occupancy training split
 NUSC_CLASS_FREQUENCIES = np.array([

@@ -7,7 +7,8 @@ weights drawn from a seeded `torch.Generator` and a synthetic batch, and
 returns `(fn, args)` with `fn(*args)` the eval forward. `served_model`
 builds the model the CLI serves, in the config's `compute_dtype`.
 `train_steps` trains it on synthetic batches in the config's
-`compute_dtype`, as `tools/train.py --synthetic` does.
+`compute_dtype`. `init_flax` draws the weights the JAX package starts a
+run from (flax's initializers), which the train and test CLIs use.
 """
 from __future__ import annotations
 
@@ -18,13 +19,19 @@ import torch
 
 from .config import get_config
 from .config.base import CoOccConfig
-from .data.synthetic import synthetic_batch
+from .data.synthetic import synthetic_batch, tiny_config
 from .models.coocc_ray import CoOccRay
 from .nn.layers import BatchNorm
 from .parallel.train_step import train_step
 from .train.state import make_optimizer
 
 FLAGSHIP = "coocc_multi_r50_256x704"
+
+
+def config_by_name(name: str) -> CoOccConfig:
+    """A registered config, or 'tiny' (the tests' miniature), as the JAX
+    package's tools/train.py and tools/test.py name them."""
+    return tiny_config() if name == "tiny" else get_config(name)
 
 
 def resolve_device(device) -> torch.device:
@@ -69,12 +76,73 @@ def init_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     return model
 
 
+# the std of a standard normal truncated to [-2, 2]: flax divides by it so
+# that a truncated draw keeps the variance it asks for
+_TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape, g: torch.Generator) -> torch.Tensor:
+    """A standard normal truncated to [-2, 2]: the draws outside redrawn
+    until none is (the same distribution as torch's inverse-CDF
+    trunc_normal_, at a third of its time on the CPU)."""
+    x = torch.randn(shape, generator=g)
+    flat = x.view(-1)
+    idx = (flat.abs() > 2).nonzero().squeeze(1)
+    while idx.numel():
+        v = torch.randn(idx.numel(), generator=g)
+        keep = v.abs() <= 2
+        flat[idx[keep]] = v[keep]
+        idx = idx[~keep]
+    return x
+
+
+@torch.no_grad()
+def init_flax(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """The weights the JAX package's `jit_init` gives a CoOccRay (flax's
+    initializers; coocc_tpu/utils/init_utils.py, as JAX's `train()` and
+    `tools/test.py` without a checkpoint start), drawn from a seeded
+    torch.Generator: every conv and dense kernel lecun_normal (a normal
+    truncated at 2 sigma with variance 1 / fan_in), the spconv weights
+    (SpConvWeight) a plain normal of variance 2 / fan_in (JAX's `_kaiming`)
+    and the DCN weight a truncated one of variance 2 / fan_in (flax's
+    `kaiming_normal`); biases 0, BatchNorm and GroupNorm scales 1 and
+    biases 0, BatchNorm running means 0 and variances 1. fan_in is the
+    kernel's size over one output channel in flax's layout: the input
+    channels (per group) times the taps, for a ConvTranspose2d (flax's
+    `transpose_kernel`) the output channels times the taps; each is the
+    port's weight[0].numel()."""
+    from .nn.depthnet import DCN
+    from .nn.sparse_enc_dense import SpConvWeight
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, (BatchNorm, torch.nn.GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            if isinstance(m, BatchNorm):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+            continue
+        for name, p in m.named_parameters(recurse=False):
+            if name == "bias":
+                p.zero_()
+                continue
+            std = math.sqrt((2.0 if isinstance(m, (DCN, SpConvWeight))
+                             else 1.0) / p[0].numel())
+            if isinstance(m, SpConvWeight):
+                p.copy_(torch.randn(p.shape, generator=g) * std)
+            else:
+                p.copy_(_truncated_normal(p.shape, g) * (std / _TRUNC_STD))
+    return model
+
+
 def build_model(cfg: CoOccConfig, device="cuda", seed: int = 0,
-                dtype: Optional[torch.dtype] = None) -> CoOccRay:
-    """CoOccRay(cfg, dtype) with the seeded random weights, in eval mode, on
-    `device`; the weights are drawn in fp32 and stay fp32."""
+                dtype: Optional[torch.dtype] = None,
+                init=init_weights) -> CoOccRay:
+    """CoOccRay(cfg, dtype) with the weights `init(model, seed)` draws
+    (init_weights, or init_flax), in eval mode, on `device`; the weights
+    are drawn in fp32 and stay fp32."""
     device = resolve_device(device)
-    return init_weights(CoOccRay(cfg, dtype), seed).eval().to(device)
+    return init(CoOccRay(cfg, dtype), seed).eval().to(device)
 
 
 def compute_dtype(cfg: CoOccConfig) -> Optional[torch.dtype]:
@@ -90,15 +158,19 @@ def served_model(cfg: CoOccConfig, device="cuda") -> CoOccRay:
 
 
 class Trainer:
-    """A model in training (seeded weights, the config's compute dtype),
-    its optimizer (train/state.py) and the generator its dropout and
-    cascade priorities draw from. `step(batch)` is one train step."""
+    """A model in training (the config's compute dtype, weights that
+    `init(model, seed)` draws), its optimizer (train/state.py, its LR
+    schedule counting `steps_per_epoch` updates an epoch) and the
+    generator its dropout and cascade priorities draw from, seeded with
+    `seed`. `step(batch)` is one train step."""
 
-    def __init__(self, cfg: CoOccConfig, device="cuda", seed: int = 0):
+    def __init__(self, cfg: CoOccConfig, device="cuda", seed: int = 0, *,
+                 steps_per_epoch: int, init=init_weights):
         device = resolve_device(device)
-        self.model = build_model(cfg, device, seed,
-                                 compute_dtype(cfg)).train()
-        self.optimizer = make_optimizer(self.model, cfg.optim)
+        self.model = build_model(cfg, device, seed, compute_dtype(cfg),
+                                 init).train()
+        self.optimizer = make_optimizer(self.model, cfg.optim,
+                                        steps_per_epoch)
         self.generator = torch.Generator(device=device).manual_seed(seed)
 
     def step(self, batch):
@@ -106,10 +178,10 @@ class Trainer:
 
 
 def train_steps(cfg: CoOccConfig, steps: int, device="cuda", seed: int = 0):
-    """`steps` train steps of a new Trainer(cfg, device, seed) on the
-    synthetic batches of seeds 0..steps-1 (B=1). -> (trainer, [each step's
-    metrics])."""
-    trainer = Trainer(cfg, device, seed)
+    """`steps` train steps, one epoch, of a new Trainer(cfg, device, seed,
+    steps) on the synthetic batches of seeds 0..steps-1 (B=1). -> (trainer,
+    [each step's metrics])."""
+    trainer = Trainer(cfg, device, seed, steps_per_epoch=steps)
     device = next(trainer.model.parameters()).device
     metrics = [trainer.step(synthetic_batch(cfg, batch_size=1, seed=i)
                             .to(device)) for i in range(steps)]

@@ -237,3 +237,25 @@ class OccHead(nn.Module):
         n_occ = occ_mask.flatten(1).sum(dim=1)
         out["fine_overflow"] = (n_occ - cap).clamp(min=0).to(torch.int32)
         return out
+
+
+def forward_lidarseg(voxel_logits, points, points_mask,
+                     pc_range) -> torch.Tensor:
+    """Per-point class logits sampled from the voxel prediction
+    (JAX occ_head.py:forward_lidarseg; reference OccHead.forward_lidarseg,
+    occ_head.py:339-379): each point's (x, y, z) normalized into [-1, 1]
+    over the pc range, the logits sampled trilinearly in fp32 (border
+    padding, align_corners=True), masked.
+
+    voxel_logits [B, X, Y, Z, C]; points [B, Q, >=3]; points_mask [B, Q]
+    -> [B, Q, C] fp32."""
+    pr = torch.as_tensor(pc_range, dtype=torch.float32, device=points.device)
+    lo, extent = pr[:3], pr[3:] - pr[:3]
+    norm = (points[..., :3].float() - lo) / extent * 2.0 - 1.0
+    # torch's 5-D grid (x, y, z) indexes (W, H, D): the volume is
+    # [B, C, Z, Y, X], as JAX transposes it to [Z, Y, X, C]
+    vol = voxel_logits.float().permute(0, 4, 3, 2, 1)
+    out = F.grid_sample(vol, norm[:, None, None], mode="bilinear",
+                        padding_mode="border",
+                        align_corners=True)    # [B, C, 1, 1, Q]
+    return out[:, :, 0, 0].transpose(1, 2) * points_mask[..., None]

@@ -1,0 +1,148 @@
+"""The epoch loop with its eval hook and save-best checkpoints.
+
+Counterpart of coocc_tpu/train/loop.py `evaluate` and `train` (reference
+custom_train_detector, apis/mmdet_train.py:29-199 + mmcv's
+EpochBasedRunner + OccDistEvalHook, eval_hooks.py:27-87): iterate epochs,
+take the train step (parallel/train_step.py), log the losses every
+`log_interval` steps, evaluate each epoch, checkpoint with
+save_best='SSC_mIoU'. One process, one device: the hists summed here are
+the run's (JAX's `_all_proc_sum` is the identity in one process).
+"""
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Dict, Iterable, Optional
+
+import numpy as np
+
+from ..config.base import CoOccConfig
+from ..entry import Trainer, init_flax
+from ..evaluation.formatting import cm_to_ious
+from ..evaluation.ssc_metrics import ssc_summary
+from ..parallel.train_step import eval_step
+from .checkpoint import CheckpointManager
+from .observe import MetricsLogger, dump_run_metadata
+
+log = logging.getLogger("coocc_tpu_torch")
+
+HISTS = ("SC_hist", "SSC_hist", "SC_hist_visible", "SSC_hist_visible",
+         "SC_hist_fine", "SSC_hist_fine", "lidarseg_hist")
+
+
+def sum_eval_hists(model, cfg: CoOccConfig, data_iter: Iterable,
+                   max_steps: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """The eval step over `data_iter` (at most max_steps batches, each a
+    Batch on the model's device) -> each hist the step returns, summed on
+    the host in int64. Logs JAX's warning when the cascade's capacity
+    dropped occupied cells."""
+    sums: Dict[str, np.ndarray] = {}
+    overflow = n = 0
+    for batch in data_iter:
+        out = eval_step(model, batch, cfg, return_logits=False)
+        for k in HISTS:
+            if k in out:
+                h = out[k].cpu().numpy().astype(np.int64)
+                sums[k] = sums[k] + h if k in sums else h
+        if "fine_overflow" in out:
+            overflow = max(overflow, int(out["fine_overflow"].max()))
+        n += 1
+        if max_steps is not None and n >= max_steps:
+            break
+    if overflow > 0:
+        log.warning(
+            "cascade eval capacity exceeded by up to %d occupied coarse "
+            "cells (max_coarse_occupied=%d) — fine refinement silently "
+            "truncated; raise cfg.occ_head.max_coarse_occupied", overflow,
+            cfg.occ_head.max_coarse_occupied)
+    return sums
+
+
+def summarize(sums: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """Summed hists -> JAX evaluate's summary: ssc_summary's keys, and
+    SSC_mIoU / SC_IoU of the _visible and _fine hists, and lidarseg_mIoU,
+    where those hists are there."""
+    summary = ssc_summary(sums["SC_hist"], sums["SSC_hist"])
+    for tag in ("visible", "fine"):
+        if f"SSC_hist_{tag}" in sums:
+            s = ssc_summary(sums[f"SC_hist_{tag}"], sums[f"SSC_hist_{tag}"])
+            summary[f"SSC_mIoU_{tag}"] = s["SSC_mIoU"]
+            summary[f"SC_IoU_{tag}"] = s["SC_IoU"]
+    if "lidarseg_hist" in sums:
+        summary["lidarseg_mIoU"] = float(
+            np.nanmean(cm_to_ious(sums["lidarseg_hist"])[1:]))
+    return summary
+
+
+def evaluate(model, cfg: CoOccConfig, data_iter: Iterable,
+             max_steps: Optional[int] = None) -> Dict[str, float]:
+    """The eval over data_iter (the model in eval mode, running
+    statistics) -> the summary of its summed hists."""
+    return summarize(sum_eval_hists(model, cfg, data_iter, max_steps))
+
+
+def train(cfg: CoOccConfig, train_iter_fn: Callable[[], Iterable],
+          val_iter_fn: Optional[Callable[[], Iterable]] = None,
+          steps_per_epoch: int = 1000, work_dir: str = "work_dirs/run",
+          resume: bool = False, seed: int = 0, log_interval: int = 50,
+          eval_max_steps: Optional[int] = None, device="cuda") -> Trainer:
+    """cfg.optim.max_epochs epochs of steps_per_epoch train steps on the
+    batches train_iter_fn() yields (on `device`), from the weights
+    init_flax draws with `seed`; after each epoch the eval over
+    val_iter_fn() (at most eval_max_steps batches) and a checkpoint in
+    work_dir. With resume, the run continues after the last checkpoint's
+    epoch from its weights, BN statistics, AdamW moments and LR count. The
+    generator of dropout and the cascade's priorities starts from `seed`
+    on every start, resumed or not (JAX keeps no RNG in its checkpoint).
+    -> the Trainer (model, optimizer, generator)."""
+    trainer = Trainer(cfg, device, seed, steps_per_epoch=steps_per_epoch,
+                      init=init_flax)
+    model, optimizer = trainer.model, trainer.optimizer
+    device = next(model.parameters()).device
+
+    ckpt = CheckpointManager(work_dir, max_keep=1)
+    start_epoch = 0
+    if resume:
+        tree, epoch = ckpt.restore(map_location=device)
+        if tree is not None:
+            model.load_state_dict(tree["model"])
+            optimizer.load_state_dict(tree["optimizer"])
+            start_epoch = tree["epoch"] + 1
+            log.info("resumed from epoch %d", epoch)
+
+    dump_run_metadata(work_dir, cfg)
+    mlog = MetricsLogger(work_dir)
+
+    for epoch in range(start_epoch, cfg.optim.max_epochs):
+        t0 = time.time()
+        running: Dict[str, float] = {}
+        for i, batch in enumerate(train_iter_fn()):
+            if i >= steps_per_epoch:
+                break
+            metrics = trainer.step(batch)
+            values = {k: float(v) for k, v in metrics.items()}
+            if (i + 1) % log_interval == 0:
+                log.info("epoch %d iter %d: %s", epoch, i + 1,
+                         {k: round(v, 4) for k, v in values.items()})
+                mlog.log("train", epoch=epoch, iter=i + 1, **values)
+            running = {k: running.get(k, 0.0) + v for k, v in values.items()}
+
+        log.info("epoch %d done in %.1fs", epoch, time.time() - t0)
+        n_it = max(min(i + 1, steps_per_epoch), 1)
+        mlog.log("epoch", epoch=epoch, time_s=time.time() - t0,
+                 **{k: v / n_it for k, v in running.items()})
+
+        metrics_out = None
+        if val_iter_fn is not None:
+            metrics_out = evaluate(model, cfg, val_iter_fn(),
+                                   max_steps=eval_max_steps)
+            model.train()
+            log.info("epoch %d eval: SC IoU %.4f SSC mIoU %.4f", epoch,
+                     metrics_out["SC_IoU"], metrics_out["SSC_mIoU"])
+            mlog.log("val", epoch=epoch, **metrics_out)
+
+        ckpt.save({"model": model.state_dict(),
+                   "optimizer": optimizer.state_dict(), "epoch": epoch},
+                  epoch, metrics=metrics_out)
+    mlog.close()
+    return trainer

@@ -81,7 +81,22 @@ class Optimizer:
         self.schedule.step()
         return norm
 
+    def state_dict(self) -> dict:
+        """AdamW's moments and step counts and the schedule's count (JAX
+        keeps both in the TrainState's opt_state): a restored optimizer
+        continues the run's rates and moments."""
+        return {"adamw": self.adamw.state_dict(),
+                "schedule": self.schedule.state_dict()}
+
+    def load_state_dict(self, state: dict):
+        self.adamw.load_state_dict(state["adamw"])
+        # AdamW (not capturable) counts its steps on the host; a count
+        # restored onto the card would cost a sync per parameter per update
+        for s in self.adamw.state.values():
+            s["step"] = s["step"].cpu()
+        self.schedule.load_state_dict(state["schedule"])
+
 
 def make_optimizer(model: torch.nn.Module, cfg: OptimConfig,
-                   steps_per_epoch: int = 1000) -> Optimizer:
+                   steps_per_epoch: int) -> Optimizer:
     return Optimizer(model.named_parameters(), cfg, steps_per_epoch)

@@ -45,7 +45,9 @@ def test_every_port_module_imports_without_jax():
               "models.renderer", "models.losses", "losses.ssc",
               "losses.lovasz", "losses.gt_pool", "losses.depth",
               "config.nuscenes", "train.state", "train.__main__",
-              "parallel.train_step", "parity"):
+              "parallel.train_step", "parity", "evaluation.ssc_metrics",
+              "evaluation.formatting", "evaluation.savers", "train.loop",
+              "train.checkpoint", "train.observe", "test.__main__"):
         assert f"coocc_tpu_torch.{m}" in mods
     _run_clean("\n".join(["import coocc_tpu_torch"]
                          + [f"import {m}" for m in mods]))
@@ -81,8 +83,21 @@ def test_train_cli_raises_without_a_card():
     JAX on the way (its module is in the list above)."""
     proc = subprocess.run(
         [sys.executable, "-m", "coocc_tpu_torch.train",
-         "coocc_multi_r50_256x704", "--synthetic", "--steps", "1"],
+         "coocc_multi_r50_256x704", "--synthetic", "--steps-per-epoch", "1",
+         "--max-epochs", "1"],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
-    assert "step 0" not in proc.stdout
+    assert "work dir" not in proc.stdout and "epoch 0" not in proc.stderr
+    assert "torch.cuda.is_available() is False" in proc.stderr
+
+
+def test_eval_cli_raises_without_a_card():
+    """`python -m coocc_tpu_torch.test` too: it raises before building a
+    model, and prints no table."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "coocc_tpu_torch.test",
+         "coocc_multi_r50_256x704", "--synthetic", "--max-steps", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
     assert "torch.cuda.is_available() is False" in proc.stderr

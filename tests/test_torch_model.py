@@ -230,6 +230,81 @@ def test_full_outputs_match_jax(capped, uncapped, which):
         assert int(j["fine_overflow"][0]) > 0, "the cap was not exercised"
 
 
+def _flips(port, ref, tol):
+    """Cells [..., C] whose argmax differs between the port's values and
+    JAX's, and whether each such cell is a near-tie in JAX's: its two
+    largest values within twice the parity tolerance of each other."""
+    flip = port.argmax(-1) != ref.argmax(-1)
+    top2 = np.sort(ref, axis=-1)[..., -2:]
+    tie = top2[..., 1] - top2[..., 0] <= 2 * (tol["atol"] + tol["rtol"]
+                                              * np.abs(top2[..., 1]))
+    return flip, bool((tie | ~flip).all())
+
+
+def test_eval_hists_match_jax(capped):
+    """The eval path on the dense fixture's full outputs: the port's
+    eval_hists on its outputs against JAX's occupancy_hists,
+    scatter_fine_into_pred and lidarseg_hist (with forward_lidarseg) on
+    JAX's, on the fixture's batch (no JAX compile of the model). The
+    outputs agree to 5e-3, so an argmax may flip where JAX's two largest
+    logits lie within twice that: every flipped cell is such a near-tie,
+    and each hist differs from JAX's by the flipped cells only (measured:
+    no flip at this fixture)."""
+    from coocc_tpu.evaluation import ssc_metrics as jsm
+    from coocc_tpu.nn.occ_head import forward_lidarseg as jax_lidarseg
+    from coocc_tpu.ops.interpolate import resize_trilinear_chlast
+    from coocc_tpu_torch.evaluation import ssc_metrics as sm
+    from coocc_tpu_torch.nn.occ_head import forward_lidarseg
+    from coocc_tpu_torch.parallel.train_step import eval_hists
+    j, t = capped[None]
+    cfg = _dense(tiny_config())
+    C, size = cfg.num_classes, cfg.occ_head.final_occ_size
+    nb = synthetic_batch(cfg, batch_size=1, seed=3)
+    got = eval_hists({k: torch.from_numpy(v) for k, v in t.items()},
+                     nb.to("cpu"), cfg)
+    gt = jnp.asarray(nb.gt_occ)
+    pred_f = jsm.scatter_fine_into_pred(
+        jnp.asarray(j["fine_logits"]), jnp.asarray(j["fine_coords"]),
+        jnp.asarray(j["fine_valid"]), size)
+    pts, pmask = jnp.asarray(nb.points_occ), jnp.asarray(nb.points_occ_mask)
+    jpl = jax_lidarseg(jnp.asarray(j["occ"]), pts, pmask,
+                       cfg.point_cloud_range)
+    ref = dict(zip(("SC_hist", "SSC_hist"), jsm.occupancy_hists(
+        jnp.asarray(j["occ"]), gt, C)))
+    ref.update(zip(("SC_hist_fine", "SSC_hist_fine"),
+                   jsm.occupancy_hists(pred_f, gt, C)))
+    ref["lidarseg_hist"] = jsm.lidarseg_hist(
+        jpl, pts[..., -1].astype(jnp.int32), pmask, C)
+    assert set(got) == set(ref)
+    # the cells (and points) that may flip, per hist
+    occ_up = sm.resize_logits(torch.from_numpy(t["occ"]), size).numpy()
+    fine_t = sm.scatter_fine_into_pred(
+        *(torch.from_numpy(t[k]) for k in ("fine_logits", "fine_coords",
+                                           "fine_valid")), size).numpy()
+    pl = forward_lidarseg(*(torch.from_numpy(np.asarray(a)) for a in (
+        t["occ"], nb.points_occ, nb.points_occ_mask)),
+        cfg.point_cloud_range).numpy()
+    valid = nb.gt_occ != 255
+    checks = {"": _flips(occ_up, np.asarray(resize_trilinear_chlast(
+                  jnp.asarray(j["occ"]), size)), TOL),
+              "_fine": _flips(fine_t, np.asarray(pred_f), TOL)}
+    for tag, (flip, near) in checks.items():
+        assert near, f"SSC_hist{tag}: a flip away from a near-tie"
+        n = int((flip & valid).sum())
+        for k in (f"SC_hist{tag}", f"SSC_hist{tag}"):
+            assert int(got[k].sum()) == int(valid.sum()), k
+            assert np.abs(got[k].numpy() - np.asarray(ref[k])).sum() \
+                <= 2 * n, (k, n)
+    flip, near = _flips(pl[..., 1:], np.asarray(jpl)[..., 1:], TOL)
+    assert near
+    assert np.abs(got["lidarseg_hist"].numpy()
+                  - np.asarray(ref["lidarseg_hist"])).sum() \
+        <= 2 * int(flip.sum())
+    print("eval hists: flipped cells", {k: int((f & valid).sum())
+                                         for k, (f, _) in checks.items()},
+          "points", int(flip.sum()))
+
+
 def test_packed_default_pts_matches_jax_kernel_path(packed):
     j, t = packed["pts"]
     ref, got = j["pts_voxel"], t["pts_voxel"]

@@ -14,7 +14,8 @@ the identity for the JAX run, nothing in coocc_tpu changes; the port's
 Dropout at p = 0; its draw and 1/(1-p) scale have a test below); the
 training cascade's priorities are JAX's own draw,
 uniform(fold_in(fold_in(rng, 2), 0)), passed to the port. One JAX compile
-per dtype (a module-scoped fixture).
+per dtype (a module-scoped fixture); the bf16 one runs in a thread beside
+the fp32 one and the port's steps.
 
 What is held, and how tight:
   * fp32 wiring: the port with K2 swapped for an fp32 conv at the encoder's
@@ -49,6 +50,7 @@ What is held, and how tight:
 """
 import dataclasses
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import flax.linen as fnn
 import jax
@@ -117,11 +119,21 @@ def _jax_step(jcfg, variables, bf16):
         jax.jit, compiler_options={"xla_allow_excess_precision": False}) \
         if bf16 else jax.jit
     fn = jit(jax.value_and_grad(loss_fn, has_aux=True))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
-        (_, (raw, stats, outs)), grads = fn(variables["params"],
-                                            variables["batch_stats"])
+    (_, (raw, stats, outs)), grads = fn(variables["params"],
+                                        variables["batch_stats"])
     return raw, outs, grads, stats, fn
+
+
+def _optax_update(jcfg, params, grads):
+    """optax's update (the JAX package's make_optimizer, 1000 steps an
+    epoch) of `params` by `grads` from a fresh state -> the new params."""
+    tx, _ = jax_make_optimizer(jcfg.optim, 1000, params)
+
+    @jax.jit
+    def update(grads, params):
+        updates, _ = tx.update(grads, tx.init(params), params)
+        return optax.apply_updates(params, updates)
+    return jax.block_until_ready(update(grads, params))
 
 
 def _to_port(tree, stats, cfg):
@@ -163,27 +175,33 @@ def step():
         jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(0), 2), 0),
         (n,))))[None]
     out = {"cfg": cfg, "jcfg": jcfg, "sd": sd, "variables": variables}
-    for name, bf16 in (("jax32", False), ("jax16", True)):
-        raw, outs, grads, stats, fn = _jax_step(jcfg, variables, bf16)
-        out[name] = (raw, outs, _to_port(grads, stats, cfg), grads)
-        if not bf16:
-            # the yardstick: JAX's own gradient with its weights perturbed
-            # by 1e-5 relative (random signs), twice
-            noise = []
-            rs = np.random.RandomState(0)
-            for _ in range(2):
-                pert = jax.tree.map(lambda p: p * (1 + 1e-5 * rs.choice(
-                    [-1, 1], size=np.shape(p)).astype(np.float32)),
-                    variables["params"])
-                with pytest.MonkeyPatch.context() as mp:
-                    mp.setattr(fnn.Dropout, "__call__",
-                               lambda self, x, *a, **k: x)
-                    _, g = fn(pert, variables["batch_stats"])
-                noise.append(_to_port(g, stats, cfg))
-            out["noise"] = noise
-    out["wiring"] = _port_step(cfg, sd, prio, None, True)
-    out["packed"] = _port_step(cfg, sd, prio, None, False)
-    out["bf16"] = _port_step(cfg, sd, prio, torch.bfloat16, False)
+    with pytest.MonkeyPatch.context() as mp, ThreadPoolExecutor(2) as pool:
+        # dropout off in JAX's trace
+        mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
+        # JAX's bf16 step traces and compiles beside the fp32 one and the
+        # port's steps (XLA compiles without holding the interpreter lock)
+        jax16 = pool.submit(_jax_step, jcfg, variables, True)
+        raw, outs, grads, stats, fn = _jax_step(jcfg, variables, False)
+        out["jax32"] = (raw, outs, _to_port(grads, stats, cfg), grads)
+        optax_step = pool.submit(_optax_update, jcfg, variables["params"],
+                                 grads)
+        # the yardstick: JAX's own gradient with its weights perturbed by
+        # 1e-5 relative (random signs), twice, through the compiled step
+        noise = []
+        rs = np.random.RandomState(0)
+        for _ in range(2):
+            pert = jax.tree.map(lambda p: p * (1 + 1e-5 * rs.choice(
+                [-1, 1], size=np.shape(p)).astype(np.float32)),
+                variables["params"])
+            _, g = fn(pert, variables["batch_stats"])
+            noise.append(_to_port(g, stats, cfg))
+        out["noise"] = noise
+        out["wiring"] = _port_step(cfg, sd, prio, None, True)
+        out["packed"] = _port_step(cfg, sd, prio, None, False)
+        out["bf16"] = _port_step(cfg, sd, prio, torch.bfloat16, False)
+        raw, outs, grads, stats, _ = jax16.result()
+        out["jax16"] = (raw, outs, _to_port(grads, stats, cfg), grads)
+        out["optax"] = optax_step.result()
     return out
 
 
@@ -327,18 +345,10 @@ def test_bf16_gradients_within_jax_own_drift(step):
 def test_adamw_step_matches_optax_on_jax_gradients(step):
     """The port's optimizer (clip 5, AdamW, ndim >= 2 decay, step LR) on
     JAX's gradients == optax's update of them (JAX make_optimizer)."""
-    cfg, jcfg = step["cfg"], step["jcfg"]
-    params = step["variables"]["params"]
+    cfg = step["cfg"]
     jgrads = step["jax32"][3]
-    tx, _ = jax_make_optimizer(jcfg.optim, 1000, params)
-
-    @jax.jit
-    def update(grads, params):
-        updates, _ = tx.update(grads, tx.init(params), params)
-        return optax.apply_updates(params, updates)
-    new = update(jgrads, params)
     stats = step["variables"]["batch_stats"]
-    ref = _to_port(new, stats, cfg)
+    ref = _to_port(step["optax"], stats, cfg)
     grads = _to_port(jgrads, stats, cfg)
     model = build_model(cfg, "cpu", seed=SEED)
     opt = make_optimizer(model, cfg.optim, 1000)
