@@ -59,9 +59,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      and restore times; the restored checkpoint bit-equal to the trained
      state; the eval repeated bit for bit, and the test CLI's eval of the
      work dir equal to the loop's.
+ 11. OpenOccupancy (coocc_multi_r101_openoccupancy) at full width as
+     served (bf16): 6x896x1600 images through ResNet-101, 350,000 LiDAR
+     points on the 1024x1024x80 grid, the 128x128x10 fuser grid with its
+     windows (8,8,9)/(6,6,7), cascade ratio 4 (20,000 cells x 64
+     children) onto 512x512x40; 3 requests with the counts set to 0
+     before them and read after them (window_knn 2, subm_ext_conv 13 a
+     request), times, device busy and peak memory; K1 against its plain
+     version on the model's masks with both windows (exact), every K2 call
+     of a pts prefix against its plain version on its own inputs (res1
+     [1,10,512,512,128]), K2's times and bound at those shapes; eval_step
+     with a visible mask; the fp32 and bf16 forwards against
+     parity/openocc_real.npz; the test CLI (`python -m
+     coocc_tpu_torch.test coocc_multi_r101_openoccupancy --synthetic
+     --max-steps 2`, its table and eval ms a batch) and the bench
+     (BENCH_CONFIG=coocc_multi_r101_openoccupancy), each in a process of
+     its own;
+ 12. coocc_multi_r101_896x1600 and coocc_cam_r101_896x1600 at full width
+     as served: 3 requests each (K1 2 and K2 13 a request, and none for
+     the camera-only model), their outputs checked, times, device busy
+     and peak memory.
 Prints the card, the kernels' JSON line (the served bf16 path's launches
 and K2 times, K2's fp32 ones beside them; the train path's and the loop's
-launches and K2's dX row) and, last, the result line. Needs a CUDA card and the
+launches and K2's dX row; K1's and K2's numbers at OpenOccupancy's shapes
+under "configs") and, last, the result line. Needs a CUDA card and the
 repository around it; it imports nothing of JAX.
 """
 from __future__ import annotations
@@ -179,19 +200,14 @@ def phase_main_path(kernels, requests):
     return model, launches, masks, outs
 
 
-def drive_main_path(model, requests, kernels, stages=True):
-    """One warm-up forward, then the 3 requests with the kernels' launch
-    counts set to 0 before them and read after them (and per request);
-    per-request times, peak memory, device time by kernel of the full
-    forward and, with `stages`, per-stage times and the pts stage's device
-    time by kernel. -> (launches, the requests' outputs on the host, K1's
-    two masks of request 0)."""
+def serve_requests(model, requests, kernels, per_request, keep=True):
+    """One warm-up forward, then the requests with the kernels' launch
+    counts set to 0 before them and read after them (and per request:
+    `per_request` each), each request's outputs checked (check_outputs);
+    per-request times and peak memory. -> (launches, the request ms, peak
+    bytes, with `keep` the requests' outputs on the host)."""
     import torch
-    from coocc_tpu_torch.models.coocc_ray import STAGES
-    from coocc_tpu_torch.nn.sparse_enc_packed import PackedLiDAREnc8x
     cfg = model.cfg
-    if type(model.pts_middle_encoder) is not PackedLiDAREnc8x:
-        raise AssertionError("the flagship does not run the packed encoder")
     model(requests[0])  # warm-up: cuDNN algorithm selection, allocator
     sync()
     torch.cuda.reset_peak_memory_stats()
@@ -207,19 +223,35 @@ def drive_main_path(model, requests, kernels, stages=True):
         req_ms.append((time.perf_counter() - t0) * 1e3)
         check_outputs(out, cfg)
         grew = {n: k.launches - before[n] for n, k in kernels.items()}
-        if grew != PER_REQUEST:
+        if grew != per_request:
             raise AssertionError(f"request {i}: launches {grew}, want "
-                                 f"{PER_REQUEST}")
+                                 f"{per_request}")
         log(f"request {i} (seed {i}): {req_ms[-1]:.3f} ms, "
             f"fine_valid {int(out['fine_valid'].sum())}, "
             f"fine_overflow {int(out['fine_overflow'].sum())}")
-        outs.append({k: v.cpu() for k, v in out.items()})
+        if keep:
+            outs.append({k: v.cpu() for k, v in out.items()})
+        del out
     launches = {n: k.launches for n, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    log(f"main path launches: {launches}")
+    log(f"{cfg.name} launches: {launches}")
     log(f"request ms: {[round(t, 3) for t in req_ms]} "
         f"(median {statistics.median(req_ms):.3f})")
     log(f"peak memory allocated: {peak / 2**30:.3f} GiB")
+    return launches, req_ms, peak, outs
+
+
+def drive_main_path(model, requests, kernels, stages=True):
+    """serve_requests (PER_REQUEST), then device time by kernel of the full
+    forward and, with `stages`, per-stage times and the pts stage's device
+    time by kernel. -> (launches, the requests' outputs on the host, K1's
+    two masks of request 0)."""
+    from coocc_tpu_torch.models.coocc_ray import STAGES
+    from coocc_tpu_torch.nn.sparse_enc_packed import PackedLiDAREnc8x
+    if type(model.pts_middle_encoder) is not PackedLiDAREnc8x:
+        raise AssertionError("the flagship does not run the packed encoder")
+    launches, _, _, outs = serve_requests(model, requests, kernels,
+                                          PER_REQUEST)
 
     if stages:
         prefix = {}
@@ -263,7 +295,9 @@ def pts_stage(model):
 def device_breakdown(fn, inputs, top: int):
     """torch.profiler over fn(x) for each input: device time by kernel name
     (ms per input, the `top` largest) and the device's busy share of the
-    host wall time. Kernels run on one stream, so their times add up."""
+    host wall time. Kernels run on one stream, so their times add up.
+    -> device busy ms per input (None where the profiler saw no device
+    time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     sync()
@@ -283,12 +317,13 @@ def device_breakdown(fn, inputs, top: int):
     busy = sum(by_name.values())
     if busy == 0:
         log("profiler: no device time recorded (not measured)")
-        return
+        return None
     n = len(inputs)
     log(f"  wall {wall / n:.3f} ms per input, device busy {busy / n:.3f} ms "
         f"({100 * busy / wall:.1f}%), {len(by_name)} kernel names")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"  {ms / n:9.3f} ms  {100 * ms / busy:5.1f}%  {name}")
+    return busy / n
 
 
 def phase_dense_path(model, requests):
@@ -924,47 +959,55 @@ def check_bf16_drift(outs16, outs32):
             raise AssertionError(f"bf16 outputs are not finite (request {i})")
 
 
-def phase_real_shape_parity():
-    """The flagship at real shapes against JAX's fingerprint
-    (coocc_tpu_torch/parity/flagship_real.npz, written on a CPU by
+def phase_real_shape_parity(name):
+    """Config `name` at real shapes against JAX's fingerprint
+    (coocc_tpu_torch/parity/, written on a CPU by
     tests/test_torch_real_shapes.py): the weights' and the batch's digests
     first, then the card's fp32 (TF32 off) and bf16 forwards, every prefix
     within 2x (max) and 1.5x (mean) of the CPU port's own distance to JAX
-    (`parity.check`); both dtypes are read before a failure is raised.
+    (`parity.check`); both dtypes are read before a failure is raised. The
+    weights are drawn once (numpy) and loaded into the bf16 model.
     -> {dtype: [(name, card, cpu port, ok)]}."""
     import torch
     from coocc_tpu_torch import parity
     from coocc_tpu_torch.config import get_config
     from coocc_tpu_torch.data.synthetic import synthetic_batch
-    from coocc_tpu_torch.entry import FLAGSHIP
-    fp = parity.load()
-    cfg = get_config(FLAGSHIP)
+    from coocc_tpu_torch.models.coocc_ray import CoOccRay
+    fp = parity.load(name)
+    cfg = get_config(name)
     batch_np = synthetic_batch(cfg, batch_size=1, seed=0)
     if parity.batch_digest(batch_np) != str(fp["batch_digest"]):
-        raise AssertionError("the fingerprint's batch digest differs")
+        raise AssertionError(f"{name}: the fingerprint's batch digest "
+                             "differs")
     batch = batch_np.to("cuda")
     results = {}
+    weights = parity.fingerprint_model(cfg, "cpu").state_dict()
     for prefix, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
-        model = parity.fingerprint_model(cfg, "cuda", dtype)
+        # built on the card (its default init is fast there); .to() moves
+        # the buffers made from numpy (the frustum)
+        with torch.device("cuda"):
+            model = CoOccRay(cfg, dtype).eval().to("cuda")
+        model.load_state_dict(weights)
         digest = parity.state_digest(model)
         if digest != str(fp["state_digest"]):
-            raise AssertionError(f"the fingerprint's state_dict digest "
-                                 f"differs: {digest}")
+            raise AssertionError(f"{name}: the fingerprint's state_dict "
+                                 f"digest differs: {digest}")
         out = parity.capture(model, batch)
         del model
         torch.cuda.empty_cache()
-        res = parity.check(fp, prefix, out)
-        for name, (dmax, dmean), (pmax, pmean), ok in res:
-            log(f"real-shape parity {prefix} {name}: card max {dmax:.6g} "
-                f"mean {dmean:.6g}; cpu port max {pmax:.6g} mean "
+        res = parity.check(fp, prefix, out, cfg.occ_head.cascade_ratio)
+        for key, (dmax, dmean), (pmax, pmean), ok in res:
+            log(f"real-shape parity {name} {prefix} {key}: card max "
+                f"{dmax:.6g} mean {dmean:.6g}; cpu port max {pmax:.6g} mean "
                 f"{pmean:.6g} ({'ok' if ok else 'FAIL'})")
         results[prefix] = res
     bad = [(prefix, r[0]) for prefix, res in results.items()
            for r in res if not r[3]]
     if bad:
-        raise AssertionError(f"flagship outputs differ from JAX's "
+        raise AssertionError(f"{name} outputs differ from JAX's "
                              f"fingerprint: {bad}")
-    log("real-shape parity: digests equal, fp32 and bf16 within the bounds")
+    log(f"real-shape parity {name}: digests equal, fp32 and bf16 within the "
+        "bounds")
     return results
 
 
@@ -1380,24 +1423,138 @@ def phase_loop(kernels):
     return launches
 
 
-def phase_bench():
-    """`python -m coocc_tpu_torch.bench` once (BENCH_ITERS=3, its default
-    bf16), in a process of its own; its JSON line is logged behind a
-    prefix."""
+def phase_bench(config):
+    """`BENCH_CONFIG=config python -m coocc_tpu_torch.bench` once
+    (BENCH_ITERS=3, its default bf16), in a process of its own; its JSON
+    line is logged behind a prefix. -> frames/sec."""
     proc = subprocess.run(
         [sys.executable, "-m", "coocc_tpu_torch.bench"], cwd=ROOT,
-        env={**os.environ, "BENCH_ITERS": "3"}, capture_output=True,
-        text=True, timeout=600)
+        env={**os.environ, "BENCH_ITERS": "3", "BENCH_CONFIG": config},
+        capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"the bench failed: {proc.stderr[-2000:]}")
     lines = proc.stdout.strip().splitlines()
     result = json.loads(lines[-1])
     if len(lines) != 1 or result["dtype"] != "bf16" or not (
             result["value"] > 0 and result["unit"] == "frames/sec"
-            and "power_limit" in result["device"]):
+            and "power_limit" in result["device"]
+            and result["metric"].startswith(config)):
         raise AssertionError(f"the bench printed {proc.stdout!r}")
-    log(f"bench (python -m coocc_tpu_torch.bench, BENCH_ITERS=3): "
-        f"{lines[-1]}")
+    log(f"bench (BENCH_CONFIG={config} python -m coocc_tpu_torch.bench, "
+        f"BENCH_ITERS=3): {lines[-1]}")
+    return result["value"]
+
+
+OPENOCC = "coocc_multi_r101_openoccupancy"
+# launches per request of the other served configs: the camera-only model
+# has no LiDAR branch and no fuser, so neither K1 nor K2
+PER_REQUEST_OF = {OPENOCC: PER_REQUEST,
+                  "coocc_multi_r101_896x1600": PER_REQUEST,
+                  "coocc_cam_r101_896x1600": dict.fromkeys(PER_REQUEST, 0)}
+
+
+def phase_served_config(name, kernels):
+    """Config `name` as `python -m coocc_tpu_torch` serves it (its bf16
+    compute dtype, entry.served_model) at full width: serve_requests on
+    the synthetic batches of seeds 0-2 (launches PER_REQUEST_OF), and the
+    device's busy time per request (torch.profiler). -> (model, requests,
+    launches, {request ms, busy ms, peak GiB})."""
+    import torch
+    from coocc_tpu_torch.config import get_config
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.entry import served_model
+    cfg = get_config(name)
+    model = served_model(cfg, "cuda")
+    if model.dtype != torch.bfloat16:
+        raise AssertionError(f"{name} is served in {model.dtype}")
+    requests = [synthetic_batch(cfg, batch_size=1, seed=s).to("cuda")
+                for s in range(3)]
+    launches, req_ms, peak, _ = serve_requests(
+        model, requests, kernels, PER_REQUEST_OF[name], keep=False)
+    log(f"profile, {name} (device time by kernel):")
+    busy = device_breakdown(model, requests, 12)
+    return model, requests, launches, {
+        "request_ms": statistics.median(req_ms), "device_busy_ms": busy,
+        "peak_gib": peak / 2 ** 30}
+
+
+def phase_openocc(kernels):
+    """coocc_multi_r101_openoccupancy at full width (6x896x1600 images,
+    350,000 LiDAR points, the 1024x1024x80 grid, cascade ratio 4 onto
+    512x512x40), as served: 3 requests with K1 2 and K2 13 launches each;
+    K1 against its plain version with the config's two windows on the
+    model's own masks (exact); every K2 call of a pts prefix against its
+    plain version on its own bf16 inputs (res1 [1,10,512,512,128]), and
+    K2's times and bound at those shapes; eval_step with a visible mask
+    (SC/SSC hists at 512x512x40, the _visible pair); then the card's fp32
+    and bf16 forwards against openocc_real.npz, the test CLI and the bench
+    in processes of their own. -> (K1's row, K2's numbers, the config's
+    numbers)."""
+    import torch
+    from coocc_tpu_torch.parallel.train_step import eval_step
+    model, requests, launches, nums = phase_served_config(OPENOCC, kernels)
+    pts = model(requests[0], stop_at="pts")
+    masks = {"img": pts["img_voxel"][0].abs().sum(-1) != 0,
+             "pts": pts["pts_voxel"][0].abs().sum(-1) != 0}
+    del pts
+    log(f"{OPENOCC}: K1's masks {tuple(masks['img'].shape)}, "
+        f"{int(masks['img'].sum())} and {int(masks['pts'].sum())} active "
+        "cells")
+    k1 = phase_window_knn(model, masks, launches)
+    calls, k2_err = k2_main_path_check(model, requests[0])
+    levels = k2_levels(calls, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    k2 = {"launches": launches["subm_ext_conv"], "max_abs_err": k2_err,
+          **k2_times(gen, levels, torch.bfloat16)}
+
+    # the eval step with the OpenOccupancy visible mask
+    cfg = model.cfg
+    vis = torch.rand((1, *cfg.occ_size), generator=gen,
+                     device="cuda") < 0.6
+    batch = requests[0]._replace(visible_mask=vis.to(torch.uint8))
+    eval_step(model, batch, cfg)
+    ms = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        res = eval_step(model, batch, cfg, return_logits=False)
+        hists = {k: v.cpu() for k, v in res.items() if "hist" in k}
+        ms.append((time.perf_counter() - t0) * 1e3)
+    n_vis = int(hists["SC_hist_visible"].sum())
+    if not (0 < n_vis < int(hists["SC_hist"].sum())
+            and int(hists["SSC_hist_visible"].sum()) == n_vis):
+        raise AssertionError(f"visible hists: {n_vis} cells")
+    log(f"{OPENOCC} eval_step with a visible mask: {ms[0]:.3f}, "
+        f"{ms[1]:.3f} ms (hists on the host); {sorted(hists)}; "
+        f"{n_vis} visible cells counted")
+    nums["eval_step_ms"] = ms[1]
+    del model, requests, batch, res
+    torch.cuda.empty_cache()
+
+    phase_real_shape_parity(OPENOCC)
+    nums["test_cli_eval_ms"] = phase_test_cli(OPENOCC)
+    nums["bench_fps"] = phase_bench(OPENOCC)
+    return k1, k2, nums
+
+
+def phase_test_cli(config):
+    """`python -m coocc_tpu_torch.test <config> --synthetic --max-steps 2`
+    (flax's initial weights) in a process of its own: it prints the SC/SSC
+    table. -> its eval ms per batch (the second batch's)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "coocc_tpu_torch.test", config,
+         "--synthetic", "--max-steps", "2"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0 or "mIoU" not in proc.stdout:
+        raise AssertionError(f"the test CLI failed: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    log(f"test CLI (python -m coocc_tpu_torch.test {config} --synthetic "
+        "--max-steps 2):")
+    for line in proc.stdout.strip().splitlines():
+        log(f"  {line}")
+    line = [ln for ln in proc.stderr.splitlines() if "ms a batch" in ln][-1]
+    log(f"  {line.split(' INFO ')[-1]}")
+    return json.loads(line.split("ms a batch ")[-1])[-1]
 
 
 def phase_tiny_agreement():
@@ -1538,11 +1695,11 @@ def main():
     for row in (k1_row, k3_row):
         row["launches"] = launches[row["name"]]
     log(f"[{time.perf_counter() - t0:.1f} s] bench and tiny config:")
-    phase_bench()
+    phase_bench(FLAGSHIP)
     phase_tiny_agreement()
     log(f"[{time.perf_counter() - t0:.1f} s] real-shape parity against JAX's "
         "fingerprint:")
-    phase_real_shape_parity()
+    phase_real_shape_parity(FLAGSHIP)
     log(f"[{time.perf_counter() - t0:.1f} s] train path (bf16, the config's "
         "compute_dtype):")
     train_launches, dx_row = phase_train(kernels)
@@ -1555,6 +1712,25 @@ def main():
     loop_launches = phase_loop(kernels)
     for row in rows:
         row["loop_launches"] = loop_launches[row["name"]]
+
+    log(f"[{time.perf_counter() - t0:.1f} s] {OPENOCC} (bf16, as served; "
+        "K1 and K2 at its shapes, real-shape parity, test CLI, bench):")
+    served = {}
+    k1_oo, k2_oo, served[OPENOCC] = phase_openocc(kernels)
+    for name in ("coocc_multi_r101_896x1600", "coocc_cam_r101_896x1600"):
+        log(f"[{time.perf_counter() - t0:.1f} s] {name} (bf16, as served):")
+        model, _, launches_c, served[name] = phase_served_config(name,
+                                                                 kernels)
+        served[name]["launches"] = launches_c
+        del model
+        torch.cuda.empty_cache()
+    log(f"served configs (request ms median, device busy ms per request, "
+        f"peak GiB): {json.dumps(served)}")
+    # the kernels at OpenOccupancy's shapes, beside the flagship's
+    k1_row["configs"] = {OPENOCC: {k: k1_oo[k] for k in (
+        "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}}
+    k2_row["configs"] = {OPENOCC: k2_oo}
 
     log(f"[{time.perf_counter() - t0:.1f} s] card: {card_line()}")
     log(json.dumps({"kernels": rows}))

@@ -1,11 +1,15 @@
 """Answer synthetic requests with the eval forward on the card:
 
     python -m coocc_tpu_torch coocc_multi_r50_256x704 --requests 3
+    python -m coocc_tpu_torch coocc_multi_r101_openoccupancy --requests 3
 
 The twin of `tools/test.py --synthetic`: the model computes in the config's
-`compute_dtype` (bf16 for the flagship), as tools/test.py:76-78 maps it.
-Request i uses the synthetic batch of seed i; the weights are random (seed
-0). Raises when there is no CUDA card.
+`compute_dtype` (bf16 for every shipped config), as tools/test.py:76-78
+maps it. Request i uses the synthetic batch of seed i; the weights are
+random (seed 0). Any registered config name is taken; one the port does not
+run (coocc_lidar, coocc_multi_r50_256x704_stereo, coocc_kitti) raises
+NotImplementedError when its model is built. Raises when there is no CUDA
+card.
 """
 from __future__ import annotations
 
@@ -14,15 +18,15 @@ import time
 
 import torch
 
-from .config import get_config
+from .config import get_config, list_configs
 from .data.synthetic import synthetic_batch
 from .entry import FLAGSHIP, served_model
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m coocc_tpu_torch")
-    # the port runs the flagship config so far
-    ap.add_argument("config", nargs="?", default=FLAGSHIP, choices=[FLAGSHIP])
+    ap.add_argument("config", nargs="?", default=FLAGSHIP,
+                    choices=list_configs())
     ap.add_argument("--requests", type=int, default=3)
     args = ap.parse_args(argv)
 

@@ -1,9 +1,11 @@
-"""Benchmark: flagship inference frames/sec on one CUDA card.
+"""Benchmark: inference frames/sec on one CUDA card.
 
     python -m coocc_tpu_torch.bench
+    BENCH_CONFIG=coocc_multi_r101_openoccupancy python -m coocc_tpu_torch.bench
 
 The twin of the JAX package's `bench.py`, with its knobs: BENCH_CONFIG (the
-flagship coocc_multi_r50_256x704 only so far), BENCH_DTYPE (bf16, the
+flagship coocc_multi_r50_256x704 by default; a config the port does not run
+raises NotImplementedError when its model is built), BENCH_DTYPE (bf16, the
 default, or fp32), BENCH_BATCH (1) and BENCH_ITERS (5). The weights are
 random (seed 0). One warm-up forward on the batch of seed 0, then one
 distinct pre-staged synthetic batch per timed rep (seeds 1..BENCH_ITERS),
@@ -27,7 +29,7 @@ import torch
 
 from .config import get_config
 from .data.synthetic import synthetic_batch
-from .entry import FLAGSHIP, build_model, resolve_device
+from .entry import FLAGSHIP, build_model
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": None}
 
@@ -49,20 +51,15 @@ def reduce_outputs(outs) -> torch.Tensor:
 
 def main():
     cfg_name = os.environ.get("BENCH_CONFIG", FLAGSHIP)
-    if cfg_name != FLAGSHIP:
-        raise NotImplementedError(
-            f"BENCH_CONFIG={cfg_name}: the port runs {FLAGSHIP} only")
     dtype_name = os.environ.get("BENCH_DTYPE", "bf16")
     dtype = DTYPES[dtype_name]
     B = int(os.environ.get("BENCH_BATCH", "1"))
     reps = int(os.environ.get("BENCH_ITERS", "5"))
-    device = resolve_device("cuda")
+    cfg = get_config(cfg_name)
+    model = build_model(cfg, "cuda", seed=0, dtype=dtype)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-    cfg = get_config(cfg_name)
-    model = build_model(cfg, device, seed=0, dtype=dtype)
-    batches = [synthetic_batch(cfg, batch_size=B, seed=s).to(device)
+    batches = [synthetic_batch(cfg, batch_size=B, seed=s).to("cuda")
                for s in range(reps + 1)]
     float(reduce_outputs(model(batches[0])))  # warm-up
     ts = []

@@ -140,9 +140,11 @@ def build_model(cfg: CoOccConfig, device="cuda", seed: int = 0,
                 init=init_weights) -> CoOccRay:
     """CoOccRay(cfg, dtype) with the weights `init(model, seed)` draws
     (init_weights, or init_flax), in eval mode, on `device`; the weights
-    are drawn in fp32 and stay fp32."""
+    are drawn in fp32 and stay fp32. A config the port does not run raises
+    NotImplementedError before the device is looked at."""
+    model = CoOccRay(cfg, dtype)
     device = resolve_device(device)
-    return init(CoOccRay(cfg, dtype), seed).eval().to(device)
+    return init(model, seed).eval().to(device)
 
 
 def compute_dtype(cfg: CoOccConfig) -> Optional[torch.dtype]:

@@ -6,7 +6,8 @@ Counterpart of coocc_tpu/models/coocc_ray.py `CoOccRay.__call__`
   image branch   ResNet -> SECONDFPN -> DepthNet/LSS splat -> img_voxel
   lidar branch   occupancy voxelize -> PackedLiDAREnc8x (pts.impl 'auto'
                  or 'packed'; 'dense' gives DenseLiDAREnc8x) -> pts_voxel
-  fusion         BiFuserN grid-space window-KNN fusion
+  fusion         BiFuserN grid-space window-KNN fusion (a config without
+                 the fuser feeds pts_voxel, or img_voxel, on)
   semantics      CustomResNet3D -> FPN3D -> OccHead (+ cascade)
   regularizer    frustum volume renderer (training only)
 
@@ -139,15 +140,16 @@ class CoOccRay(nn.Module):
                  else fz.window_ry,
                  fz.window_img_rz if fz.window_img_rz is not None
                  else fz.window_rz))
+            feat_ch = fz.out_channels
         else:
-            # JAX's semantic stack then reads img_voxel or pts_voxel
-            # (coocc_tpu/models/coocc_ray.py:288)
-            raise NotImplementedError(
-                "a model without the fuser (camera-only or LiDAR-only) is "
-                "not ported")
+            # without the fuser the semantic stack reads pts_voxel, or
+            # img_voxel without LiDAR (JAX coocc_ray.py:287-288), and takes
+            # its width from it
+            feat_ch = cfg.pts.out_channel if cfg.use_lidar \
+                else cfg.lss.numC_Trans
         sem = cfg.semantic
         self.semantic_encoder = CustomResNet3D(
-            fz.out_channels, sem.depth, sem.block_inplanes,
+            feat_ch, sem.depth, sem.block_inplanes,
             sem.block_strides, sem.out_indices)
         self.semantic_neck = FPN3D(sem.block_inplanes, sem.neck_out_channels,
                                    with_cp=sem.neck_with_cp)
@@ -156,10 +158,10 @@ class CoOccRay(nn.Module):
             if cfg.use_camera else 0)
         if cfg.render.use_rendering:
             # the renderer's heads (JAX models/renderer.py:97-103), on the
-            # fused features; training only
-            self.sigma_head = NeRFMLP(fz.out_channels, 1, 1)
+            # semantic stack's input (the fused features); training only
+            self.sigma_head = NeRFMLP(feat_ch, 1, 1)
             if cfg.use_camera:
-                self.rgb_head = NeRFMLP(fz.out_channels, 3, 3)
+                self.rgb_head = NeRFMLP(feat_ch, 3, 3)
 
     def _image_voxels(self, batch: Batch):
         B, N, H, W, _ = batch.imgs.shape

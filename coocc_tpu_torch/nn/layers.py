@@ -38,15 +38,15 @@ from ..ops.conv import conv
 
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # a dilated kernel that spans the whole input (ASPP's dilations 12
-        # and 18 on the flagship's 16-row maps) gets cuDNN's direct kernel
-        # in bf16, 12-20x slower than the fp32 conv of the same values
-        # (PERF.md): those take the fp32 route, the same numerics
-        wide = any(d * (k - 1) >= n for d, k, n in zip(
-            self.dilation, self.kernel_size, x.shape[2:]))
+        # cuDNN gives a dilated bf16 conv its direct kernel at some
+        # dilations and shapes: ASPP's dilations 12 and 18 took 225-255 ms
+        # each on channels-last 56x100 maps (the 896x1600 configs), 10-17
+        # ms on the flagship's 16x44 ones, against 3.6 and 0.76 ms for the
+        # fp32 conv of the same values (PERF.md). Every dilated conv takes
+        # the fp32 route, the same numerics.
         return conv(F.conv2d, x, self.weight, self.bias, self.stride,
                     self.padding, self.dilation, self.groups,
-                    via_fp32=wide and self.dilation != (1, 1))
+                    via_fp32=self.dilation != (1, 1))
 
 
 class Conv3d(nn.Conv3d):

@@ -1,12 +1,14 @@
-"""JAX's flagship outputs at real shapes, carried as a small fingerprint.
+"""JAX's outputs at real shapes, carried as a small fingerprint per config.
 
 The card's machine has no JAX, so the JAX package's real-shape outputs come
-along as a committed file, `flagship_real.npz`, written by the gated test
+along as committed files, one per config in FINGERPRINTS
+(`flagship_real.npz` for coocc_multi_r50_256x704, `openocc_real.npz` for
+coocc_multi_r101_openoccupancy), written by the gated test
 tests/test_torch_real_shapes.py (COOCC_TORCH_REAL=1) on a CPU that runs
-both packages. Both sides build coocc_multi_r50_256x704 from one set of
-weights, `numpy_weights(model, seed=0)` (drawn from numpy, so that every
-torch version draws the same bits), and run synthetic_batch(seed=0), in
-fp32 and in bf16 (JAX's CoOccRay(cfg, dtype=bfloat16) compiled with
+both packages. Both sides build the config from one set of weights,
+`numpy_weights(model, seed=0)` (drawn from numpy, so that every torch
+version draws the same bits), and run synthetic_batch(seed=0), in fp32 and
+in bf16 (JAX's CoOccRay(cfg, dtype=bfloat16) compiled with
 xla_allow_excess_precision off).
 
 Per dtype and output (the `stop_at` prefixes img_voxel, pts_voxel,
@@ -14,13 +16,15 @@ voxel_feats, semantic[0..3], occ, and the cascade's fine_logits) the file
 holds JAX's values at a fixed seeded sample of elements, its per-channel
 sums and max |x|; the coarse argmax at a sample of cells; JAX's refined
 coarse cells (the 20,000 of the eval cap) and a sample of their children's
-logits by coordinates; and the CPU port's own distance to all of these
-(max and mean relative to the output's max |x|, the argmax agreement, the
-share of refined cells in common), with digests of the state_dict and of
-the batch. `check` holds another run of the port (the card's) to within
-2x (max) and 1.5x (mean) of the CPU port's distance, with floors of 1e-3
-and 1e-4 of the scale where the CPU's distance is fp32 rounding alone, and
-after the LiDAR encoder a floor on the max set by K2's rounding (`check`).
+logits by coordinates (N_FINE_ROWS rows: 512 cells of 8 children at
+cascade ratio 2, 64 of 64 at ratio 4); and the CPU port's own distance to
+all of these (max and mean relative to the output's max |x|, the argmax
+agreement, the share of refined cells in common), with digests of the
+state_dict and of the batch. `check` holds another run of the port (the
+card's) to within 2x (max) and 1.5x (mean) of the CPU port's distance,
+with floors of 1e-3 and 1e-4 of the scale where the CPU's distance is fp32
+rounding alone, and after the LiDAR encoder a floor on the max set by K2's
+rounding (`check`).
 """
 from __future__ import annotations
 
@@ -32,11 +36,11 @@ from typing import Dict
 import numpy as np
 import torch
 
-PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                    "flagship_real.npz")
+FINGERPRINTS = {"coocc_multi_r50_256x704": "flagship_real.npz",
+                "coocc_multi_r101_openoccupancy": "openocc_real.npz"}
 N_SAMPLE = 2048        # sampled elements per output
 N_ARGMAX = 4096        # sampled coarse cells for the argmax
-N_FINE = 512           # sampled refined coarse cells (x 8 children)
+N_FINE_ROWS = 4096     # sampled fine rows: the children of sampled cells
 OUTPUTS = ("img_voxel", "pts_voxel", "voxel_feats", "semantic0",
            "semantic1", "semantic2", "semantic3", "occ")
 FLOOR_MAX, FLOOR_MEAN = 1e-3, 1e-4
@@ -141,15 +145,24 @@ def _fine_rows(out) -> Dict[tuple, np.ndarray]:
         out["fine_valid"][0]) if v}
 
 
-def _cells(out) -> np.ndarray:
+def path(name: str) -> str:
+    """The committed fingerprint of config `name`."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        FINGERPRINTS[name])
+
+
+def _cells(out, ratio: int) -> np.ndarray:
     """The refined coarse cells [n, 3] (each child block's first row)."""
-    c = out["fine_coords"][0][::8]
-    return (c[out["fine_valid"][0][::8]] // 2).astype(np.int16)
+    n = ratio ** 3
+    c = out["fine_coords"][0][::n]
+    return (c[out["fine_valid"][0][::n]] // ratio).astype(np.int16)
 
 
-def entries(jax_out, port_out, prefix: str) -> Dict[str, np.ndarray]:
-    """The fingerprint's arrays for one dtype from JAX's outputs, with the
-    CPU port's distance to them recorded beside."""
+def entries(jax_out, port_out, prefix: str,
+            ratio: int) -> Dict[str, np.ndarray]:
+    """The fingerprint's arrays for one dtype from JAX's outputs (cascade
+    ratio `ratio`), with the CPU port's distance to them recorded
+    beside."""
     rs = np.random.RandomState(0)
     fp = {}
     for k in OUTPUTS:
@@ -164,24 +177,28 @@ def entries(jax_out, port_out, prefix: str) -> Dict[str, np.ndarray]:
     cells = rs.choice(occ.shape[0], N_ARGMAX, replace=False)
     fp[f"{prefix}/argmax/idx"] = cells.astype(np.int64)
     fp[f"{prefix}/argmax/val"] = occ[cells].argmax(-1).astype(np.int8)
-    jc = _cells(jax_out)
+    jc = _cells(jax_out, ratio)
     fp[f"{prefix}/cells"] = jc
     rows = _fine_rows(jax_out)
-    pick = jc[rs.choice(len(jc), min(N_FINE, len(jc)), replace=False)]
-    kids = (pick[:, None, :].astype(np.int64) * 2 + np.stack(np.meshgrid(
-        *[np.arange(2)] * 3, indexing="ij"), -1).reshape(1, 8, 3))
+    n_kids = ratio ** 3
+    pick = jc[rs.choice(len(jc), min(N_FINE_ROWS // n_kids, len(jc)),
+                        replace=False)]
+    kids = (pick[:, None, :].astype(np.int64) * ratio + np.stack(
+        np.meshgrid(*[np.arange(ratio)] * 3, indexing="ij"), -1).reshape(
+            1, n_kids, 3))
     kids = kids.reshape(-1, 3)
     fp[f"{prefix}/fine/coords"] = kids.astype(np.int16)
     fp[f"{prefix}/fine/val"] = np.stack([rows[tuple(c)] for c in
                                          kids.tolist()])
     fp[f"{prefix}/fine/scale"] = np.float64(
         np.abs(jax_out["fine_logits"]).max())
-    for key, (dmax, dmean) in distances(fp, prefix, port_out).items():
+    for key, (dmax, dmean) in distances(fp, prefix, port_out,
+                                        ratio).items():
         fp[f"{prefix}/{key}/port"] = np.array([dmax, dmean])
     return fp
 
 
-def distances(fp, prefix: str, out) -> Dict[str, tuple]:
+def distances(fp, prefix: str, out, ratio: int) -> Dict[str, tuple]:
     """A run's distance to the fingerprint: per output (max, mean) of the
     sampled elements' |diff| and max of the channel sums' |diff|, each
     relative to JAX's scale (max |x|, max |channel sum|); for the coarse
@@ -200,7 +217,7 @@ def distances(fp, prefix: str, out) -> Dict[str, tuple]:
     am = occ[fp[f"{prefix}/argmax/idx"]].argmax(-1)
     d["argmax"] = (float((am != fp[f"{prefix}/argmax/val"]).mean()), 0.0)
     ref_cells = {tuple(c) for c in fp[f"{prefix}/cells"].tolist()}
-    got_cells = {tuple(c) for c in _cells(out).tolist()}
+    got_cells = {tuple(c) for c in _cells(out, ratio).tolist()}
     d["cells"] = (1.0 - len(ref_cells & got_cells) / len(ref_cells), 0.0)
     rows = _fine_rows(out)
     coords = fp[f"{prefix}/fine/coords"].tolist()
@@ -212,12 +229,13 @@ def distances(fp, prefix: str, out) -> Dict[str, tuple]:
     return d
 
 
-def load(path: str = PATH):
-    with np.load(path) as z:
+def load(name: str):
+    """The committed fingerprint of config `name`, as a dict of arrays."""
+    with np.load(path(name)) as z:
         return {k: z[k] for k in z.files}
 
 
-def check(fp, prefix: str, out):
+def check(fp, prefix: str, out, ratio: int):
     """-> [(name, (max, mean) of this run, (max, mean) of the CPU port,
     ok)]: each within 2x (max) and 1.5x (mean) of the CPU port's distance
     (floors FLOOR_MAX, FLOOR_MEAN); the share of argmax flips and of
@@ -233,7 +251,7 @@ def check(fp, prefix: str, out):
     distance."""
     res = []
     k2_noise = 2.0 * float(fp[f"{prefix}/pts_voxel/port"][0])
-    for key, (dmax, dmean) in distances(fp, prefix, out).items():
+    for key, (dmax, dmean) in distances(fp, prefix, out, ratio).items():
         pmax, pmean = (float(v) for v in fp[f"{prefix}/{key}/port"])
         if key in ("argmax", "cells"):
             ok = dmax <= 2.0 * pmax + 0.002

@@ -1,10 +1,10 @@
-"""Where the served flagship's host time goes, on the card:
+"""Where a served model's host time goes, on the card:
 
-    python -m coocc_tpu_torch.tools.host_profile
+    python -m coocc_tpu_torch.tools.host_profile [config]
 
-Builds the flagship as `python -m coocc_tpu_torch` serves it (its config's
-compute dtype, seeded random weights), warms it up, then prints for one
-request each:
+Builds the config (the flagship by default) as `python -m coocc_tpu_torch`
+serves it (its config's compute dtype, seeded random weights), warms it
+up, then prints for one request each:
   * the synchronizing calls (file:line in the port), from
     torch.cuda.set_sync_debug_mode: each stalls the host until the device
     has caught up;
@@ -16,13 +16,14 @@ Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import time
 import warnings
 
 import torch
 
-from ..config import get_config
+from ..config import get_config, list_configs
 from ..data.synthetic import synthetic_batch
 from ..entry import FLAGSHIP, served_model
 from ..models.coocc_ray import STAGES
@@ -32,16 +33,21 @@ LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
             "cuLaunchKernelEx")
 
 
-def main():
+def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
+    ap = argparse.ArgumentParser(
+        prog="python -m coocc_tpu_torch.tools.host_profile")
+    ap.add_argument("config", nargs="?", default=FLAGSHIP,
+                    choices=list_configs())
+    args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     load_all_kernel_libraries()
-    cfg = get_config(FLAGSHIP)
+    cfg = get_config(args.config)
     model = served_model(cfg, "cuda")
     requests = [synthetic_batch(cfg, batch_size=1, seed=s).to("cuda")
                 for s in range(3)]
-    print(f"{torch.cuda.get_device_name()}: {FLAGSHIP}, compute dtype "
+    print(f"{torch.cuda.get_device_name()}: {args.config}, compute dtype "
           f"{str(model.dtype)[6:]}")
     with torch.no_grad():
         model(requests[0])

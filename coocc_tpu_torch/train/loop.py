@@ -34,21 +34,27 @@ def sum_eval_hists(model, cfg: CoOccConfig, data_iter: Iterable,
                    max_steps: Optional[int] = None) -> Dict[str, np.ndarray]:
     """The eval step over `data_iter` (at most max_steps batches, each a
     Batch on the model's device) -> each hist the step returns, summed on
-    the host in int64. Logs JAX's warning when the cascade's capacity
-    dropped occupied cells."""
+    the host in int64. Logs each batch's eval time (host clock, from the
+    step's start until its hists are on the host) and JAX's warning when
+    the cascade's capacity dropped occupied cells."""
     sums: Dict[str, np.ndarray] = {}
     overflow = n = 0
+    ms = []
     for batch in data_iter:
+        t0 = time.perf_counter()
         out = eval_step(model, batch, cfg, return_logits=False)
         for k in HISTS:
             if k in out:
                 h = out[k].cpu().numpy().astype(np.int64)
                 sums[k] = sums[k] + h if k in sums else h
+        ms.append((time.perf_counter() - t0) * 1e3)
         if "fine_overflow" in out:
             overflow = max(overflow, int(out["fine_overflow"].max()))
         n += 1
         if max_steps is not None and n >= max_steps:
             break
+    log.info("eval: %d batches, ms a batch %s", n,
+             [round(t, 3) for t in ms])
     if overflow > 0:
         log.warning(
             "cascade eval capacity exceeded by up to %d occupied coarse "
