@@ -79,11 +79,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      as served: 3 requests each (K1 2 and K2 13 a request, and none for
      the camera-only model), their outputs checked, times, device busy
      and peak memory.
+ 13. coocc_lidar, the LiDAR-only model, at full width as served (bf16):
+     350,000 points (245,000 valid) voxelized with their means onto the
+     800x800x65 grid at the 120,000-voxel eval cap, the HD encoder (K2 at
+     p = 8, 4, 2, 1, bz = 9; stage 0 [1,9,800,800,128] at Co = 16),
+     SECOND3D and its FPN, the semantic stack and the head on 100x100x8
+     without the cascade; 3 requests (K2 16 launches a request, K1 none),
+     times, device busy and its share, peak memory, device time by prefix;
+     every K2 call of a pts prefix against its plain version (4 each at
+     Co = 16, 32, 64, 128), K2 on random inputs at those levels in fp32
+     and bf16 and every epilogue, its times and bound there; the fp32 and
+     bf16 forwards against parity/lidar_real.npz; the test CLI and the
+     bench in processes of their own.
 Prints the card, the kernels' JSON line (the served bf16 path's launches
 and K2 times, K2's fp32 ones beside them; the train path's and the loop's
-launches and K2's dX row; K1's and K2's numbers at OpenOccupancy's shapes
-under "configs") and, last, the result line. Needs a CUDA card and the
-repository around it; it imports nothing of JAX.
+launches and K2's dX row; K1's and K2's numbers at OpenOccupancy's shapes,
+and K2's at coocc_lidar's, under "configs") and, last, the result line.
+Needs a CUDA card and the repository around it; it imports nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -168,21 +181,32 @@ def host_ms(fn, inputs):
     return statistics.median(ts)
 
 
+def has_cascade(cfg) -> bool:
+    head = cfg.occ_head
+    return head.cascade_ratio != 1 and (head.sample_from_voxel
+                                        or head.sample_from_img)
+
+
 def check_outputs(out, cfg):
+    """The eval outputs' shapes and finite values: occ, and the cascade's
+    where the config has one (coocc_lidar's model returns occ alone)."""
     import torch
     X, Y, Z = cfg.lss_grid_size
     rows = cfg.occ_head.max_coarse_occupied * cfg.occ_head.cascade_ratio ** 3
-    want = {"occ": (1, X, Y, Z, cfg.num_classes),
-            "fine_logits": (1, rows, cfg.num_classes),
-            "fine_coords": (1, rows, 3), "fine_valid": (1, rows)}
+    want = {"occ": (1, X, Y, Z, cfg.num_classes)}
+    if has_cascade(cfg):
+        want.update({"fine_logits": (1, rows, cfg.num_classes),
+                     "fine_coords": (1, rows, 3), "fine_valid": (1, rows)})
+    if set(out) - {"fine_overflow"} != set(want):
+        raise AssertionError(f"outputs {sorted(out)}, want {sorted(want)}")
     for k, shape in want.items():
         if tuple(out[k].shape) != shape:
             raise AssertionError(
                 f"{k}: shape {tuple(out[k].shape)} != {shape}")
     for k in ("occ", "fine_logits"):
-        if not bool(torch.isfinite(out[k]).all()):
+        if k in out and not bool(torch.isfinite(out[k]).all()):
             raise AssertionError(f"{k} has non-finite values")
-    if int(out["fine_valid"].sum()) == 0:
+    if "fine_valid" in out and int(out["fine_valid"].sum()) == 0:
         raise AssertionError("the cascade refined no cell")
 
 
@@ -226,9 +250,10 @@ def serve_requests(model, requests, kernels, per_request, keep=True):
         if grew != per_request:
             raise AssertionError(f"request {i}: launches {grew}, want "
                                  f"{per_request}")
-        log(f"request {i} (seed {i}): {req_ms[-1]:.3f} ms, "
-            f"fine_valid {int(out['fine_valid'].sum())}, "
-            f"fine_overflow {int(out['fine_overflow'].sum())}")
+        fine = (f", fine_valid {int(out['fine_valid'].sum())}, "
+                f"fine_overflow {int(out['fine_overflow'].sum())}"
+                if "fine_valid" in out else "")
+        log(f"request {i} (seed {i}): {req_ms[-1]:.3f} ms{fine}")
         if keep:
             outs.append({k: v.cpu() for k, v in out.items()})
         del out
@@ -540,9 +565,9 @@ def k2_work(shape, p, Co, mode, esz):
     return ops, nbytes
 
 
-def k2_levels(calls, dtype):
-    """{(shape, p, Co): {mode: calls}} of one pts prefix's K2 calls, each
-    of which must take an x of `dtype`."""
+def k2_levels(calls, dtype, n_calls=PER_REQUEST["subm_ext_conv"]):
+    """{(shape, p, Co): {mode: calls}} of one pts prefix's K2 calls
+    (`n_calls` of them), each of which must take an x of `dtype`."""
     levels = {}
     for shape, p, Co, dt, mode in calls:
         if dt != dtype:
@@ -551,7 +576,7 @@ def k2_levels(calls, dtype):
         counts[mode] += 1
     log(f"subm_ext_conv main-path calls per forward ({str(dtype)[6:]}): "
         f"{[(s, p, Co, n) for (s, p, Co), n in levels.items()]}")
-    if len(calls) != PER_REQUEST["subm_ext_conv"]:
+    if len(calls) != n_calls:
         raise AssertionError(f"{len(calls)} K2 calls in one pts prefix")
     return levels
 
@@ -594,15 +619,18 @@ def k2_check(x, w27, p, mcell, bn, identity):
     one bf16 ulp more (the two fp32 values may straddle a rounding
     boundary)."""
     import torch
-    from coocc_tpu_torch.ops.subm_conv import (ext_conv_plain,
+    from coocc_tpu_torch.ops.subm_conv import (epilogue_plain,
+                                               ext_conv_plain,
                                                subm_ext_conv,
-                                               subm_ext_conv_plain,
                                                subm_ext_weight)
     got = subm_ext_conv(x, w27, p, mcell, bn, identity).float()
-    ref = subm_ext_conv_plain(x, w27, p, mcell, bn, identity).float()
-    conv_scale = float(ext_conv_plain(
-        x.float(), subm_ext_weight(w27, p), x.shape[1],
-        x.shape[-1] // p).abs().max())
+    # the plain version (subm_ext_conv_plain) with its conv kept: JAX's conv
+    # of the bf16-rounded operands, the epilogue, one rounding to x's dtype
+    conv = ext_conv_plain(x.float(), subm_ext_weight(w27, p), x.shape[1],
+                          x.shape[-1] // p)
+    ref = epilogue_plain(conv, mcell, bn, identity).to(x.dtype).float()
+    conv_scale = float(conv.abs().max())
+    del conv
     gain = 1.0 if bn is None else max(1.0, float(bn.inv.abs().max()))
     tol = K2_FP32_REL * conv_scale * gain + 2.0 ** -21 * float(
         ref.abs().max())
@@ -629,6 +657,16 @@ def phase_subm_conv(model, requests):
              in levels.items()]
     cases += [((2, 3, 37, 29, 128), 2, 64, "ragged B=2, p=2"),
               ((1, 2, 45, 51, 128), 4, 32, "ragged p=4")]
+    max_err = max(max_err, k2_random_checks(gen, cases))
+    return max_err, k2_times(gen, levels, torch.float32)
+
+
+def k2_random_checks(gen, cases):
+    """K2 against its plain version on random inputs of each case (shape,
+    p, Co, name), fp32 and bf16, in every epilogue mode. -> the max abs
+    err over the fp32 ones."""
+    import torch
+    max_err = 0.0
     for shape, p, Co, name in cases:
         for dtype in (torch.float32, torch.bfloat16):
             [(x, mcell, idn)], w27, bn = k2_inputs(gen, shape, p, Co, dtype,
@@ -645,7 +683,9 @@ def phase_subm_conv(model, requests):
                 if not (ok and scale > 0):
                     raise AssertionError(
                         f"subm_ext_conv differs: {name} {dtype} {mode}")
-    return max_err, k2_times(gen, levels, torch.float32)
+            del x, mcell, idn
+            torch.cuda.empty_cache()
+    return max_err
 
 
 def k2_times(gen, levels, dtype):
@@ -720,9 +760,10 @@ def k2_times(gen, levels, dtype):
         full_ops += n * 2 * G * X * Y * 9 * E * p * Co
     ops_ms = ops / BF16_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    launches = sum(sum(c.values()) for c in levels.values())
     log(f"subm_ext_conv {str(dtype)[6:]} per forward: fused kernel "
-        f"{kernel:.4f} ms (13 launches, {ops / kernel / 1e9:.1f} TFLOP/s "
-        f"useful), mask-only mode {mask_only:.4f} ms, unfused PyTorch "
+        f"{kernel:.4f} ms ({launches} launches, {ops / kernel / 1e9:.1f} "
+        f"TFLOP/s useful), mask-only mode {mask_only:.4f} ms, unfused PyTorch "
         f"epilogue {unfused:.4f} ms, plain {plain:.4f} ms, cuDNN bf16 "
         f"{library:.4f} ms (+ concat {concat:.4f} ms, not in library_ms); "
         f"bound {ops} useful FLOP -> {ops_ms:.4f} ms, {nbytes} bytes -> "
@@ -973,6 +1014,7 @@ def phase_real_shape_parity(name):
     from coocc_tpu_torch.config import get_config
     from coocc_tpu_torch.data.synthetic import synthetic_batch
     from coocc_tpu_torch.models.coocc_ray import CoOccRay
+    t0 = time.perf_counter()
     fp = parity.load(name)
     cfg = get_config(name)
     batch_np = synthetic_batch(cfg, batch_size=1, seed=0)
@@ -1007,7 +1049,7 @@ def phase_real_shape_parity(name):
         raise AssertionError(f"{name} outputs differ from JAX's "
                              f"fingerprint: {bad}")
     log(f"real-shape parity {name}: digests equal, fp32 and bf16 within the "
-        "bounds")
+        f"bounds ({time.perf_counter() - t0:.1f} s)")
     return results
 
 
@@ -1167,7 +1209,7 @@ def phase_train(kernels):
         f"bytes -> {bytes_ms:.4f} ms; dW (torch ops) {dw_ms:.4f} ms per "
         "step")
     row = {"name": "subm_ext_conv_dx", "route": "cuda",
-           "source": "coocc_tpu_torch/csrc/subm_conv.cu",
+           "source": "coocc_tpu_torch/csrc/subm_conv.cuh",
            "replaces": "coocc_tpu/ops/pallas/subm_conv.py:107 (its VJP, "
                        "which JAX takes through coocc_tpu/nn/"
                        "sparse_enc_packed.py:431-433)",
@@ -1427,6 +1469,7 @@ def phase_bench(config):
     """`BENCH_CONFIG=config python -m coocc_tpu_torch.bench` once
     (BENCH_ITERS=3, its default bf16), in a process of its own; its JSON
     line is logged behind a prefix. -> frames/sec."""
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "coocc_tpu_torch.bench"], cwd=ROOT,
         env={**os.environ, "BENCH_ITERS": "3", "BENCH_CONFIG": config},
@@ -1441,16 +1484,21 @@ def phase_bench(config):
             and result["metric"].startswith(config)):
         raise AssertionError(f"the bench printed {proc.stdout!r}")
     log(f"bench (BENCH_CONFIG={config} python -m coocc_tpu_torch.bench, "
-        f"BENCH_ITERS=3): {lines[-1]}")
+        f"BENCH_ITERS=3, {time.perf_counter() - t0:.1f} s): {lines[-1]}")
     return result["value"]
 
 
 OPENOCC = "coocc_multi_r101_openoccupancy"
+LIDAR = "coocc_lidar"
 # launches per request of the other served configs: the camera-only model
-# has no LiDAR branch and no fuser, so neither K1 nor K2
+# has no LiDAR branch and no fuser, so neither K1 nor K2; the LiDAR-only
+# model no fuser (no K1) and 16 K2 launches, 4 SubMs at each of the HD
+# encoder's stages
 PER_REQUEST_OF = {OPENOCC: PER_REQUEST,
                   "coocc_multi_r101_896x1600": PER_REQUEST,
-                  "coocc_cam_r101_896x1600": dict.fromkeys(PER_REQUEST, 0)}
+                  "coocc_cam_r101_896x1600": dict.fromkeys(PER_REQUEST, 0),
+                  LIDAR: {**dict.fromkeys(PER_REQUEST, 0),
+                          "subm_ext_conv": 16}}
 
 
 def phase_served_config(name, kernels):
@@ -1492,7 +1540,9 @@ def phase_openocc(kernels):
     numbers)."""
     import torch
     from coocc_tpu_torch.parallel.train_step import eval_step
+    lap = lap_timer(OPENOCC)
     model, requests, launches, nums = phase_served_config(OPENOCC, kernels)
+    lap("build and serve")
     pts = model(requests[0], stop_at="pts")
     masks = {"img": pts["img_voxel"][0].abs().sum(-1) != 0,
              "pts": pts["pts_voxel"][0].abs().sum(-1) != 0}
@@ -1501,11 +1551,14 @@ def phase_openocc(kernels):
         f"{int(masks['img'].sum())} and {int(masks['pts'].sum())} active "
         "cells")
     k1 = phase_window_knn(model, masks, launches)
+    lap("K1's checks")
     calls, k2_err = k2_main_path_check(model, requests[0])
     levels = k2_levels(calls, torch.bfloat16)
+    lap("K2 on the main path's calls")
     gen = torch.Generator(device="cuda").manual_seed(4)
     k2 = {"launches": launches["subm_ext_conv"], "max_abs_err": k2_err,
           **k2_times(gen, levels, torch.bfloat16)}
+    lap("K2's times")
 
     # the eval step with the OpenOccupancy visible mask
     cfg = model.cfg
@@ -1530,6 +1583,7 @@ def phase_openocc(kernels):
     nums["eval_step_ms"] = ms[1]
     del model, requests, batch, res
     torch.cuda.empty_cache()
+    lap("eval_step")
 
     phase_real_shape_parity(OPENOCC)
     nums["test_cli_eval_ms"] = phase_test_cli(OPENOCC)
@@ -1541,6 +1595,7 @@ def phase_test_cli(config):
     """`python -m coocc_tpu_torch.test <config> --synthetic --max-steps 2`
     (flax's initial weights) in a process of its own: it prints the SC/SSC
     table. -> its eval ms per batch (the second batch's)."""
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "coocc_tpu_torch.test", config,
          "--synthetic", "--max-steps", "2"], cwd=ROOT, capture_output=True,
@@ -1549,12 +1604,87 @@ def phase_test_cli(config):
         raise AssertionError(f"the test CLI failed: {proc.stdout[-2000:]}"
                              f"{proc.stderr[-2000:]}")
     log(f"test CLI (python -m coocc_tpu_torch.test {config} --synthetic "
-        "--max-steps 2):")
+        f"--max-steps 2, {time.perf_counter() - t0:.1f} s):")
     for line in proc.stdout.strip().splitlines():
         log(f"  {line}")
     line = [ln for ln in proc.stderr.splitlines() if "ms a batch" in ln][-1]
     log(f"  {line.split(' INFO ')[-1]}")
     return json.loads(line.split("ms a batch ")[-1])[-1]
+
+
+def lap_timer(name):
+    """-> lap(what): logs the seconds since the last lap (or the timer's
+    start) against `what`."""
+    last = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        log(f"{name}: {what} took {now - last[0]:.1f} s")
+        last[0] = now
+    return lap
+
+
+def stage_device_times(model, requests):
+    """Device busy ms per request of each stop_at prefix and the full
+    forward (torch.profiler), and each stage's marginal. -> {stage: busy
+    ms of its prefix}."""
+    from coocc_tpu_torch.models.coocc_ray import STAGES
+    busy, prev = {}, 0.0
+    for stop in STAGES[1:] + (None,):
+        log(f"profile, prefix {stop or 'full'}:")
+        busy[stop or "full"] = device_breakdown(
+            lambda b, stop=stop: model(b, stop_at=stop), requests, 0)
+    for name, ms in busy.items():
+        log(f"stage {name:6s}: prefix device busy {ms:9.3f} ms, marginal "
+            f"{ms - prev:9.3f} ms")
+        prev = ms
+    return busy
+
+
+def phase_lidar(kernels):
+    """coocc_lidar, the LiDAR-only model, at full width as served (bf16):
+    350,000 points (245,000 valid) voxelized onto the 800x800x65 grid at
+    the 120,000-voxel eval cap, the HD encoder (p = 8, 4, 2, 1 at bz = 9,
+    stage 0 [1,9,800,800,128]), SECOND3D and its FPN, the semantic stack
+    and the head on 100x100x8; 3 requests with K2's launches counted (16 a
+    request, K1 none); device time by stop_at prefix and the pts stage's by
+    kernel; every K2 call of a pts prefix against its plain version on its
+    own bf16 inputs (4 each at Co = 16, 32, 64, 128), K2 on random inputs
+    at each of those levels in fp32 and bf16 and every epilogue mode, K2's
+    times and bound at those shapes; the fp32 and bf16 forwards against
+    parity/lidar_real.npz; the test CLI and the bench in processes of their
+    own. -> (K2's numbers, the config's numbers)."""
+    import torch
+    lap = lap_timer(LIDAR)
+    model, requests, launches, nums = phase_served_config(LIDAR, kernels)
+    nums["busy_share"] = nums["device_busy_ms"] / nums["request_ms"]
+    lap("build and serve")
+    nums["stage_busy_ms"] = stage_device_times(model, requests)
+    log(f"profile, {LIDAR} pts stage (voxelize, HD encoder, SECOND3D + FPN; "
+        "device time by kernel):")
+    device_breakdown(pts_stage(model), requests, 12)
+    lap("profiles")
+    calls, k2_err = k2_main_path_check(model, requests[0])
+    levels = k2_levels(calls, torch.bfloat16,
+                       PER_REQUEST_OF[LIDAR]["subm_ext_conv"])
+    per_co = {Co: sum(c.values()) for (_, _, Co), c in levels.items()}
+    if per_co != {16: 4, 32: 4, 64: 4, 128: 4}:
+        raise AssertionError(f"{LIDAR}: K2 calls by Co {per_co}")
+    del model, requests
+    torch.cuda.empty_cache()
+    lap("K2 on the main path's calls")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    k2_random_checks(gen, [(s, p, Co, f"{LIDAR} level") for s, p, Co
+                           in levels])
+    lap("K2 on random inputs")
+    k2 = {"launches": launches["subm_ext_conv"], "max_abs_err": k2_err,
+          **k2_times(gen, levels, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    lap("K2's times")
+    phase_real_shape_parity(LIDAR)
+    nums["test_cli_eval_ms"] = phase_test_cli(LIDAR)
+    nums["bench_fps"] = phase_bench(LIDAR)
+    return k2, nums
 
 
 def phase_tiny_agreement():
@@ -1685,7 +1815,7 @@ def main():
     # the kernels' rows describe the served (bf16) path; K2's fp32
     # instantiation, which entry() runs, is kept beside it
     k2_row = {"name": "subm_ext_conv", "route": "cuda",
-              "source": "coocc_tpu_torch/csrc/subm_conv.cu",
+              "source": "coocc_tpu_torch/csrc/subm_conv.cuh",
               "replaces": "coocc_tpu/ops/pallas/subm_conv.py:53",
               "launches": launches["subm_ext_conv"], "max_abs_err": k2_err,
               **k2_times16, "dtype": "bfloat16",
@@ -1724,13 +1854,16 @@ def main():
         served[name]["launches"] = launches_c
         del model
         torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t0:.1f} s] {LIDAR} (bf16, as served; K2 "
+        "at its HD levels, real-shape parity, test CLI, bench):")
+    k2_lidar, served[LIDAR] = phase_lidar(kernels)
     log(f"served configs (request ms median, device busy ms per request, "
         f"peak GiB): {json.dumps(served)}")
     # the kernels at OpenOccupancy's shapes, beside the flagship's
     k1_row["configs"] = {OPENOCC: {k: k1_oo[k] for k in (
         "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}}
-    k2_row["configs"] = {OPENOCC: k2_oo}
+    k2_row["configs"] = {OPENOCC: k2_oo, LIDAR: k2_lidar}
 
     log(f"[{time.perf_counter() - t0:.1f} s] card: {card_line()}")
     log(json.dumps({"kernels": rows}))

@@ -2,12 +2,13 @@
 
     python -m coocc_tpu_torch coocc_multi_r50_256x704 --requests 3
     python -m coocc_tpu_torch coocc_multi_r101_openoccupancy --requests 3
+    python -m coocc_tpu_torch coocc_lidar --requests 3
 
 The twin of `tools/test.py --synthetic`: the model computes in the config's
 `compute_dtype` (bf16 for every shipped config), as tools/test.py:76-78
 maps it. Request i uses the synthetic batch of seed i; the weights are
 random (seed 0). Any registered config name is taken; one the port does not
-run (coocc_lidar, coocc_multi_r50_256x704_stereo, coocc_kitti) raises
+run (coocc_multi_r50_256x704_stereo, coocc_kitti) raises
 NotImplementedError when its model is built. Raises when there is no CUDA
 card.
 """
@@ -44,8 +45,10 @@ def main(argv=None):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         shapes = {k: tuple(v.shape) for k, v in out.items()}
-        print(f"request {i}: {ms:.1f} ms  {shapes}  "
-              f"fine_valid={int(out['fine_valid'].sum())}")
+        # a model without the cascade (coocc_lidar) returns occ alone
+        fine = f"  fine_valid={int(out['fine_valid'].sum())}" \
+            if "fine_valid" in out else ""
+        print(f"request {i}: {ms:.1f} ms  {shapes}{fine}")
 
 
 if __name__ == "__main__":

@@ -143,9 +143,11 @@ class PtsBranchConfig:
     num_point_features: int = 5         # x, y, z, intensity, dt
     encoder: str = "SparseLiDAREnc8x"   # | 'SparseLiDAREnc4x' | 'SparseEncoderHD'
     # Encoder implementation ('packed' / 'dense' / 'gather', same
-    # parameters); 'auto' is 'packed' for SparseLiDAREnc8x. The port has
-    # 'packed' (nn/sparse_enc_packed.py, without ztap_levels) and 'dense'
-    # (nn/sparse_enc_dense.py); the rest raise NotImplementedError.
+    # parameters); 'auto' is 'packed' for SparseLiDAREnc8x and 'packed_hd'
+    # for SparseEncoderHD. The port has 'packed' (nn/sparse_enc_packed.py,
+    # without ztap_levels), 'dense' (nn/sparse_enc_dense.py) and
+    # 'packed_hd' (nn/sparse_enc_packed_hd.py); 'gather' raises
+    # NotImplementedError.
     impl: str = "auto"
     ztap_levels: Tuple[int, ...] = ()
     input_channel: int = 4

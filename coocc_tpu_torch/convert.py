@@ -9,8 +9,9 @@ through `state_dict_from_jax`.
 Layouts (JAX -> torch):
   Conv2d / deconv2d / DCN  [kh, kw, I, O]      -> [O, I, kh, kw]
   Conv3d                   [k0, k1, k2, I, O]  -> [O, I, k0, k1, k2]
+  deconv3d                 [k0, k1, k2, O, I]  -> [I, O, k0, k1, k2]
   Linear                   [I, O]              -> [O, I]
-  spconv                   [27 taps (kx, ky, kz), I, O] -> [O, kz, ky, kx, I]
+  spconv                   [k^3 taps (kx, ky, kz), I, O] -> [O, kz, ky, kx, I]
   BN                       scale/bias + batch_stats mean/var
                            -> weight/bias/running_mean/running_var
   GN                       scale/bias -> weight/bias
@@ -27,6 +28,7 @@ import torch
 
 from .config.base import CoOccConfig
 from .nn.resnet2d import RESNET_LAYERS
+from .nn.sparse_enc_packed_hd import ENCODER_CHANNELS
 
 
 def _get(tree, path: str):
@@ -63,8 +65,9 @@ class _Writer:
         if _has(self.params, f"{f}/bias"):
             self.put(f"{t}.bias", _get(self.params, f"{f}/bias"))
 
-    def conv3d(self, t, f):
-        self.put(f"{t}.weight", _get(self.params, f"{f}/conv/kernel")
+    def conv3d(self, t, f, inner="conv"):
+        f = f"{f}/{inner}" if inner else f
+        self.put(f"{t}.weight", _get(self.params, f"{f}/kernel")
                  .transpose(4, 3, 0, 1, 2))
 
     def dense(self, t, f, conv1x1=False):
@@ -82,9 +85,10 @@ class _Writer:
         self.put(f"{t}.weight", _get(self.params, f"{f}/scale"))
         self.put(f"{t}.bias", _get(self.params, f"{f}/bias"))
 
-    def spconv(self, t, f):
-        w = _get(self.params, f"{f}/weight")  # [27, I, O], kx-major taps
-        w = w.reshape(3, 3, 3, *w.shape[1:])  # [kx, ky, kz, I, O]
+    def spconv(self, t, f, name="weight"):
+        w = _get(self.params, f"{f}/{name}")  # [k^3, I, O], kx-major taps
+        k = round(w.shape[0] ** (1 / 3))
+        w = w.reshape(k, k, k, *w.shape[1:])  # [kx, ky, kz, I, O]
         self.put(f"{t}.weight", w.transpose(4, 2, 1, 0, 3))
 
 
@@ -159,6 +163,46 @@ def _sparse_enc8x(w: _Writer, t, f):
     w.gn(f"{t}.conv_out.1", f"{f}/gn_out/gn")
 
 
+def _sparse_encoder_hd(w: _Writer, t, f):
+    """JAX's PackedEncoderHD scopes -> the reference SparseEncoderHD's
+    names (convert_torch.py:254-285)."""
+    w.spconv(f"{t}.conv_input.0", f"{f}/conv_input")
+    w.bn(f"{t}.conv_input.1", f"{f}/norm_input/bn")
+    last = len(ENCODER_CHANNELS) - 1
+    for i, blocks in enumerate(ENCODER_CHANNELS):
+        for j in range(len(blocks)):
+            tb = f"{t}.encoder_layers.encoder_layer{i + 1}.{j}"
+            if j == len(blocks) - 1 and i != last:
+                w.spconv(f"{tb}.0", f"{f}/stage{i}_down")
+                w.bn(f"{tb}.1", f"{f}/stage{i}_down/norm/bn")
+            else:
+                for k in (1, 2):
+                    fb = f"{f}/stage{i}_block{j}"
+                    w.spconv(f"{tb}.conv{k}", f"{fb}/conv{k}")
+                    w.bn(f"{tb}.norm{k}", f"{fb}/norm{k}/bn")
+    w.spconv(f"{t}.conv_out.0", f, "conv_out_weight")
+    w.bn(f"{t}.conv_out.1", f"{f}/norm_out/bn")
+
+
+def _second3d(w: _Writer, t, f, layer_nums):
+    for i, n in enumerate(layer_nums):
+        for j in range(n + 1):
+            w.conv3d(f"{t}.blocks.{i}.{3 * j}", f"{f}/block{i}_conv{j}")
+            w.bn(f"{t}.blocks.{i}.{3 * j + 1}", f"{f}/block{i}_bn{j}/bn")
+
+
+def _second3d_fpn(w: _Writer, t, f, strides, extra_num_conv):
+    for i, s in enumerate(strides):
+        if s > 1:
+            w.conv3d(f"{t}.deblocks.{i}.0", f"{f}/deblock{i}_deconv", None)
+        else:
+            w.conv3d(f"{t}.deblocks.{i}.0", f"{f}/deblock{i}_conv")
+        w.bn(f"{t}.deblocks.{i}.1", f"{f}/deblock{i}_bn/bn")
+    for j in range(extra_num_conv):
+        w.conv3d(f"{t}.extra_blocks.{3 * j}", f"{f}/extra{j}_conv")
+        w.bn(f"{t}.extra_blocks.{3 * j + 1}", f"{f}/extra{j}_bn/bn")
+
+
 def _bifuser(w: _Writer, t, f):
     w.dense(f"{t}.knn_enc.0", f"{f}/knn_enc/linear")
     w.conv3d(f"{t}.con_enc.0", f"{f}/con_enc0")
@@ -227,7 +271,14 @@ def state_dict_from_jax(variables_np: Dict[str, Any],
         _second_fpn(w, "img_neck", "img_neck", cfg.img_neck.upsample_strides)
         _depthnet(w, "img_view_transformer.depth_net",
                   "img_view_transformer/depth_net")
-    if cfg.use_lidar:
+    if cfg.use_lidar and cfg.pts.encoder == "SparseEncoderHD":
+        _sparse_encoder_hd(w, "pts_middle_encoder", "pts_middle_encoder")
+        if cfg.second3d is not None:
+            s3 = cfg.second3d
+            _second3d(w, "pts_backbone", "pts_backbone", s3.layer_nums)
+            _second3d_fpn(w, "pts_neck", "pts_neck", s3.fpn_upsample_strides,
+                          s3.fpn_extra_num_conv)
+    elif cfg.use_lidar:
         _sparse_enc8x(w, "pts_middle_encoder", "pts_middle_encoder")
     if cfg.fuser is not None:
         _bifuser(w, "occ_fuser", "occ_fuser")

@@ -67,8 +67,9 @@ def init_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         for name, p in m.named_parameters(recurse=False):
             if name == "bias":
                 p.copy_(normal(p.shape, 0.01))
-            elif isinstance(m, torch.nn.ConvTranspose2d):
-                # [Cin, Cout, k, k] with stride k: each output sees Cin taps
+            elif isinstance(m, (torch.nn.ConvTranspose2d,
+                                torch.nn.ConvTranspose3d)):
+                # [Cin, Cout, *k] with stride k: each output sees Cin taps
                 p.copy_(normal(p.shape, 1 / math.sqrt(p.shape[0])))
             else:
                 # every other weight has its output axis first
@@ -108,9 +109,11 @@ def init_flax(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     `kaiming_normal`); biases 0, BatchNorm and GroupNorm scales 1 and
     biases 0, BatchNorm running means 0 and variances 1. fan_in is the
     kernel's size over one output channel in flax's layout: the input
-    channels (per group) times the taps, for a ConvTranspose2d (flax's
-    `transpose_kernel`) the output channels times the taps; each is the
-    port's weight[0].numel()."""
+    channels (per group) times the taps (for the HD encoder's 1x1x1
+    conv_out the input channels, as JAX's `_kaiming`), for a
+    ConvTranspose2d or ConvTranspose3d (flax's `transpose_kernel`) the
+    output channels times the taps; each is the port's
+    weight[0].numel()."""
     from .nn.depthnet import DCN
     from .nn.sparse_enc_dense import SpConvWeight
     g = torch.Generator().manual_seed(seed)

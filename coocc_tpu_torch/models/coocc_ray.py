@@ -5,7 +5,9 @@ Counterpart of coocc_tpu/models/coocc_ray.py `CoOccRay.__call__`
 
   image branch   ResNet -> SECONDFPN -> DepthNet/LSS splat -> img_voxel
   lidar branch   occupancy voxelize -> PackedLiDAREnc8x (pts.impl 'auto'
-                 or 'packed'; 'dense' gives DenseLiDAREnc8x) -> pts_voxel
+                 or 'packed'; 'dense' gives DenseLiDAREnc8x) -> pts_voxel;
+                 for SparseEncoderHD (the LiDAR-only coocc_lidar) voxel
+                 means -> PackedEncoderHD -> SECOND3D -> SECOND3DFPN
   fusion         BiFuserN grid-space window-KNN fusion (a config without
                  the fuser feeds pts_voxel, or img_voxel, on)
   semantics      CustomResNet3D -> FPN3D -> OccHead (+ cascade)
@@ -13,11 +15,12 @@ Counterpart of coocc_tpu/models/coocc_ray.py `CoOccRay.__call__`
 
 Submodule names are the reference checkpoint's top-level prefixes
 (img_backbone, img_neck, img_view_transformer.depth_net, pts_middle_encoder,
-occ_fuser, semantic_encoder, semantic_neck, pts_bbox_head, and the
-renderer's sigma_head / rgb_head), so a Co-Occ state_dict loads straight
-in. Inputs and outputs are channels-last like the JAX package's; inside,
-tensors are NCHW / NCDHW. B > 1 runs the per-sample steps (voxelize, KNN,
-cascade, the renderer's lookup) in a loop.
+pts_backbone, pts_neck, occ_fuser, semantic_encoder, semantic_neck,
+pts_bbox_head, and the renderer's sigma_head / rgb_head), so a Co-Occ
+state_dict loads straight in. Inputs and outputs are channels-last like
+the JAX package's; inside, tensors are NCHW / NCDHW. B > 1 runs the
+per-sample steps (voxelize, KNN, cascade, the renderer's lookup) in a
+loop.
 
 `model.eval()` runs JAX's `train=False` forward under no_grad; `.train()`
 runs its `train=True` one: BatchNorm on batch statistics, ASPP's dropout,
@@ -43,10 +46,13 @@ from ..nn.nerf_mlp import NeRFMLP
 from ..nn.occ_head import OccHead
 from ..nn.resnet2d import ResNet
 from ..nn.resnet3d import CustomResNet3D
+from ..nn.second3d import SECOND3D, SECOND3DFPN
 from ..nn.second_fpn import SECONDFPN
 from ..nn.sparse_enc_dense import DenseLiDAREnc8x
 from ..nn.sparse_enc_packed import PackedLiDAREnc8x
-from ..ops.voxelize import voxelize_mask
+from ..nn.sparse_enc_packed_hd import PackedEncoderHD
+from ..ops.sparse_conv import SparseTensor
+from ..ops.voxelize import voxelize, voxelize_mask
 from .renderer import render
 
 STAGES = ("img", "pts", "fuse", "sem", "coarse")
@@ -87,8 +93,23 @@ class Batch(NamedTuple):
 
 def _lidar_encoder(pts, compute_dtype: torch.dtype) -> nn.Module:
     """The encoder `pts.impl` names, resolved as the JAX model resolves it
-    (coocc_tpu/models/coocc_ray.py:130-178): 'auto' is 'packed' for
-    SparseLiDAREnc8x. Both impls have one set of parameters."""
+    (coocc_tpu/models/coocc_ray.py:130-183): 'auto' is 'packed' for
+    SparseLiDAREnc8x (both impls have one set of parameters) and
+    'packed_hd' for SparseEncoderHD; 'dense' and 'packed' of
+    SparseEncoderHD raise ValueError, as JAX's do, and the gather-GEMM
+    encoders NotImplementedError."""
+    if pts.encoder == "SparseEncoderHD":
+        impl = "packed_hd" if pts.impl == "auto" else pts.impl
+        if impl in ("dense", "packed"):
+            raise ValueError(
+                f"pts.impl='{impl}' has a dense/packed twin only for "
+                f"SparseLiDAREnc8x, not {pts.encoder}; use impl='gather'")
+        if impl != "packed_hd":
+            raise NotImplementedError(f"pts.impl={pts.impl!r} (the "
+                                      "gather-GEMM encoder) is not ported")
+        return PackedEncoderHD(pts.input_channel, pts.base_channel,
+                               pts.out_channel, pts.sparse_shape_xyz,
+                               compute_dtype=compute_dtype)
     if pts.encoder != "SparseLiDAREnc8x":
         raise NotImplementedError(
             f"LiDAR encoder {pts.encoder} is not ported")
@@ -127,8 +148,22 @@ class CoOccRay(nn.Module):
                                       cfg.img_neck.out_channels,
                                       cfg.img_neck.upsample_strides)
             self.img_view_transformer = LSSViewTransformerVoxel(cfg)
+        pts_ch = None
         if cfg.use_lidar:
             self.pts_middle_encoder = _lidar_encoder(cfg.pts, self.dtype)
+            pts_ch = cfg.pts.out_channel
+            if isinstance(self.pts_middle_encoder, PackedEncoderHD) \
+                    and cfg.second3d is not None:
+                # JAX coocc_ray.py:210-237: only after the HD encoder
+                s3 = cfg.second3d
+                self.pts_backbone = SECOND3D(
+                    s3.in_channels, s3.out_channels, s3.layer_nums,
+                    s3.layer_strides, s3.is_cascade)
+                self.pts_neck = SECOND3DFPN(
+                    s3.out_channels, s3.fpn_out_channels,
+                    s3.fpn_upsample_strides,
+                    extra_num_conv=s3.fpn_extra_num_conv)
+                pts_ch = s3.fpn_out_channels[-1]
         fz = cfg.fuser
         if fz is not None:
             self.occ_fuser = BiFuserN(
@@ -145,8 +180,7 @@ class CoOccRay(nn.Module):
             # without the fuser the semantic stack reads pts_voxel, or
             # img_voxel without LiDAR (JAX coocc_ray.py:287-288), and takes
             # its width from it
-            feat_ch = cfg.pts.out_channel if cfg.use_lidar \
-                else cfg.lss.numC_Trans
+            feat_ch = pts_ch if cfg.use_lidar else cfg.lss.numC_Trans
         sem = cfg.semantic
         self.semantic_encoder = CustomResNet3D(
             feat_ch, sem.depth, sem.block_inplanes,
@@ -180,12 +214,33 @@ class CoOccRay(nn.Module):
     def _pts_voxels(self, batch: Batch):
         cfg = self.cfg
         cap = cfg.pts.max_voxels if self.training else cfg.pts.max_voxels_test
+        if isinstance(self.pts_middle_encoder, PackedEncoderHD):
+            return self._pts_voxels_hd(batch, cap)
         occupancy = torch.stack([
             voxelize_mask(p, m, cfg.point_cloud_range, cfg.pts.voxel_size,
                           cfg.pts.sparse_shape_xyz, max_voxels=cap)
             for p, m in zip(batch.points, batch.points_mask)])
         # the encoders return fp32 (JAX coocc_ray.py:178 casts back)
         return self.pts_middle_encoder(occupancy).to(self.dtype)
+
+    def _pts_voxels_hd(self, batch: Batch, cap: int):
+        """The HD path (JAX coocc_ray.py:180-237): the voxel means of each
+        sample, the HD encoder, then SECOND3D and its FPN on the (Z, Y, X)
+        conv axes, in the compute dtype."""
+        pts = self.cfg.pts
+        vox = [voxelize(p, m, self.cfg.point_cloud_range, pts.voxel_size,
+                        pts.sparse_shape_xyz, max_voxels=cap,
+                        max_points_per_voxel=pts.max_num_points,
+                        num_features=pts.input_channel)
+               for p, m in zip(batch.points, batch.points_mask)]
+        dense = self.pts_middle_encoder(SparseTensor(
+            *(torch.stack(t) for t in zip(*vox))))
+        if hasattr(self, "pts_backbone"):
+            # [B, C, X, Y, Z] -> [B, C, Z, Y, X] and back
+            zyx = dense.to(self.dtype).permute(0, 1, 4, 3, 2)
+            dense = self.pts_neck(self.pts_backbone(zyx)).permute(
+                0, 1, 4, 3, 2)
+        return dense.to(self.dtype)
 
     def forward(self, batch: Batch, stop_at: Optional[str] = None,
                 fine_priorities=None):

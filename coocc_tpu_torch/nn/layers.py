@@ -6,9 +6,10 @@ compute `dtype` and keep their parameters in fp32, casting them at use; the
 port's model casts its inputs to the compute dtype once (models/coocc_ray.py)
 and every layer here follows the dtype of the activation it is given:
 
-  * `Conv2d`, `Conv3d`, `ConvTranspose2d`, `Linear`: torch's modules (their
-    state_dict names are the reference checkpoint's) with the weight and
-    bias cast to the input's dtype at the call (`ops/conv.py`). A bf16
+  * `Conv2d`, `Conv3d`, `ConvTranspose2d`, `ConvTranspose3d`, `Linear`:
+    torch's modules (their state_dict names are the reference
+    checkpoint's) with the weight and bias cast to the input's dtype at the
+    call (`ops/conv.py`). A bf16
     convolution sums in fp32 and rounds once, as JAX's conv with
     `preferred_element_type=fp32` followed by `astype(bf16)` does; the bias
     is added inside the same call, where flax adds it in bf16 after the
@@ -58,6 +59,13 @@ class Conv3d(nn.Conv3d):
 class ConvTranspose2d(nn.ConvTranspose2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv(F.conv_transpose2d, x, self.weight, self.bias,
+                    self.stride, self.padding, self.output_padding,
+                    self.groups, self.dilation)
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv(F.conv_transpose3d, x, self.weight, self.bias,
                     self.stride, self.padding, self.output_padding,
                     self.groups, self.dilation)
 

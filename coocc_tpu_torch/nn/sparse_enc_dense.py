@@ -28,11 +28,12 @@ from .layers import BatchNorm
 
 
 class SpConvWeight(nn.Module):
-    """A 3x3x3 spconv weight [Cout, kz, ky, kx, Cin] (conv_module.weight)."""
+    """A k x k x k spconv weight [Cout, kz, ky, kx, Cin] (conv_module.weight;
+    k = 3 but for the HD encoder's 1x1x1 conv_out)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, k: int = 3):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(cout, 3, 3, 3, cin))
+        self.weight = nn.Parameter(torch.zeros(cout, k, k, k, cin))
 
     def conv_weight(self) -> torch.Tensor:
         """-> [Cout, Cin, kx, ky, kz] for F.conv3d over [B, C, X, Y, Z]."""

@@ -92,11 +92,11 @@ def _strided_table(z_in: int) -> np.ndarray:
     return t
 
 
-def _strided_packed_table(p_in: int, p_out: int) -> np.ndarray:
+def _strided_packed_table(p_in: int, p_out: int, padz: int) -> np.ndarray:
     t = np.full((p_in + 2, p_out), ZERO_TAP, np.int64)
     for so in range(p_out):
         for dz in range(3):
-            u = 2 * so + dz - 1
+            u = 2 * so + dz - padz
             if 0 <= u < p_in:
                 t[u, so] = dz
             elif u == -1:
@@ -111,11 +111,14 @@ def strided_weight(w27: torch.Tensor, z_in: int) -> torch.Tensor:
     return gather_taps(w27, _strided_table(z_in))
 
 
-def strided_packed_weight(w27: torch.Tensor, p_in: int,
-                          p_out: int) -> torch.Tensor:
+def strided_packed_weight(w27: torch.Tensor, p_in: int, p_out: int,
+                          padz: int = 1) -> torch.Tensor:
     """[27, Ci, Co] -> [3, 3, (p_in+2)*Ci, p_out*Co]: a stride-2-z conv in
-    packed layout (pack rows kept when p_in == 2*p_out)."""
-    return gather_taps(w27, _strided_packed_table(p_in, p_out))
+    packed layout (pack rows kept when p_in == 2*p_out), z padding padz:
+    output slot so reads input slot 2*so + dz - padz, the dn carry at
+    padz = 1, the up carry at padz = 0 (JAX
+    sparse_enc_packed_hd.py:_strided_packed_weight_z)."""
+    return gather_taps(w27, _strided_packed_table(p_in, p_out, padz))
 
 
 def _dilation(table: np.ndarray, device) -> torch.Tensor:
@@ -124,9 +127,10 @@ def _dilation(table: np.ndarray, device) -> torch.Tensor:
         np.float32), device)
 
 
-def dilate_packed_weight(p_in: int, p_out: int, device="cpu"):
+def dilate_packed_weight(p_in: int, p_out: int, device="cpu",
+                         padz: int = 1):
     """0/1 [3, 3, p_in+2, p_out] mask-dilation weight in packed layout."""
-    return _dilation(_strided_packed_table(p_in, p_out), device)
+    return _dilation(_strided_packed_table(p_in, p_out, padz), device)
 
 
 def dilate_weight(z_in: int, device="cpu") -> torch.Tensor:

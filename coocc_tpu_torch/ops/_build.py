@@ -2,8 +2,8 @@
 
 Each source compiles on first use into its own shared library with a plain C
 interface, under `coocc_tpu_torch/_build/` (listed in .gitignore), named by
-the hash of the source, so an edited source rebuilds and an unchanged one
-loads as is. Nothing here runs at import; a missing nvcc or a failed build
+the hash of the source and of the headers beside it (csrc/*.cuh), so an
+edited source or header rebuilds and an unchanged one loads as is. Nothing here runs at import; a missing nvcc or a failed build
 raises.
 """
 from __future__ import annotations
@@ -39,9 +39,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    for f in [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC)
+                                     if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, f), "rb") as src:
+            h.update(src.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _build(name: str, lib: str) -> None:

@@ -1,8 +1,8 @@
 """Convolutions and matmuls in the input's dtype, summed in fp32.
 
 `conv(fn, x, weight, bias, *args)` runs `fn` (F.conv2d, F.conv3d,
-F.conv_transpose2d, F.linear) with the weight and bias cast to x's dtype:
-JAX's conv on bf16 operands with `preferred_element_type=fp32` and one
+F.conv_transpose2d, F.conv_transpose3d, F.linear) with the weight and bias
+cast to x's dtype: JAX's conv on bf16 operands with `preferred_element_type=fp32` and one
 rounding. On the card cuDNN and cuBLAS compute bf16 that way. A bf16 call
 takes the same products and sums through an fp32 call on the bf16 values,
 rounded once, where the library's bf16 route fails us: on the CPU always

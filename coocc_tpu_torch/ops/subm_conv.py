@@ -28,7 +28,8 @@ TPU kernel's: operands rounded to bf16 (round to nearest even), products
 summed in fp32; the output has the input's dtype.
 
 A CPU tensor takes `subm_ext_conv_plain`; a CUDA tensor launches the
-hand-written kernel `csrc/subm_conv.cu` or raises. The kernel replaces the
+hand-written kernel `csrc/subm_conv.cuh` (built as `subm_conv.cu` for bf16
+activations and `subm_conv_f32.cu` for fp32) or raises. The kernel replaces the
 Pallas kernel `_kernel` (called from `subm_ext_conv`,
 coocc_tpu/ops/pallas/subm_conv.py:53,107); its design note is in the
 source.
@@ -69,6 +70,7 @@ from .conv import conv
 ZERO_TAP = 3          # a z-tap table entry that selects a zero block
 KB = 16               # input lanes per K-block of the kernel
 N_LANES = 128         # output lanes p*Co the kernel produces
+SLOT_WIDTHS = (16, 32, 64, 128)  # the Co the kernel is instantiated for
 
 # ---------------------------------------------------------------------------
 # block weights from [27, Cin, Cout] tap weights, taps kx-major, i.e.
@@ -307,9 +309,14 @@ ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             _I, _I, _I, _P]
 
 
-@functools.lru_cache(maxsize=1)
-def _launcher():
-    fn = load_kernel_library("subm_conv").subm_ext_conv
+# one library per activation dtype (csrc/subm_conv.cuh, instantiated by
+# subm_conv.cu and subm_conv_f32.cu, which nvcc builds in parallel)
+_LIBRARY = {torch.float32: "subm_conv_f32", torch.bfloat16: "subm_conv"}
+
+
+@functools.lru_cache(maxsize=2)
+def _launcher(dtype: torch.dtype):
+    fn = load_kernel_library(_LIBRARY[dtype]).subm_ext_conv
     fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -423,10 +430,10 @@ def _launch(x_pb: torch.Tensor, w27: torch.Tensor, p: int,
         raise ValueError(f"subm_ext_conv: x_pb {tuple(x_pb.shape)} with p "
                          f"{p} needs w27 [27, {pC // p}, Co], got "
                          f"{tuple(w27.shape)}")
-    if C % KB or Co % 32 or p * Co != N_LANES:
+    if C % KB or Co not in SLOT_WIDTHS or p * Co != N_LANES:
         raise ValueError(f"subm_ext_conv: the kernel needs C a multiple of "
-                         f"{KB}, Co of 32 and p*Co = {N_LANES}; got C={C}, "
-                         f"Co={Co}, p={p}")
+                         f"{KB}, Co one of {SLOT_WIDTHS} and p*Co = "
+                         f"{N_LANES}; got C={C}, Co={Co}, p={p}")
     if not x_pb.is_contiguous() or x_pb.data_ptr() % 16:
         raise ValueError("subm_ext_conv: x_pb must be contiguous and 16-byte "
                          "aligned (the kernel reads it densely; it copies "
@@ -456,7 +463,7 @@ def _launch(x_pb: torch.Tensor, w27: torch.Tensor, p: int,
     out = torch.empty(out_shape, dtype=x_pb.dtype, device=x_pb.device)
     if out.numel() == 0:
         return out
-    err = _launcher()(
+    err = _launcher(x_pb.dtype)(
         x_pb.data_ptr(), panels.data_ptr(), out.data_ptr(), mode,
         mcell.data_ptr(), _ptr(mean), _ptr(inv), _ptr(bias), _ptr(identity),
         table.ctypes.data, _DTYPE_CODE[x_pb.dtype], B * bz, bz, X, Y, pC, C,

@@ -1,21 +1,118 @@
-"""Occupancy voxelization of a padded LiDAR cloud.
+"""LiDAR voxelization of a padded point cloud.
 
-Counterpart of `linearize` and `voxelize_mask` in coocc_tpu/ops/voxelize.py.
-The dense LiDAR encoder reads only voxel occupancy (its stem GroupNorm erases
-the voxel features), so the eval path needs the kept-voxel mask and no
-per-voxel means.
+Counterpart of coocc_tpu/ops/voxelize.py: `linearize`, `delinearize`,
+`voxelize_mask` (occupancy only, for the SparseLiDAREnc8x encoders, whose
+stem GroupNorm erases the voxel features) and `voxelize`, the hard
+voxelizer with per-voxel means that the HD encoder of the LiDAR-only model
+reads (coocc_lidar).
+
+`voxelize` is JAX's sorted segment-mean, fast path: the points are sorted
+by linear voxel id (stably, so each voxel keeps its points in their
+order), at most `max_points_per_voxel` of each voxel's first points enter
+its mean, and when more than `max_voxels` voxels are occupied the largest
+ids are dropped. The sums are by segment over the sorted points
+(`torch.segment_reduce`, as the lift-splat sums, ops/lift_splat.py), never
+by atomics: each voxel sums its points in the same order on every run and
+every device, the order JAX's sorted segment_sum takes.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
+
+from .constants import device_constant
+
+
+class VoxelizedPoints(NamedTuple):
+    """A fixed-capacity voxelized cloud: ids [V] int64 linear voxel ids,
+    ascending, num_cells in the padding slots; features [V, F] the mean
+    point features (0 in the padding); mask [V] bool."""
+    ids: torch.Tensor
+    features: torch.Tensor
+    mask: torch.Tensor
 
 
 def linearize(coords: torch.Tensor, grid_size) -> torch.Tensor:
     """[..., 3] integer xyz -> linear id, x-major then y then z."""
     _, ny, nz = [int(g) for g in grid_size]
     return (coords[..., 0] * ny + coords[..., 1]) * nz + coords[..., 2]
+
+
+def delinearize(ids: torch.Tensor, grid_size) -> torch.Tensor:
+    """Linear ids -> [..., 3] integer xyz."""
+    _, ny, nz = [int(g) for g in grid_size]
+    return torch.stack([ids // (nz * ny), (ids // nz) % ny, ids % nz], -1)
+
+
+def _voxel_ids(points, points_mask, point_cloud_range, voxel_size,
+               grid_size):
+    """Each point's linear voxel id, num_cells where it is padding or
+    outside the range, as JAX computes it (fp32 floor of the offset over
+    the voxel size)."""
+    nx, ny, nz = [int(g) for g in grid_size]
+    dt = points.dtype
+    pcr = device_constant(np.asarray(point_cloud_range[:3], np.float32),
+                          points.device).to(dt)
+    vs = device_constant(np.asarray(voxel_size, np.float32),
+                         points.device).to(dt)
+    hi = device_constant(np.array([nx, ny, nz], np.int64), points.device)
+    coords = torch.floor((points[:, :3] - pcr) / vs).to(torch.int64)
+    valid = ((coords >= 0) & (coords < hi)).all(dim=-1) & points_mask
+    return torch.where(valid, linearize(coords, grid_size), nx * ny * nz), \
+        valid
+
+
+def voxelize(points: torch.Tensor, points_mask: torch.Tensor,
+             point_cloud_range, voxel_size, grid_size: Tuple[int, int, int],
+             max_voxels: int, max_points_per_voxel: int = 10,
+             num_features: int | None = None) -> VoxelizedPoints:
+    """points [P, F] padded (x, y, z, ...), points_mask [P] bool -> the
+    first `max_voxels` occupied voxels in id order with the mean of their
+    first `num_features` columns over at most `max_points_per_voxel`
+    points each (JAX `voxelize(..., exact_overflow=False)`)."""
+    P, F = points.shape
+    nf = F if num_features is None else num_features
+    num_cells = int(np.prod([int(g) for g in grid_size]))
+    dev = points.device
+    ids, valid = _voxel_ids(points, points_mask, point_cloud_range,
+                            voxel_size, grid_size)
+    order = torch.argsort(ids, stable=True)
+    ids_s, valid_s = ids[order], valid[order]
+    feats_s = points[order, :nf]
+    is_first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                          ids_s[1:] != ids_s[:-1]]) & valid_s
+    pos = torch.arange(P, device=dev)
+    run = torch.cumsum(is_first, 0) - 1            # the sorted-run index
+    # each point's run starts at the last head at or before it (the valid
+    # points sort first, the padding after them)
+    start = torch.cummax(torch.where(is_first, pos, 0), 0).values
+    kept = valid_s & (run < max_voxels)
+    take = kept & (pos - start < max_points_per_voxel)
+    # slots ascend along the sorted points: voxel r's points are the rows
+    # ends[r]:ends[r + 1]; the dropped ones go to the overflow slot
+    slot = torch.where(kept, run, max_voxels)
+    ends = torch.searchsorted(slot, torch.arange(max_voxels + 2,
+                                                 device=dev))
+    lengths = ends.diff()
+
+    def segment_sum(v):
+        # the lengths sum to P by construction: unsafe skips the check,
+        # which would wait for the card
+        return torch.segment_reduce(v, "sum", lengths=lengths,
+                                    unsafe=True)[:max_voxels]
+    feat_sum = segment_sum(torch.where(take[:, None], feats_s, 0.0))
+    count = segment_sum(take.to(points.dtype))
+    n_voxels = is_first.sum()
+    seg_valid = torch.arange(max_voxels, device=dev) < torch.clamp(
+        n_voxels, max=max_voxels)
+    mean = feat_sum / torch.clamp(count[:, None], min=1.0)
+    mean = torch.where(seg_valid[:, None], mean, 0.0)
+    out_ids = torch.where(seg_valid,
+                          ids_s[ends[:max_voxels].clamp(max=P - 1)],
+                          num_cells)
+    return VoxelizedPoints(out_ids, mean, seg_valid)
 
 
 def voxelize_mask(points: torch.Tensor, points_mask: torch.Tensor,
@@ -29,13 +126,8 @@ def voxelize_mask(points: torch.Tensor, points_mask: torch.Tensor,
     """
     nx, ny, nz = [int(g) for g in grid_size]
     num_cells = nx * ny * nz
-    pcr = torch.as_tensor(point_cloud_range, dtype=points.dtype,
-                          device=points.device)
-    vs = torch.as_tensor(voxel_size, dtype=points.dtype, device=points.device)
-    coords = torch.floor((points[:, :3] - pcr[:3]) / vs).to(torch.int64)
-    hi = torch.tensor([nx, ny, nz], device=points.device)
-    valid = ((coords >= 0) & (coords < hi)).all(dim=-1) & points_mask
-    ids = torch.where(valid, linearize(coords, grid_size), num_cells)
+    ids, _ = _voxel_ids(points, points_mask, point_cloud_range, voxel_size,
+                        grid_size)
     occ = torch.zeros(num_cells + 1, dtype=torch.bool, device=points.device)
     occ[ids] = True
     occ = occ[:num_cells]

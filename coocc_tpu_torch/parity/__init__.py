@@ -3,7 +3,8 @@
 The card's machine has no JAX, so the JAX package's real-shape outputs come
 along as committed files, one per config in FINGERPRINTS
 (`flagship_real.npz` for coocc_multi_r50_256x704, `openocc_real.npz` for
-coocc_multi_r101_openoccupancy), written by the gated test
+coocc_multi_r101_openoccupancy, `lidar_real.npz` for coocc_lidar), written
+by the gated test
 tests/test_torch_real_shapes.py (COOCC_TORCH_REAL=1) on a CPU that runs
 both packages. Both sides build the config from one set of weights,
 `numpy_weights(model, seed=0)` (drawn from numpy, so that every torch
@@ -12,7 +13,8 @@ in bf16 (JAX's CoOccRay(cfg, dtype=bfloat16) compiled with
 xla_allow_excess_precision off).
 
 Per dtype and output (the `stop_at` prefixes img_voxel, pts_voxel,
-voxel_feats, semantic[0..3], occ, and the cascade's fine_logits) the file
+voxel_feats, semantic[0..3], occ, and the cascade's fine_logits, those the
+config has: coocc_lidar has no img_voxel and no cascade) the file
 holds JAX's values at a fixed seeded sample of elements, its per-channel
 sums and max |x|; the coarse argmax at a sample of cells; JAX's refined
 coarse cells (the 20,000 of the eval cap) and a sample of their children's
@@ -37,7 +39,8 @@ import numpy as np
 import torch
 
 FINGERPRINTS = {"coocc_multi_r50_256x704": "flagship_real.npz",
-                "coocc_multi_r101_openoccupancy": "openocc_real.npz"}
+                "coocc_multi_r101_openoccupancy": "openocc_real.npz",
+                "coocc_lidar": "lidar_real.npz"}
 N_SAMPLE = 2048        # sampled elements per output
 N_ARGMAX = 4096        # sampled coarse cells for the argmax
 N_FINE_ROWS = 4096     # sampled fine rows: the children of sampled cells
@@ -70,7 +73,8 @@ def numpy_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         for name, p in m.named_parameters(recurse=False):
             if name == "bias":
                 std = 0.01
-            elif isinstance(m, torch.nn.ConvTranspose2d):
+            elif isinstance(m, (torch.nn.ConvTranspose2d,
+                                torch.nn.ConvTranspose3d)):
                 std = 1 / math.sqrt(p.shape[0])
             else:
                 std = 1 / math.sqrt(p[0].numel())
@@ -105,34 +109,43 @@ def batch_digest(batch) -> str:
                    for k, v in batch._asdict().items() if v is not None})
 
 
+def outputs_of(out) -> tuple:
+    """The OUTPUTS a run (or JAX's) has."""
+    return tuple(k for k in OUTPUTS if k in out)
+
+
 @torch.no_grad()
 def capture(model, batch) -> Dict[str, np.ndarray]:
     """One full eval forward of the port, with its prefixes' outputs read
     on the way (forward hooks on the modules whose outputs they are), all
-    channels-last, widened to fp32 numpy."""
+    channels-last, widened to fp32 numpy. Without the fuser voxel_feats is
+    pts_voxel; after the HD encoder pts_voxel is SECOND3DFPN's output."""
     cap = {}
-
-    def keep(name, fn):
-        return lambda m, i, o: cap.__setitem__(name, fn(o))
 
     def cl(t):
         return t.permute(0, 2, 3, 4, 1)
     dt = model.dtype
-    hooks = [
-        model.img_view_transformer.register_forward_hook(
-            keep("img_voxel", lambda o: o[0])),
-        model.pts_middle_encoder.register_forward_hook(
-            keep("pts_voxel", lambda o: cl(o.to(dt)))),
-        model.occ_fuser.register_forward_hook(
-            keep("voxel_feats", lambda o: cl(o))),
-        model.semantic_neck.register_forward_hook(
-            keep("semantic", lambda o: [cl(t) for t in o]))]
+    taps = [("img_view_transformer", "img_voxel", lambda o: o[0]),
+            ("occ_fuser", "voxel_feats", cl),
+            ("semantic_neck", "semantic", lambda o: [cl(t) for t in o])]
+    if hasattr(model, "pts_neck"):   # [B, C, Z, Y, X]
+        taps.append(("pts_neck", "pts_voxel",
+                     lambda o: o.permute(0, 4, 3, 2, 1)))
+    else:
+        taps.append(("pts_middle_encoder", "pts_voxel",
+                     lambda o: cl(o.to(dt))))
+    hooks = [getattr(model, m).register_forward_hook(
+        lambda mod, i, o, name=name, fn=fn: cap.__setitem__(name, fn(o)))
+        for m, name, fn in taps if hasattr(model, m)]
     try:
         out = model(batch)
     finally:
         for h in hooks:
             h.remove()
-    res = {k: cap[k] for k in ("img_voxel", "pts_voxel", "voxel_feats")}
+    if "voxel_feats" not in cap:
+        cap["voxel_feats"] = cap.get("pts_voxel", cap.get("img_voxel"))
+    res = {k: cap[k] for k in ("img_voxel", "pts_voxel", "voxel_feats")
+           if k in cap}
     res.update({f"semantic{i}": t for i, t in enumerate(cap["semantic"])})
     res.update(out)
     return {k: v.float().cpu().numpy() if v.is_floating_point()
@@ -161,11 +174,12 @@ def _cells(out, ratio: int) -> np.ndarray:
 def entries(jax_out, port_out, prefix: str,
             ratio: int) -> Dict[str, np.ndarray]:
     """The fingerprint's arrays for one dtype from JAX's outputs (cascade
-    ratio `ratio`), with the CPU port's distance to them recorded
+    ratio `ratio`; the refined cells and fine rows where JAX's outputs have
+    the cascade's), with the CPU port's distance to them recorded
     beside."""
     rs = np.random.RandomState(0)
     fp = {}
-    for k in OUTPUTS:
+    for k in outputs_of(jax_out):
         a = jax_out[k].reshape(-1)
         idx = rs.choice(a.size, N_SAMPLE, replace=False).astype(np.int64)
         fp[f"{prefix}/{k}/idx"] = idx
@@ -177,6 +191,17 @@ def entries(jax_out, port_out, prefix: str,
     cells = rs.choice(occ.shape[0], N_ARGMAX, replace=False)
     fp[f"{prefix}/argmax/idx"] = cells.astype(np.int64)
     fp[f"{prefix}/argmax/val"] = occ[cells].argmax(-1).astype(np.int8)
+    if "fine_logits" in jax_out:
+        fp.update(_fine_entries(jax_out, prefix, ratio, rs))
+    for key, (dmax, dmean) in distances(fp, prefix, port_out,
+                                        ratio).items():
+        fp[f"{prefix}/{key}/port"] = np.array([dmax, dmean])
+    return fp
+
+
+def _fine_entries(jax_out, prefix: str, ratio: int, rs):
+    """The refined cells and a sample of their children's logits."""
+    fp = {}
     jc = _cells(jax_out, ratio)
     fp[f"{prefix}/cells"] = jc
     rows = _fine_rows(jax_out)
@@ -192,9 +217,6 @@ def entries(jax_out, port_out, prefix: str,
                                          kids.tolist()])
     fp[f"{prefix}/fine/scale"] = np.float64(
         np.abs(jax_out["fine_logits"]).max())
-    for key, (dmax, dmean) in distances(fp, prefix, port_out,
-                                        ratio).items():
-        fp[f"{prefix}/{key}/port"] = np.array([dmax, dmean])
     return fp
 
 
@@ -206,6 +228,8 @@ def distances(fp, prefix: str, out, ratio: int) -> Dict[str, tuple]:
     refined, 0) and the fine logits on the sampled cells both refine."""
     d = {}
     for k in OUTPUTS:
+        if f"{prefix}/{k}/idx" not in fp:
+            continue
         scale = float(fp[f"{prefix}/{k}/scale"])
         got = out[k].reshape(-1)[fp[f"{prefix}/{k}/idx"]]
         err = np.abs(got.astype(np.float64) - fp[f"{prefix}/{k}/val"])
@@ -216,6 +240,8 @@ def distances(fp, prefix: str, out, ratio: int) -> Dict[str, tuple]:
     occ = out["occ"].reshape(-1, out["occ"].shape[-1])
     am = occ[fp[f"{prefix}/argmax/idx"]].argmax(-1)
     d["argmax"] = (float((am != fp[f"{prefix}/argmax/val"]).mean()), 0.0)
+    if f"{prefix}/cells" not in fp:
+        return d
     ref_cells = {tuple(c) for c in fp[f"{prefix}/cells"].tolist()}
     got_cells = {tuple(c) for c in _cells(out, ratio).tolist()}
     d["cells"] = (1.0 - len(ref_cells & got_cells) / len(ref_cells), 0.0)

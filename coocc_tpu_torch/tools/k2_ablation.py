@@ -1,4 +1,4 @@
-"""What bounds kernel K2 (csrc/subm_conv.cu): its time with parts of its
+"""What bounds kernel K2 (csrc/subm_conv.cuh): its time with parts of its
 work taken out, on one NVIDIA card.
 
     python -m coocc_tpu_torch.tools.k2_ablation
@@ -56,12 +56,18 @@ def _variants(src: str):
             "copies": cut(no_mma, _STORE, _NO_STORE)}
 
 
-def _build_all(srcs, tmp):
+def _build_all(srcs, entry, tmp):
+    """Each variant of the kernel header beside the fp32 entry source
+    `entry`, built in a directory of its own."""
     def one(item):
         name, s = item
-        cu, so = os.path.join(tmp, f"{name}.cu"), os.path.join(tmp, f"{name}.so")
-        with open(cu, "w") as f:
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        with open(os.path.join(d, "subm_conv.cuh"), "w") as f:
             f.write(s)
+        cu, so = os.path.join(d, "k2.cu"), os.path.join(d, "k2.so")
+        with open(cu, "w") as f:
+            f.write(entry)
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
                                cu], capture_output=True, text=True)
         if proc.returncode:
@@ -90,11 +96,13 @@ def copied_bytes(shape, p: int) -> int:
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("k2_ablation needs a CUDA card")
-    with open(os.path.join(_build.CSRC, "subm_conv.cu")) as f:
+    with open(os.path.join(_build.CSRC, "subm_conv.cuh")) as f:
         src = f.read()
+    with open(os.path.join(_build.CSRC, "subm_conv_f32.cu")) as f:
+        entry = f.read()
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        fns = _build_all(_variants(src), tmp)
+        fns = _build_all(_variants(src), entry, tmp)
         gen = torch.Generator(device="cuda").manual_seed(0)
         for shape, p in SHAPES:
             B, bz, X, Y, pC = shape

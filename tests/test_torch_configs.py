@@ -31,9 +31,13 @@ package at tiny shapes (CPU).
 (d) eval_step with a visible mask on the tiny OpenOccupancy model: all its
     hists, SC_hist_visible and SSC_hist_visible among them, equal JAX's
     make_eval_step on JAX's forward of the same weights and batch.
-(e) coocc_lidar, coocc_multi_r50_256x704_stereo and coocc_kitti raise
+(e) coocc_multi_r50_256x704_stereo and coocc_kitti raise
     NotImplementedError when each entry point builds their model: the
-    served CLI, the bench and the test CLI.
+    served CLI, the bench and the test CLI. coocc_lidar builds in each:
+    the served CLI and the bench build its model at full width (on the
+    meta device here) and then stop for want of a card; the test CLI runs
+    its tiny twin (`lidar_tiny`, the LiDAR-only model of
+    tests/test_torch_lidar.py) on the CPU and prints the SSC table.
 """
 import dataclasses
 import functools
@@ -45,6 +49,7 @@ import numpy as np
 import pytest
 import torch
 
+from coocc_tpu.config.base import SECOND3DConfig as JaxSECOND3DConfig
 from coocc_tpu.data.synthetic import synthetic_batch as jax_synthetic_batch
 from coocc_tpu.data.synthetic import tiny_config as jax_tiny_config
 from coocc_tpu.nn.resnet2d import ResNet as JaxResNet
@@ -57,7 +62,9 @@ from test_torch_packed_encoder import _fp32_subm as fp32_k2
 
 from coocc_tpu_torch import __main__ as served_cli
 from coocc_tpu_torch import bench
+from coocc_tpu_torch import entry as torch_entry
 from coocc_tpu_torch.config import get_config
+from coocc_tpu_torch.config.base import SECOND3DConfig
 from coocc_tpu_torch.convert import state_dict_from_jax
 from coocc_tpu_torch.data.synthetic import synthetic_batch, tiny_config
 from coocc_tpu_torch.entry import build_model, init_flax, init_weights
@@ -97,6 +104,39 @@ def cam_tiny(tiny):
 
 
 MODELS = {"openocc": openocc_tiny, "cam": cam_tiny}
+
+HD, LIDAR_OCC = (64, 64, 65), (16, 16, 16)
+
+
+def lidar_tiny(tiny, second3d_config):
+    """tiny(use_camera=False) shaped like coocc_lidar, for either
+    package's tiny_config and SECOND3DConfig: the HD encoder on a 64x64x65
+    LiDAR grid (64 z cells of a 65-cell grid, as coocc_lidar's 8 m at
+    0.125 m), the coarse 8x8x8 grid of a 16x16x16 occupancy, SECOND3D at
+    one conv a stage after the strided one, OccHead without the cascade."""
+    cfg = tiny(use_camera=False)
+    pc = cfg.point_cloud_range
+    ext = [pc[i + 3] - pc[i] for i in range(3)]
+    ds = cfg.lss_downsample
+    grid = dataclasses.replace(cfg.grid, **{
+        f"{a}bound": (pc[i], pc[i + 3], ext[i] / LIDAR_OCC[i] * ds[i])
+        for i, a in enumerate("xyz")})
+    return cfg.replace(
+        name="tiny_lidar", occ_size=LIDAR_OCC, grid=grid,
+        pts=dataclasses.replace(
+            cfg.pts, encoder="SparseEncoderHD", sparse_shape_xyz=HD,
+            voxel_size=(ext[0] / HD[0], ext[1] / HD[1],
+                        ext[2] / (HD[2] - 1))),
+        second3d=second3d_config(layer_nums=(1, 1, 1)),
+        occ_head=dataclasses.replace(
+            cfg.occ_head, sample_from_voxel=False, sample_from_img=False,
+            final_occ_size=LIDAR_OCC))
+
+
+def lidar_configs():
+    """(JAX's, the port's) tiny LiDAR-only config."""
+    return (lidar_tiny(jax_tiny_config, JaxSECOND3DConfig),
+            lidar_tiny(tiny_config, SECOND3DConfig))
 
 
 _k2 = sparse_enc_packed.subm_ext_conv
@@ -400,7 +440,7 @@ def test_eval_step_visible_hists_equal_jax(runs, monkeypatch):
     assert int(got["SC_hist_visible"].sum()) < int(got["SC_hist"].sum())
 
 
-UNPORTED = ("coocc_lidar", "coocc_multi_r50_256x704_stereo", "coocc_kitti")
+UNPORTED = ("coocc_multi_r50_256x704_stereo", "coocc_kitti")
 
 
 def _served(name, monkeypatch):
@@ -426,3 +466,37 @@ def test_unported_config_raises_in_each_entry_point(name, entry,
     its constructor, before any weight is drawn)."""
     with torch.device("meta"), pytest.raises(NotImplementedError):
         entry(name, monkeypatch)
+
+
+@pytest.mark.parametrize("entry", [_served, _bench],
+                         ids=["served", "bench"])
+def test_lidar_config_builds_in_each_entry_point(entry, monkeypatch):
+    """The served CLI and the bench build coocc_lidar's model at full width
+    (on the meta device: the LiDAR-only family, with K2's HD packs), then
+    stop where they need the card."""
+    built = []
+
+    def record(cfg, dtype=None):
+        built.append(CoOccRay(cfg, dtype))
+        return built[-1]
+    monkeypatch.setattr(torch_entry, "CoOccRay", record)
+    with torch.device("meta"), pytest.raises(
+            RuntimeError, match="torch.cuda.is_available"):
+        entry("coocc_lidar", monkeypatch)
+    model, = built
+    assert model.cfg.name == "coocc_lidar" and model.dtype == torch.bfloat16
+    assert type(model.pts_middle_encoder).__name__ == "PackedEncoderHD"
+    assert model.pts_middle_encoder.sparse_shape_xyz == (800, 800, 65)
+    assert not hasattr(model, "img_backbone")
+    assert not hasattr(model, "occ_fuser")
+
+
+def test_lidar_config_runs_through_the_test_cli(monkeypatch, capsys):
+    """`python -m coocc_tpu_torch.test coocc_lidar --synthetic --device
+    cpu` on the config's tiny twin: its SSC table from the coarse occ."""
+    cfg = lidar_configs()[1]
+    monkeypatch.setattr(test_cli, "config_by_name",
+                        lambda name: cfg if name == "coocc_lidar"
+                        else None)
+    _test_cli("coocc_lidar", monkeypatch)
+    assert "mIoU" in capsys.readouterr().out

@@ -64,7 +64,7 @@ def test_chip_smoke_imports_without_jax():
 
 @pytest.mark.parametrize("env,error", [
     ({}, "torch.cuda.is_available() is False"),
-    ({"BENCH_CONFIG": "coocc_lidar"}, "NotImplementedError")])
+    ({"BENCH_CONFIG": "coocc_kitti"}, "NotImplementedError")])
 def test_bench_prints_no_result_without_a_card(env, error):
     """`python -m coocc_tpu_torch.bench` raises, and prints no JSON line,
     without a card or for a config the port does not run."""

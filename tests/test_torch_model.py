@@ -79,8 +79,8 @@ def _dense(cfg):
 
 # the modules whose outputs are the prefixes' (coocc_ray.py:265-309): a
 # full JAX forward that captures them gives every prefix with one compile
-_CAPTURED = ("img_view_transformer", "pts_middle_encoder", "occ_fuser",
-             "semantic_neck")
+_CAPTURED = ("img_view_transformer", "pts_middle_encoder", "pts_neck",
+             "occ_fuser", "semantic_neck")
 
 
 def _np(x):
@@ -134,10 +134,15 @@ def _run_both(jax_cfg, torch_cfg, stops, capture=False, bf16=False):
                 img = cap["img_view_transformer"][0] \
                     if "img_view_transformer" in cap else None
                 # the encoder returns fp32; the pts prefix casts it to the
-                # model dtype (coocc_ray.py:178)
+                # model dtype (coocc_ray.py:178); after the HD encoder the
+                # pts prefix is SECOND3DFPN's output on the (Z, Y, X) axes
+                # (coocc_ray.py:236)
                 pts = cap["pts_middle_encoder"].astype(
                     jdtype or jnp.float32) if "pts_middle_encoder" in cap \
                     else None
+                if "pts_neck" in cap:
+                    pts = cap["pts_neck"].transpose(0, 3, 2, 1, 4).astype(
+                        jdtype or jnp.float32)
                 jax_out["pts"] = {"img_voxel": img, "pts_voxel": pts}
                 # without the fuser the semantic stack reads pts_voxel, or
                 # img_voxel (coocc_ray.py:287-288)
@@ -355,18 +360,56 @@ def test_pts_impl_resolves_like_jax(impl, encoder):
         assert type(model.pts_middle_encoder).__name__ == encoder
 
 
-@pytest.mark.parametrize("name", ["coocc_lidar",
-                                  "coocc_multi_r50_256x704_stereo",
+@pytest.mark.parametrize("name", ["coocc_multi_r50_256x704_stereo",
                                   "coocc_kitti"])
 def test_unported_configs_raise_not_implemented(name):
-    """The LiDAR-only family (SparseEncoderHD, SECOND3D), stereo LSS and
-    the kitti camera layout of OccHead (project_points_on_img's 4x4 BDA and
-    3x4 intrinsics, the 30-d camera vector) are not ported: building them
-    raises NotImplementedError, not another error and not a wrong model.
-    (The camera-only config, once a case here, is served:
-    tests/test_torch_configs.py.)"""
+    """Stereo LSS and the kitti camera layout of OccHead
+    (project_points_on_img's 4x4 BDA and 3x4 intrinsics, the 30-d camera
+    vector) are not ported: building them raises NotImplementedError, not
+    another error and not a wrong model. (The camera-only config and
+    coocc_lidar, once cases here, are served: tests/test_torch_configs.py,
+    tests/test_torch_lidar.py.)"""
     with pytest.raises(NotImplementedError):
         CoOccRay(get_config(name))
+
+
+def test_lidar_config_builds_the_lidar_only_family():
+    """coocc_lidar (COOCC_Ray_L) at full width: the HD encoder on the
+    800x800x65 grid, SECOND3D (128/256/512) and its FPN, the semantic stack
+    on the FPN's 128 channels, no image branch, no fuser, no cascade."""
+    from coocc_tpu_torch.nn.second3d import SECOND3D, SECOND3DFPN
+    from coocc_tpu_torch.nn.sparse_enc_packed_hd import PackedEncoderHD
+    cfg = get_config("coocc_lidar")
+    with torch.device("meta"):
+        model = CoOccRay(cfg)
+    assert isinstance(model.pts_middle_encoder, PackedEncoderHD)
+    assert model.pts_middle_encoder.sparse_shape_xyz == (800, 800, 65)
+    assert isinstance(model.pts_backbone, SECOND3D)
+    assert isinstance(model.pts_neck, SECOND3DFPN)
+    assert [b[0].weight.shape[0] for b in model.pts_backbone.blocks] == \
+        [128, 256, 512]
+    assert model.semantic_encoder.input_proj[0].weight.shape[1] == 128
+    for name in ("img_backbone", "img_view_transformer", "occ_fuser"):
+        assert not hasattr(model, name), name
+    assert not model.pts_bbox_head.cascade
+
+
+@pytest.mark.parametrize("impl,error", [
+    ("auto", None), ("packed_hd", None), ("gather", NotImplementedError),
+    ("dense", ValueError), ("packed", ValueError)])
+def test_hd_impl_resolves_like_jax(impl, error):
+    """SparseEncoderHD: 'auto' is 'packed_hd' (JAX coocc_ray.py:134-142);
+    'dense' and 'packed' raise ValueError, as JAX's do (:180-183); the
+    gather-GEMM encoder is not ported."""
+    cfg = get_config("coocc_lidar")
+    cfg = _with_impl(cfg, impl)
+    if error is None:
+        with torch.device("meta"):
+            model = CoOccRay(cfg)
+        assert type(model.pts_middle_encoder).__name__ == "PackedEncoderHD"
+    else:
+        with torch.device("meta"), pytest.raises(error):
+            CoOccRay(cfg)
 
 
 def test_batch_of_two_runs_per_sample():

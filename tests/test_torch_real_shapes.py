@@ -1,13 +1,16 @@
 """The port's forward == JAX's at real shapes, fp32 and bf16, and the
 committed fingerprints the card is held to (gated, cached), for the
-flagship coocc_multi_r50_256x704 and for coocc_multi_r101_openoccupancy.
+flagship coocc_multi_r50_256x704, for coocc_multi_r101_openoccupancy and
+for the LiDAR-only coocc_lidar.
 
 Both packages build the config at its own shapes (the flagship: 6x256x704
 images, the 800x800x64 LiDAR grid, the 100x100x8 coarse grid, the
 200x200x16 fine grid; OpenOccupancy: 6x896x1600 images through ResNet-101,
 the 1024x1024x80 LiDAR grid, the 128x128x10 coarse grid, cascade ratio 4
-onto the 512x512x40 grid; both with the eval cap of 20,000 coarse cells)
-from one state_dict, `parity.numpy_weights(seed=0)`, and run
+onto the 512x512x40 grid; both with the eval cap of 20,000 coarse cells;
+coocc_lidar: 350,000 points voxelized onto the 800x800x65 grid at the
+120,000-voxel eval cap, the HD encoder, SECOND3D and its FPN, the
+100x100x8 coarse grid, no cascade) from one state_dict, `parity.numpy_weights(seed=0)`, and run
 synthetic_batch(seed=0) on the CPU: the port through the plain versions of
 K1 and K2, JAX through its XLA SubM route (no COOCC_PALLAS_SUBM:
 interpret-mode Pallas at these shapes would take hours). Each side runs one
@@ -46,6 +49,7 @@ forwards included) and 8 GB of memory at its peak. OpenOccupancy: JAX's
 fp32 forward alone (its compile included) took 262 s and 12.2 GB at its
 peak (measured first, in a process of its own); the whole case 825 s and
 14.2 GB (ps samples), 252 s and 11.8 GB with JAX's side cached.
+coocc_lidar: see `LIDAR_COST`.
 
 The ungated cases check the committed files: their size, their digests
 against the weights and batch the port draws here, and the distances they
@@ -64,8 +68,10 @@ from coocc_tpu_torch.data.synthetic import synthetic_batch
 from coocc_tpu_torch.entry import FLAGSHIP
 
 OPENOCC = "coocc_multi_r101_openoccupancy"
-CONFIGS = (FLAGSHIP, OPENOCC)
-MAX_BYTES = {FLAGSHIP: 1 << 20, OPENOCC: 2 << 20}
+LIDAR = "coocc_lidar"
+CONFIGS = (FLAGSHIP, OPENOCC, LIDAR)
+MAX_BYTES = {FLAGSHIP: 1 << 20, OPENOCC: 2 << 20, LIDAR: 1 << 20}
+IDS = {FLAGSHIP: "", OPENOCC: "openoccupancy-", LIDAR: "lidar-"}
 # configs whose fp32 sides already differ by more than JAX's own bf16 drift
 # (module note): the bf16 bound adds the CPU port's fp32 distance to JAX
 FP32_SLACK = (OPENOCC,)
@@ -88,8 +94,8 @@ def _jax_outputs(cfg, model, batch_np, bf16):
     variables = convert_coocc_ray(sd, jcfg)
     dtype = jnp.bfloat16 if bf16 else None
     jmodel = JaxCoOccRay(cfg=jcfg, dtype=dtype)
-    names = ("img_view_transformer", "pts_middle_encoder", "occ_fuser",
-             "semantic_neck")
+    names = ("img_view_transformer", "pts_middle_encoder", "pts_neck",
+             "occ_fuser", "semantic_neck")
     fn = functools.partial(
         jmodel.apply, train=False, mutable=["intermediates"],
         capture_intermediates=lambda m, _: m.name in names)
@@ -100,14 +106,22 @@ def _jax_outputs(cfg, model, batch_np, bf16):
                           batch_np, is_leaf=lambda x: x is None)
     outs, state = jit(fn)(variables, jbatch)
     cap = {k: v["__call__"][0] for k, v in state["intermediates"].items()}
-    res = {"img_voxel": cap["img_view_transformer"][0],
-           "pts_voxel": cap["pts_middle_encoder"].astype(
-               dtype or jnp.float32),
-           "voxel_feats": cap["occ_fuser"]}
+    res = {}
+    if "img_view_transformer" in cap:
+        res["img_voxel"] = cap["img_view_transformer"][0]
+    # after the HD encoder the pts prefix is SECOND3DFPN's output on the
+    # (Z, Y, X) conv axes (coocc_ray.py:236); without the fuser the
+    # semantic stack reads it
+    res["pts_voxel"] = (cap["pts_neck"].transpose(0, 3, 2, 1, 4)
+                        if "pts_neck" in cap
+                        else cap["pts_middle_encoder"]).astype(
+                            dtype or jnp.float32)
+    res["voxel_feats"] = cap.get("occ_fuser", res["pts_voxel"])
     for i, t in enumerate(cap["semantic_neck"]):
         res[f"semantic{i}"] = t.transpose(0, 2, 3, 1, 4)
     res.update({k: outs[k] for k in ("occ", "fine_logits", "fine_coords",
-                                     "fine_valid", "fine_overflow")})
+                                     "fine_valid", "fine_overflow")
+                if k in outs})
     return {k: np.asarray(v.astype(jnp.float32)) if jnp.issubdtype(
         v.dtype, jnp.floating) else np.asarray(v) for k, v in res.items()}
 
@@ -155,10 +169,12 @@ def test_real_shapes_match_jax_and_write_the_fingerprint(config):
     np.savez_compressed(parity.path(config), **fp)
     assert os.path.getsize(parity.path(config)) < MAX_BYTES[config]
 
-    for key in parity.OUTPUTS + ("fine_logits",):
+    cascade = "fp32/cells" in fp
+    for key in parity.outputs_of(runs["fp32"][0]) + (
+            ("fine_logits",) if cascade else ()):
         dmax, dmean = fp[f"fp32/{key}/port"]
         assert dmax <= 4e-2 and dmean <= 1e-3, (key, dmax, dmean)
-    assert fp["fp32/cells/port"][0] <= 0.05
+    assert not cascade or fp["fp32/cells/port"][0] <= 0.05
     _bf16_holds(fp, config)
 
 
@@ -168,13 +184,18 @@ def _bf16_holds(fp, config):
     the configs in FP32_SLACK, the CPU port's fp32 distance to JAX (the
     triangle |p16 - j16| <= |p16 - p32| + |p32 - j32| + |j32 - j16|, with
     the port's own drift as large as JAX's)."""
-    for key in parity.OUTPUTS:
+    for key in _outputs(fp):
         pmax, pmean = fp[f"bf16/{key}/port"]
         omax, omean = fp[f"bf16/{key}/own"]
         fmax, fmean = fp[f"fp32/{key}/port"] if config in FP32_SLACK \
             else (0.0, 0.0)
         assert pmax <= 2.0 * omax + fmax and pmean <= 1.5 * omean + fmean, \
             (key, pmax, omax, fmax, pmean, omean, fmean)
+
+
+def _outputs(fp):
+    """The OUTPUTS a fingerprint holds."""
+    return tuple(k for k in parity.OUTPUTS if f"fp32/{k}/val" in fp)
 
 
 def _fingerprint(config):
@@ -189,9 +210,15 @@ def _small_and_complete(config):
     cfg = get_config(config)
     ratio = cfg.occ_head.cascade_ratio
     for prefix in DTYPES:
-        for key in parity.OUTPUTS:
+        for key in _outputs(fp):
             assert fp[f"{prefix}/{key}/val"].shape == (parity.N_SAMPLE,)
             assert np.isfinite(fp[f"{prefix}/{key}/val"]).all()
+        if not cfg.use_camera:
+            # the LiDAR-only model: no image branch, no cascade
+            assert _outputs(fp) == parity.OUTPUTS[1:]
+            assert not any(k.startswith((f"{prefix}/cells",
+                                         f"{prefix}/fine")) for k in fp)
+            continue
         assert fp[f"{prefix}/cells"].shape == (
             cfg.occ_head.max_coarse_occupied, 3)
         coords = fp[f"{prefix}/fine/coords"]
@@ -210,6 +237,10 @@ def test_fingerprint_is_small_and_complete():
 
 def test_openocc_fingerprint_is_small_and_complete():
     _small_and_complete(OPENOCC)
+
+
+def test_lidar_fingerprint_is_small_and_complete():
+    _small_and_complete(LIDAR)
 
 
 def _digests_match(config):
@@ -231,15 +262,18 @@ def test_openocc_fingerprint_digests_match_the_ports_weights_and_batch():
     _digests_match(OPENOCC)
 
 
+def test_lidar_fingerprint_digests_match_the_ports_weights_and_batch():
+    _digests_match(LIDAR)
+
+
 @pytest.mark.parametrize("config,prefix", [
-    pytest.param(config, prefix, id=prefix if config == FLAGSHIP
-                 else f"openoccupancy-{prefix}")
+    pytest.param(config, prefix, id=f"{IDS[config]}{prefix}")
     for config in CONFIGS for prefix in DTYPES])
 def test_recorded_distances_hold_their_bounds(config, prefix):
     """The CPU port's recorded distances: fp32 within the packed encoder's
     bf16 bound; bf16 as `_bf16_holds` says."""
     fp = _fingerprint(config)
-    for key in parity.OUTPUTS:
+    for key in _outputs(fp):
         dmax, dmean = fp[f"{prefix}/{key}/port"]
         if prefix == "fp32":
             assert dmax <= 4e-2 and dmean <= 1e-3, (key, dmax, dmean)

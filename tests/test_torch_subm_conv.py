@@ -7,8 +7,9 @@ interpret mode, as tests/test_pallas_subm.py runs it, fed
 `_subm_ext_weight(w27, p)`: the conv alone (an all-ones mask) and each
 epilogue composed from JAX's own ops (`_PackedSubM`'s mask,
 `_PackedBNCore`'s formula, ReLU, + identity, `_PackedBasicBlock`'s order),
-at tests/test_pallas_subm.py's shapes plus a p=1, C=128 one, for fp32 and
-bf16 inputs. The kernel's weight panels hold exactly the nonzero blocks of
+at tests/test_pallas_subm.py's shapes plus a p=1, C=128 one and the HD
+encoder's stage-0 packing p=8, C=16 (coocc_lidar), for fp32 and bf16
+inputs. The kernel's weight panels hold exactly the nonzero blocks of
 JAX's extended weight, and its K-blocks address the extended lanes that
 JAX's `_shift_ext` builds. The block weights and layout helpers of
 nn/sparse_enc_packed.py equal the JAX ones exactly on seeded weights. The
@@ -43,7 +44,7 @@ from coocc_tpu_torch.ops.subm_conv import (KB, BNAffine, _panel_index,
                                            subm_ext_weight, weight_panels)
 
 SHAPES = [(1, 3, 12, 16, 32, 4), (2, 2, 9, 11, 64, 2),
-          (1, 2, 10, 12, 128, 1)]
+          (1, 2, 10, 12, 128, 1), (1, 3, 10, 12, 16, 8)]
 # fp32 in: both sum the same bf16 products in fp32, in other orders (outputs
 # are O(1)-O(10) over K = 9*(pC+2C) <= 3456 terms). bf16 in: the bf16
 # output may round the fp32 sum one ulp apart (JAX test's atol 2e-2).
@@ -149,7 +150,7 @@ def test_fused_epilogue_matches_jax_composite(B, bz, X, Y, C, p, dtype,
     assert (np.abs(got - ref) <= bound).all(), np.abs(got - ref).max()
 
 
-@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
 def test_weight_panels_hold_exactly_the_nonzero_blocks(p):
     """The kernel multiplies only the panels: they hold JAX's extended
     weight at their (tap, lane, column) positions, and every position they
@@ -166,10 +167,12 @@ def test_weight_panels_hold_exactly_the_nonzero_blocks(p):
     skipped = np.ones(jw.size, bool)
     skipped[idx] = False
     assert not jw[skipped].any()
-    assert skipped.sum() == {1: 0, 2: jw.size // 4, 4: jw.size // 2}[p]
+    # the structural zeros: of the (p+2)*p blocks, 3p-2 of the slots' and 2
+    # of the carries' are nonzero, so (p-1)/(p+2) of the weight is skipped
+    assert skipped.sum() * (p + 2) == jw.size * (p - 1)
 
 
-@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
 def test_kblocks_address_jax_extended_lanes(p):
     """K-block i is extended lanes 16i .. 16i+15 of JAX's _shift_ext: lanes
     `lane` .. `lane`+15 of the pack `dg` away, zero past a sample's ends."""
@@ -189,7 +192,7 @@ def test_kblocks_address_jax_extended_lanes(p):
         np.testing.assert_array_equal(ext[..., i * KB:(i + 1) * KB], want)
 
 
-@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
 def test_block_weights_match_jax(p):
     rng = np.random.RandomState(p)
     C, Z = 128 // p, 8
