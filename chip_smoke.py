@@ -44,13 +44,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      weights' and batch's digests, then the card's fp32 and bf16 outputs at
      every prefix within 2x (max) and 1.5x (mean) of the CPU port's own
      distance to JAX;
-  9. train path: the flagship's train step at full width in bf16
-     (entry.train_steps), a warm-up step then 3 steps with the counts set
-     to 0 before them and read after them (per step: window_knn 2,
-     subm_ext_conv 13, subm_ext_conv_dx 13), times, peak memory, a profiled
-     step, finite losses, moved parameters and BN statistics, and K2's dX
-     on its 13 calls' own inputs against its plain version; then a tiny
-     train step on the card against the CPU;
+  9. train path: the train step of every shipped config the port trains
+     (TRAIN_CONFIGS: the flagship, coocc_lidar, OpenOccupancy,
+     coocc_multi_r101_896x1600, coocc_cam_r101_896x1600) at full width in
+     its config's bf16 (entry.train_steps), a warm-up step then 3 steps
+     with the counts set to 0 before them and read after them (per step,
+     PER_TRAIN_STEP_OF: window_knn 2, subm_ext_conv 13, subm_ext_conv_dx
+     13 for the z-packed encoder's configs; 0, 16, 16 for coocc_lidar; none
+     for the camera-only model), times, peak memory, a profiled step,
+     finite losses (loss_depth_render among them), moved parameters and
+     every BN statistic; for the flagship, coocc_lidar and OpenOccupancy,
+     K2's mask-only forward and its dX on one step's own inputs (16 each in
+     coocc_lidar, 4 at Co = 16 on stage 0's [1,9,800,800,128]) against
+     their plain versions, with their times, bound and cuDNN's, and dW's
+     time; coocc_lidar's train CLI (`python -m coocc_tpu_torch.train
+     coocc_lidar --synthetic --steps-per-epoch 2 --max-epochs 1`, its eval
+     hook and checkpoint) in a process of its own; then a tiny train step on
+     the card against the CPU;
  10. the epoch loop (train/loop.py:train, the train CLI's function): the
      flagship in bf16 from flax's initial weights, 1 epoch of 2 steps and
      the eval hook on 2 batches, with the counts set to 0 before it and
@@ -92,9 +102,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      bf16 forwards against parity/lidar_real.npz; the test CLI and the
      bench in processes of their own.
 Prints the card, the kernels' JSON line (the served bf16 path's launches
-and K2 times, K2's fp32 ones beside them; the train path's and the loop's
-launches and K2's dX row; K1's and K2's numbers at OpenOccupancy's shapes,
-and K2's at coocc_lidar's, under "configs") and, last, the result line.
+and K2 times, K2's fp32 ones beside them; the train path's launches by
+config, K2's mask-only forward in training by config ("train"), and K2's
+dX row, the flagship's with the other configs' under "configs"; the loop's
+launches; K1's and K2's numbers at OpenOccupancy's shapes, and K2's at
+coocc_lidar's, under "configs") and, last, the result line.
 Needs a CUDA card and the repository around it; it imports nothing of
 JAX.
 """
@@ -326,8 +338,9 @@ def device_breakdown(fn, inputs, top: int):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity only: the host's ops would add their events
+    # to trace and sort, seconds a train step, and no number reads them
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for x in inputs:
             fn(x)
@@ -1060,16 +1073,15 @@ def k2_dx_check(dy, w27, p):
     import torch
     from coocc_tpu_torch.ops.subm_conv import (ext_conv_plain, flip_taps,
                                                subm_ext_conv_dx,
-                                               subm_ext_conv_plain,
                                                subm_ext_weight)
-    wf = flip_taps(w27)
-    ones = torch.ones(dy.shape[:-1] + (p,), dtype=torch.bool,
-                      device=dy.device)
     got = subm_ext_conv_dx(dy, w27, p).float()
-    ref = subm_ext_conv_plain(dy, wf, p, ones).float()
-    conv_scale = float(ext_conv_plain(dy.float(), subm_ext_weight(wf, p),
-                                      dy.shape[1], dy.shape[-1] // p)
-                       .abs().max())
+    # the plain version (subm_ext_conv_plain with no mask and no epilogue:
+    # the conv, one rounding to dy's dtype), its conv kept for the scale
+    conv = ext_conv_plain(dy.float(), subm_ext_weight(flip_taps(w27), p),
+                          dy.shape[1], dy.shape[-1] // p)
+    ref = conv.to(dy.dtype).float()
+    conv_scale = float(conv.abs().max())
+    del conv
     tol = K2_FP32_REL * conv_scale + 2.0 ** -21 * float(ref.abs().max())
     err = (got - ref).abs()
     if dy.dtype == torch.float32:
@@ -1078,31 +1090,50 @@ def k2_dx_check(dy, w27, p):
     return float(err.max()), bool((err <= ulp + tol).all())
 
 
-def phase_train(kernels):
-    """The flagship's train step at full width in its config's bf16
-    (entry.train_steps: seeded weights, AdamW, BN on batch statistics,
-    the renderer, every loss): one warm-up step, then 3 steps on the
-    synthetic batches of seeds 0, 1, 2 with the kernels' counts set to 0
-    before them and read after them (per step: window_knn 2, subm_ext_conv
-    13, subm_ext_conv_dx 13); ms per step, peak memory, every loss term
-    finite, parameters and BN statistics moved; a profiled step's device
-    time by kernel; K2's dX on its 13 calls' own inputs against its plain
-    version, with its times and bound, and dW's time. -> (launches, the dX
-    kernel's JSON row)."""
+# the configs whose train step runs at full width (phase_train), and their
+# launches per step: K2's mask-only forward and its dX once per SubM conv
+# (13 in the z-packed encoder, 16 in coocc_lidar's HD encoder), K1 twice
+# in the fuser; the camera-only model has neither
+PER_TRAIN_STEP_OF = {
+    "coocc_multi_r50_256x704": PER_TRAIN_STEP,
+    "coocc_lidar": {"window_knn": 0, "subm_ext_conv": 16,
+                    "subm_ext_conv_dx": 16, "knn2": 0},
+    "coocc_multi_r101_openoccupancy": PER_TRAIN_STEP,
+    "coocc_multi_r101_896x1600": PER_TRAIN_STEP,
+    "coocc_cam_r101_896x1600": dict.fromkeys(PER_TRAIN_STEP, 0)}
+TRAIN_CONFIGS = tuple(PER_TRAIN_STEP_OF)
+# the configs whose train step's K2 calls are checked and timed one by one
+# (coocc_multi_r101_896x1600's LiDAR branch is the flagship's: same shapes)
+TRAIN_K2_CHECKED = ("coocc_multi_r50_256x704", "coocc_lidar",
+                    "coocc_multi_r101_openoccupancy")
+
+
+def phase_train(name, kernels):
+    """Config `name`'s train step at full width in its config's bf16
+    (entry.train_steps: seeded weights, AdamW, BN on batch statistics, the
+    renderer, every loss): one warm-up step, then 3 steps on the synthetic
+    batches of seeds 0, 1, 2 with the kernels' counts set to 0 before them
+    and read after them (per step: PER_TRAIN_STEP_OF); ms per step, peak
+    memory, every loss term finite (loss_depth_render among them), at
+    least 95% of the parameters and every BN statistic moved; a profiled
+    step's device time by kernel. For TRAIN_K2_CHECKED, one more step's K2
+    calls (its mask-only forward and its dX), each against its plain
+    version on the call's own inputs, with their times, bound and cuDNN's,
+    and dW's time. -> the config's numbers, its launches among them."""
     import torch
-    import torch.nn.functional as F
     from coocc_tpu_torch.config import get_config
     from coocc_tpu_torch.data.synthetic import synthetic_batch
-    from coocc_tpu_torch.entry import FLAGSHIP, train_steps
-    from coocc_tpu_torch.ops import subm_conv as k2
-    cfg = get_config(FLAGSHIP)
+    from coocc_tpu_torch.entry import train_steps
+    lap = lap_timer(f"{name} train")
+    cfg = get_config(name)
+    want = PER_TRAIN_STEP_OF[name]
     t0 = time.perf_counter()
     trainer, [warm] = train_steps(cfg, 1, "cuda")
     sync()
     model = trainer.model
     if model.dtype != torch.bfloat16:
-        raise AssertionError(f"the flagship trains in {model.dtype}")
-    log(f"train warm-up step (seed 0, model build included): "
+        raise AssertionError(f"{name} trains in {model.dtype}")
+    log(f"{name} train warm-up step (seed 0, model build included): "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms, loss_total "
         f"{float(warm['loss_total']):.6g}")
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1120,18 +1151,20 @@ def phase_train(kernels):
         sync()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         grew = {n: k.launches - counts[n] for n, k in kernels.items()}
-        if grew != PER_TRAIN_STEP:
-            raise AssertionError(f"train step {i}: launches {grew}, want "
-                                 f"{PER_TRAIN_STEP}")
+        if grew != want:
+            raise AssertionError(f"{name} train step {i}: launches {grew}, "
+                                 f"want {want}")
         values = {k: float(v) for k, v in metrics.items()}
-        if not all(math.isfinite(v) for v in values.values()):
-            raise AssertionError(f"train step {i}: {values}")
-        log(f"train step {i} (seed {i}): {step_ms[-1]:.3f} ms; " + ", ".join(
-            f"{k} {v:.6g}" for k, v in values.items()))
+        if not all(math.isfinite(v) for v in values.values()) or (
+                cfg.render.use_rendering
+                and "loss_depth_render" not in values):
+            raise AssertionError(f"{name} train step {i}: {values}")
+        log(f"{name} train step {i} (seed {i}): {step_ms[-1]:.3f} ms; "
+            + ", ".join(f"{k} {v:.6g}" for k, v in values.items()))
     launches = {n: k.launches for n, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    log(f"train launches over 3 steps: {launches}")
-    log(f"train step ms: {[round(t, 3) for t in step_ms]} (median "
+    log(f"{name} train launches over 3 steps: {launches}")
+    log(f"{name} train step ms: {[round(t, 3) for t in step_ms]} (median "
         f"{statistics.median(step_ms):.3f}); peak memory allocated "
         f"{peak / 2**30:.3f} GiB")
     after = model.state_dict()
@@ -1139,88 +1172,201 @@ def phase_train(kernels):
     moved = [k for k in params if not torch.equal(before[k], after[k])]
     stats = [k for k in after if "running" in k]
     still = [k for k in stats if torch.equal(before[k], after[k])]
-    log(f"train moved {len(moved)} of {len(params)} parameter tensors and "
-        f"{len(stats) - len(still)} of {len(stats)} BN statistics")
+    log(f"{name} train moved {len(moved)} of {len(params)} parameter "
+        f"tensors and {len(stats) - len(still)} of {len(stats)} BN "
+        "statistics")
     if still or len(moved) < 0.95 * len(params):
         raise AssertionError(f"the steps left BN statistics {still[:5]} or "
                              f"{len(params) - len(moved)} parameters still")
-    log("profile, one train step (device time by kernel):")
-    device_breakdown(trainer.step, batches[:1], 15)
+    del before, after
+    lap("build, warm-up and 3 steps")
+    log(f"profile, {name} one train step (device time by kernel):")
+    busy = device_breakdown(trainer.step, batches[:1], 15)
+    lap("profile")
+    nums = {"step_ms": statistics.median(step_ms), "device_busy_ms": busy,
+            "peak_gib": peak / 2 ** 30, "launches": launches}
+    if name in TRAIN_K2_CHECKED:
+        nums.update(train_k2_checks(trainer, batches[1]))
+        lap("K2's forward, dX and dW on one step's own inputs")
+    del trainer, model, batches
+    torch.cuda.empty_cache()
+    return nums
 
-    # K2's dX and dW on one step's own inputs
-    calls = {"dx": [], "dw": []}
-    inner_dx, inner_dw = k2.subm_ext_conv_dx, k2.subm_ext_weight_grad
+
+def train_k2_calls(trainer, batch):
+    """One train step with K2's forward, its dX and dW recorded, each
+    call's inputs copied to the host (stage 0 of coocc_lidar alone holds
+    1.47 GB a tensor; the device keeps the step's own memory). dW reads
+    the forward's x and the dX call's dy, so it keeps only their indices.
+    -> {"fwd": [(x, w27, p, mcell)], "dx": [(dy, w27, p)], "dw": [(fwd
+    index, dx index)]}."""
+    from coocc_tpu_torch.ops import subm_conv as k2
+    calls = {"fwd": [], "dx": [], "dw": []}
+    inner = k2.subm_ext_conv, k2.subm_ext_conv_dx, k2.subm_ext_weight_grad
+
+    def host(*ts):
+        return tuple(t.detach().cpu() if hasattr(t, "cpu") else t
+                     for t in ts)
+
+    ptrs = {"fwd": [], "dx": []}
+
+    def keep_fwd(x_pb, w27, p, mcell, bn=None, identity=None):
+        if bn is not None or identity is not None:
+            raise AssertionError("a fused K2 epilogue in training")
+        calls["fwd"].append(host(x_pb, w27, p, mcell))
+        ptrs["fwd"].append(x_pb.data_ptr())
+        return inner[0](x_pb, w27, p, mcell)
 
     def keep_dx(dy, w27, p):
-        calls["dx"].append((dy.detach().clone(), w27.detach().clone(), p))
-        return inner_dx(dy, w27, p)
+        calls["dx"].append(host(dy, w27, p))
+        ptrs["dx"].append(dy.data_ptr())
+        return inner[1](dy, w27, p)
 
     def keep_dw(x_pb, dy, p):
-        calls["dw"].append((x_pb.detach().clone(), dy.detach().clone(), p))
-        return inner_dw(x_pb, dy, p)
-    # the wrapper counts its launch on its module's name, keep_dx while this
-    # step runs; the counts of the main path were read above
-    keep_dx.launches = 0
-    k2.subm_ext_conv_dx, k2.subm_ext_weight_grad = keep_dx, keep_dw
+        # the SubM whose forward saw this x (it keeps x alive, so its
+        # address is its own), and the dX call just made on this dy
+        i = [j for j, ptr in enumerate(ptrs["fwd"])
+             if ptr == x_pb.data_ptr()]
+        if len(i) != 1 or ptrs["dx"][-1] != dy.data_ptr():
+            raise AssertionError("a dW call without its forward and dX")
+        calls["dw"].append((i[0], len(calls["dx"]) - 1))
+        return inner[2](x_pb, dy, p)
+    # each wrapper counts its launch on its module's name, the keep_*
+    # function's while this step runs; the main path's counts were read
+    keep_fwd.launches = keep_dx.launches = 0
+    k2.subm_ext_conv, k2.subm_ext_conv_dx, k2.subm_ext_weight_grad = (
+        keep_fwd, keep_dx, keep_dw)
     try:
-        trainer.step(batches[1])
+        trainer.step(batch)
+        sync()
     finally:
-        k2.subm_ext_conv_dx, k2.subm_ext_weight_grad = inner_dx, inner_dw
-    if len(calls["dx"]) != 13 or len(calls["dw"]) != 13:
-        raise AssertionError(f"{len(calls['dx'])} dX, {len(calls['dw'])} dW"
-                             " calls in one step")
-    max_err = 0.0
-    dx_ms = plain_ms = lib_ms = dw_ms = 0.0
-    ops = nbytes = 0
-    for dy, w27, p in calls["dx"]:
-        err, ok = k2_dx_check(dy, w27, p)
-        log(f"subm_ext_conv_dx vs plain [train step input "
-            f"{tuple(dy.shape)} p={p} {str(dy.dtype)[6:]}]: max_abs_err "
-            f"{err:.6g}, scale {float(dy.abs().max()):.6g}")
-        if not ok:
-            raise AssertionError("K2's dX differs from its plain version")
-        max_err = max(max_err, err)
-        wf = k2.flip_taps(w27)
-        ones = torch.ones(dy.shape[:-1] + (p,), dtype=torch.bool,
-                          device="cuda")
-        dx_ms += timed_ms(lambda: k2.subm_ext_conv_dx(dy, w27, p), 5)
-        plain_ms += timed_ms(lambda: k2.subm_ext_conv_plain(dy, wf, p,
-                                                            ones), 2)
-        C = dy.shape[-1] // p
-        G, X, Y = dy.shape[0] * dy.shape[1], dy.shape[2], dy.shape[3]
-        ext = k2.shift_ext(dy, C).reshape(G, X, Y, -1).permute(0, 3, 1, 2)
-        wb = k2.subm_ext_weight(wf, p).to(dy.dtype).permute(
-            3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        F.conv2d(ext, wb, padding=1)
-        lib_ms += timed_ms(lambda: F.conv2d(ext, wb, padding=1), 5)
-        o, b = k2_work(tuple(dy.shape), p, w27.shape[1], "mask",
-                       dy.element_size())
-        ops, nbytes = ops + o, nbytes + b
-    for x_pb, dy, p in calls["dw"]:
-        dw_ms += timed_ms(lambda: k2.subm_ext_weight_grad(x_pb, dy, p), 5)
+        (k2.subm_ext_conv, k2.subm_ext_conv_dx,
+         k2.subm_ext_weight_grad) = inner
+    return calls
+
+
+def train_k2_checks(trainer, batch):
+    """K2's mask-only forward and its dX on every call of one train step,
+    each against its plain version on the call's own inputs (k2_check,
+    k2_dx_check), and the per-step times of the kernel, the plain version
+    and cuDNN bf16 on the concatenated input (these two timed once per
+    shape), with the bound from this work (k2_work); dW's time (torch
+    ops). -> {"fwd": row, "dx": row,
+    "dW_ms": ms}."""
+    import torch
+    import torch.nn.functional as F
+    from coocc_tpu_torch.ops import subm_conv as k2
+    calls = train_k2_calls(trainer, batch)
+    name = trainer.model.cfg.name
+    n = PER_TRAIN_STEP_OF[name]["subm_ext_conv"]
+    if not len(calls["fwd"]) == len(calls["dx"]) == len(calls["dw"]) == n:
+        raise AssertionError(f"{name}: {len(calls['fwd'])} forward, "
+                             f"{len(calls['dx'])} dX, {len(calls['dw'])} dW "
+                             "calls in one step")
+    rows = {}
+    for kind in ("fwd", "dx"):
+        max_err = kernel = plain = library = 0.0
+        ops = nbytes = 0
+        level_ms = {}     # the plain version's and cuDNN's ms by shape
+        for args in calls[kind]:
+            x, w27, p = (a.cuda() if hasattr(a, "cuda") else a
+                         for a in args[:3])
+            if kind == "fwd":
+                mcell = args[3].cuda()
+                wc = w27
+                err, scale, _, ok = k2_check(x, w27, p, mcell, None, None)
+                run = (lambda: k2.subm_ext_conv(x, w27, p, mcell))
+                run_plain = (lambda: k2.subm_ext_conv_plain(x, w27, p,
+                                                            mcell))
+            else:
+                wc = k2.flip_taps(w27)
+                ones = torch.ones(x.shape[:-1] + (p,), dtype=torch.bool,
+                                  device="cuda")
+                err, ok = k2_dx_check(x, w27, p)
+                scale = float(x.abs().max())
+                run = (lambda: k2.subm_ext_conv_dx(x, w27, p))
+                run_plain = (lambda: k2.subm_ext_conv_plain(x, wc, p, ones))
+            log(f"{name} train {'subm_ext_conv' if kind == 'fwd' else 'subm_ext_conv_dx'}"
+                f" vs plain [step input {tuple(x.shape)} p={p} Co="
+                f"{wc.shape[2]} {str(x.dtype)[6:]}]: max_abs_err {err:.6g}, "
+                f"input scale {scale:.6g}")
+            if not ok:
+                raise AssertionError(f"{name}: K2's {kind} differs from its "
+                                     "plain version on a train step's input")
+            max_err = max(max_err, err)
+            kernel += timed_ms(run, 3)
+            level = (tuple(x.shape), p, wc.shape[2])
+            if level not in level_ms:
+                # the plain version and cuDNN take one time per shape
+                C = x.shape[-1] // p
+                G, X, Y = x.shape[0] * x.shape[1], x.shape[2], x.shape[3]
+                ext = k2.shift_ext(x, C).reshape(G, X, Y, -1).permute(
+                    0, 3, 1, 2)
+                wb = k2.subm_ext_weight(wc, p).to(x.dtype).permute(
+                    3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                F.conv2d(ext, wb, padding=1)
+                level_ms[level] = (
+                    timed_ms(run_plain, 1),
+                    timed_ms(lambda: F.conv2d(ext, wb, padding=1), 3))
+                del ext, wb
+            plain += level_ms[level][0]
+            library += level_ms[level][1]
+            o, b = k2_work(level[0], p, level[2], "mask", x.element_size())
+            ops, nbytes = ops + o, nbytes + b
+            del x, w27
+            torch.cuda.empty_cache()
+        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"{name} train {kind} per step: kernel {kernel:.4f} ms ({n} "
+            f"launches, {ops / kernel / 1e9:.1f} TFLOP/s useful), plain "
+            f"{plain:.4f} ms, cuDNN bf16 on the concatenated input "
+            f"{library:.4f} ms; bound {ops} FLOP -> {ops_ms:.4f} ms, "
+            f"{nbytes} bytes -> {bytes_ms:.4f} ms")
+        rows[kind] = {"launches_per_step": n, "max_abs_err": max_err,
+                      "ms": kernel, "plain_ms": plain,
+                      "bound_ms": max(ops_ms, bytes_ms),
+                      "bound_by": "operations" if ops_ms >= bytes_ms
+                      else "bytes", "library_ms": library}
+    dw = 0.0
+    for i, j in calls["dw"]:
+        x, p = calls["fwd"][i][0].cuda(), calls["fwd"][i][2]
+        dy = calls["dx"][j][0].cuda()
+        dw += timed_ms(lambda: k2.subm_ext_weight_grad(x, dy, p), 3)
+        del x, dy
+    log(f"{name} train dW (torch ops) per step: {dw:.4f} ms")
     del calls
     torch.cuda.empty_cache()
-    ops_ms = ops / BF16_OPS_PER_S * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"subm_ext_conv_dx bf16 per train step: kernel {dx_ms:.4f} ms (13 "
-        f"launches, {ops / dx_ms / 1e9:.1f} TFLOP/s useful), plain "
-        f"{plain_ms:.4f} ms, cuDNN bf16 on the concatenated input "
-        f"{lib_ms:.4f} ms; bound {ops} FLOP -> {ops_ms:.4f} ms, {nbytes} "
-        f"bytes -> {bytes_ms:.4f} ms; dW (torch ops) {dw_ms:.4f} ms per "
-        "step")
-    row = {"name": "subm_ext_conv_dx", "route": "cuda",
-           "source": "coocc_tpu_torch/csrc/subm_conv.cuh",
-           "replaces": "coocc_tpu/ops/pallas/subm_conv.py:107 (its VJP, "
-                       "which JAX takes through coocc_tpu/nn/"
-                       "sparse_enc_packed.py:431-433)",
-           "launches": launches["subm_ext_conv_dx"], "max_abs_err": max_err,
-           "ms": dx_ms, "plain_ms": plain_ms,
-           "bound_ms": max(ops_ms, bytes_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-           "library_ms": lib_ms, "dtype": "bfloat16", "dW_ms": dw_ms}
-    del trainer, model, before, after
-    torch.cuda.empty_cache()
-    return launches, row
+    return {"fwd": rows["fwd"], "dx": rows["dx"], "dW_ms": dw}
+
+
+def phase_train_cli(config):
+    """`python -m coocc_tpu_torch.train <config> --synthetic
+    --steps-per-epoch 2 --max-epochs 1` (flax's initial weights, 2 steps,
+    the eval hook on 2 batches, a checkpoint with save-best) in a process
+    of its own, into a temporary work dir. -> its eval ms per batch (the
+    second's)."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        wd = os.path.join(d, "work_dir")
+        proc = subprocess.run(
+            [sys.executable, "-m", "coocc_tpu_torch.train", config,
+             "--synthetic", "--steps-per-epoch", "2", "--max-epochs", "1",
+             "--work-dir", wd], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        listing = sorted(os.listdir(wd)) if os.path.isdir(wd) else []
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0 or "mIoU" not in out or "epoch_0" not in listing:
+        raise AssertionError(f"the train CLI failed: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    log(f"train CLI (python -m coocc_tpu_torch.train {config} --synthetic "
+        f"--steps-per-epoch 2 --max-epochs 1, "
+        f"{time.perf_counter() - t0:.1f} s): work dir {listing}")
+    for line in out.strip().splitlines():
+        if any(w in line for w in ("ms a batch", "mIoU", "device:")):
+            log(f"  {line[:300]}")
+    line = [ln for ln in out.splitlines() if "ms a batch" in ln][-1]
+    return json.loads(line.split("ms a batch ")[-1])[-1]
 
 
 def phase_tiny_train_agreement():
@@ -1488,6 +1634,7 @@ def phase_bench(config):
     return result["value"]
 
 
+FLAGSHIP = "coocc_multi_r50_256x704"
 OPENOCC = "coocc_multi_r101_openoccupancy"
 LIDAR = "coocc_lidar"
 # launches per request of the other served configs: the camera-only model
@@ -1753,6 +1900,48 @@ def phase_tiny_agreement():
                              "cpu's by more than bf16 noise")
 
 
+def train_phases(kernels, t0):
+    """phase_train for every config of TRAIN_CONFIGS, then coocc_lidar's
+    train CLI. -> {config: its numbers}."""
+    trained = {}
+    for name in TRAIN_CONFIGS:
+        log(f"[{time.perf_counter() - t0:.1f} s] train path, {name} (bf16, "
+            "the config's compute_dtype):")
+        trained[name] = phase_train(name, kernels)
+    log(f"[{time.perf_counter() - t0:.1f} s] train CLI, {LIDAR}:")
+    trained[LIDAR]["train_cli_eval_ms"] = phase_train_cli(LIDAR)
+    log("train steps (step ms median, device busy ms, peak GiB, launches "
+        "over 3 steps): " + json.dumps(
+            {n: {k: v for k, v in t.items() if k not in ("fwd", "dx")}
+             for n, t in trained.items()}))
+    return trained
+
+
+def train_rows(trained, k1_row, k2_row):
+    """The train path's entries of the kernels' JSON line: K1's and K2's
+    launches over each config's 3 measured steps, K2's mask-only forward
+    in training by config, and K2's dX row (the flagship's at the top,
+    the other configs' under "configs")."""
+    for row in (k1_row, k2_row):
+        row["train_launches"] = {n: t["launches"][row["name"]]
+                                 for n, t in trained.items()}
+    k2_row["train"] = {n: t["fwd"] for n, t in trained.items() if "fwd" in t}
+    flag = trained[FLAGSHIP]
+    return {"name": "subm_ext_conv_dx", "route": "cuda",
+            "source": "coocc_tpu_torch/csrc/subm_conv.cuh",
+            "replaces": "coocc_tpu/ops/pallas/subm_conv.py:107 (its VJP, "
+                        "which JAX takes through coocc_tpu/nn/"
+                        "sparse_enc_packed.py:431-433)",
+            "launches": flag["launches"]["subm_ext_conv_dx"],
+            **{k: v for k, v in flag["dx"].items()
+               if k != "launches_per_step"},
+            "dtype": "bfloat16", "dW_ms": flag["dW_ms"],
+            "configs": {n: {"launches": t["launches"]["subm_ext_conv_dx"],
+                            **t["dx"], "dW_ms": t["dW_ms"]}
+                        for n, t in trained.items()
+                        if n != FLAGSHIP and "dx" in t}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1830,11 +2019,8 @@ def main():
     log(f"[{time.perf_counter() - t0:.1f} s] real-shape parity against JAX's "
         "fingerprint:")
     phase_real_shape_parity(FLAGSHIP)
-    log(f"[{time.perf_counter() - t0:.1f} s] train path (bf16, the config's "
-        "compute_dtype):")
-    train_launches, dx_row = phase_train(kernels)
-    for row in (k1_row, k2_row):
-        row["train_launches"] = train_launches[row["name"]]
+    trained = train_phases(kernels, t0)
+    dx_row = train_rows(trained, k1_row, k2_row)
     rows.insert(2, dx_row)
     phase_tiny_train_agreement()
     log(f"[{time.perf_counter() - t0:.1f} s] the epoch loop (bf16, eval hook, "

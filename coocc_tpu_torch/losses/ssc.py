@@ -16,9 +16,16 @@ from ..nn.layers import softmax
 
 def _bce(p, target: float):
     """F.binary_cross_entropy of probabilities p against a constant
-    target (torch clamps the log at -100; JAX clips p)."""
+    target (torch clamps the log at -100; JAX clips p). A term of weight 0
+    is left out: at target 1.0 the clip's upper end rounds to 1.0 in fp32,
+    and JAX's 0 * log(0) makes the loss NaN wherever p rounds to 1.0 (a
+    precision over a grid without empty cells); torch's reference loss is
+    finite there. Elsewhere the value and gradient are JAX's."""
     p = p.clamp(1e-12, 1.0 - 1e-12)
-    return -(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p))
+    loss = -target * torch.log(p)
+    if target != 1.0:
+        loss = loss - (1.0 - target) * torch.log(1.0 - p)
+    return loss
 
 
 def log_softmax(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -27,7 +27,8 @@ runs its `train=True` one: BatchNorm on batch statistics, ASPP's dropout,
 the LiDAR voxel cap `pts.max_voxels`, the cascade on `fine_topk` random
 cells (priorities passed in), and the extra outputs the losses read
 (depth_prob, voxel_feats, geom, and the renderer's render_depth and
-render_rgb).
+render_rgb; a model without the camera branch renders depth only, on a
+stride-16 frustum of the batch's camera poses, as JAX's does).
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ import torch
 import torch.nn as nn
 
 from ..config.base import CoOccConfig
-from ..geometry.frustum import get_mlp_input
+from ..geometry.frustum import create_frustum, get_geometry, get_mlp_input
 from ..nn.bifuser import BiFuserN
 from ..nn.fpn3d import FPN3D
 from ..nn.lss import LSSViewTransformerVoxel
@@ -196,6 +197,12 @@ class CoOccRay(nn.Module):
             self.sigma_head = NeRFMLP(feat_ch, 1, 1)
             if cfg.use_camera:
                 self.rgb_head = NeRFMLP(feat_ch, 3, 3)
+            else:
+                # without the LSS the renderer's rays come from a stride-16
+                # frustum of its own (JAX coocc_ray.py:339-345)
+                self.register_buffer("render_frustum", torch.from_numpy(
+                    create_frustum(cfg.data.input_size, 16,
+                                   (2.0, 58.0, 0.5))), persistent=False)
 
     def _image_voxels(self, batch: Batch):
         B, N, H, W, _ = batch.imgs.shape
@@ -300,6 +307,12 @@ class CoOccRay(nn.Module):
         # the losses' inputs (JAX coocc_ray.py:324-330)
         outs.update(depth_prob=depth_prob, voxel_feats=cl(voxel_feats),
                     geom=geom)
+        if geom is None and batch.rots is not None \
+                and hasattr(self, "render_frustum"):
+            # the LiDAR-only model renders depth from the cameras' poses
+            geom = get_geometry(self.render_frustum, batch.rots, batch.trans,
+                                batch.intrins, batch.post_rots,
+                                batch.post_trans, batch.bda)
         if cfg.render.use_rendering and geom is not None:
             # on the FUSED voxel features, before the semantic stack
             rgbs, depths = render(self.sigma_head,

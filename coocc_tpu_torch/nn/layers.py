@@ -18,8 +18,12 @@ and every layer here follows the dtype of the activation it is given:
     input's dtype (flax's BatchNorm with `dtype` set). In training it
     normalizes with the batch's statistics as flax does (fp32 mean and
     biased variance E[x^2] - E[x]^2) and moves the running statistics by
-    0.1 towards them, the variance biased too (torch's training BatchNorm
-    would move it towards the unbiased one). It keeps no
+    its momentum towards them, the variance biased too (torch's training
+    BatchNorm would move it towards the unbiased one). Its backward
+    (`_BatchNormTrain`) keeps the input in its own dtype and the [C]
+    statistics, and computes the batch-statistics gradient from them in
+    fp32, rounded once to the input's dtype: autograd through the forward's
+    ops would keep two fp32 copies of the input a layer. It keeps no
     `num_batches_tracked` counter (a counter the JAX variables cannot carry,
     so `convert.state_dict_from_jax` round-trips exactly).
   * `Dropout`: flax's, its keep mask drawn from the module's `generator`.
@@ -75,10 +79,41 @@ class Linear(nn.Linear):
         return conv(F.linear, x, self.weight, self.bias)
 
 
-# the running statistics keep this share of their value at each training
-# step (torch's momentum 0.1; flax's `momentum` is this decay); SECONDFPN's
-# BatchNorms keep 1 - 0.01
-BN_DECAY = 1.0 - 0.1
+class _BatchNormTrain(torch.autograd.Function):
+    """BatchNorm on the batch's statistics over dim 1 of x: the forward in
+    fp32 as flax computes it (mean, biased variance E[x^2] - E[x]^2),
+    rounded once to x's dtype; -> (y, mean, var). The backward keeps x in
+    its dtype and the [C] statistics, and recomputes the normalized input:
+    dx = w*rstd * (g - mean(g) - xhat * mean(g * xhat)), in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        mul = rstd * weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + bias.view(shape)
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, rstd = ctx.saved_tensors
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        n = x.numel() // x.shape[1]
+        g = gy.float()
+        # fp32 temporaries, updated in place: a pass over x each
+        xhat = torch.sub(x, mean.view(shape)).mul_(rstd.view(shape))
+        db = g.sum(dims)
+        dw = (g * xhat).sum(dims)
+        dx = xhat.mul_((-dw / n).view(shape)).add_(g).sub_(
+            (db / n).view(shape)).mul_((weight * rstd).view(shape))
+        return dx.to(x.dtype), dw, db, None
 
 
 class BatchNorm(nn.Module):
@@ -95,6 +130,8 @@ class BatchNorm(nn.Module):
                  momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        # the share of the running statistics kept at each training step
+        # (flax's `momentum`; torch's momentum is 1 - decay)
         self.decay = 1.0 - momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
@@ -108,20 +145,15 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        dims = [0] + list(range(2, x.dim()))
-        xf = x.float()
-        mean = xf.mean(dims)
-        var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias,
+                                             self.eps)
         if update_stats:
             with torch.no_grad():
                 self.running_mean.copy_(self.decay * self.running_mean
                                         + (1 - self.decay) * mean)
                 self.running_var.copy_(self.decay * self.running_var
                                        + (1 - self.decay) * var)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+        return y
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         # reference checkpoints carry torch BN's step counter; eval ignores it

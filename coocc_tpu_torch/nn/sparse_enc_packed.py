@@ -63,7 +63,7 @@ from ..ops.constants import device_constant
 from ..ops.subm_conv import (ZERO_TAP, BNAffine, conv2d_nhwc,
                              epilogue_plain, gather_taps, masked, shift_ext,
                              subm_conv, subm_ext_conv)
-from .layers import BN_DECAY, BatchNorm
+from .layers import BatchNorm
 from .sparse_enc_dense import (DenseLiDAREnc8x, SpConvWeight,
                                per_cell_group_norm)
 
@@ -206,40 +206,82 @@ def packed_basic_block(block, x_pb: torch.Tensor, mcell: torch.Tensor,
     return packed_subm(net[3], y, mcell, C, bn=net[4], identity=x_pb)
 
 
+class _PackedBNTrain(torch.autograd.Function):
+    """The masked BatchNorm of `packed_bn_train` on x5 [..., p, C] and the
+    cell mask [..., p]: -> (y, mean, var, n). The backward keeps x5 in its
+    dtype, the mask and the [C] statistics, and computes the gradient of
+    the batch-statistics normalization in fp32 from them, rounded once to
+    x5's dtype (autograd through the forward's ops would keep an fp32 and
+    two more copies of the input: 2.95 GB a BatchNorm at coocc_lidar's
+    stage 0)."""
+
+    @staticmethod
+    def forward(ctx, x5, mcell, weight, bias, eps):
+        dt = x5.dtype
+        m = mcell[..., None].to(dt)
+        xm = (x5 * m).float()
+        dims = tuple(range(x5.dim() - 1))
+        n = mcell.sum().float().clamp(min=1.0)
+        mean = xm.sum(dims) / n
+        var = ((xm * x5).sum(dims) / n - mean * mean).clamp(min=0.0)
+        del xm
+        rstd = 1.0 / torch.sqrt(var + eps)
+        inv = rstd * weight
+        y = ((x5 - mean.to(dt)) * inv.to(dt) + bias.to(dt)) * m
+        ctx.save_for_backward(x5, mcell, weight, mean, rstd, n)
+        ctx.mark_non_differentiable(mean, var, n)
+        return y, mean, var, n
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar, _gn):
+        x5, mcell, weight, mean, rstd, n = ctx.saved_tensors
+        dims = tuple(range(x5.dim() - 1))
+        m = mcell[..., None].float()
+        # fp32 temporaries, updated in place: a pass over x5 each
+        g = torch.mul(gy, m)
+        xc = torch.sub(x5, mean).mul_(m)
+        db = g.sum(dims)
+        dinv = (g * xc).sum(dims)
+        inv = rstd * weight
+        # the mean's own gradient and the variance's (var = E[x^2] - mu^2
+        # over the n active cells, inv = weight / sqrt(var + eps))
+        dmean = -db * inv
+        dvar = dinv * weight * (-0.5) * rstd ** 3
+        dx = xc.mul_(2.0 * dvar / n).addcmul_(g, inv).addcmul_(m, dmean / n)
+        return dx.to(x5.dtype), None, dinv * rstd, db, None
+
+
 def packed_bn_train(bn: BatchNorm, x_pb: torch.Tensor,
                     mcell: torch.Tensor) -> torch.Tensor:
     """JAX `_PackedBNCore` in training: statistics of the active cells of
     x_pb [..., p*C] (fp32 sums; n the active cells), the running ones moved
-    towards them with the variance scaled by n/(n-1), and the affine with
-    mean, inverse and bias rounded to x_pb's dtype, times the mask."""
+    towards them by bn's own momentum with the variance scaled by n/(n-1),
+    and the affine with mean, inverse and bias rounded to x_pb's dtype,
+    times the mask (`_PackedBNTrain`)."""
     p, C = mcell.shape[-1], bn.weight.shape[0]
     x5 = x_pb.reshape(*x_pb.shape[:-1], p, C)
-    m = mcell[..., None].to(x_pb.dtype)
-    xm = (x5 * m).float()
-    dims = tuple(range(x5.dim() - 1))
-    n = mcell.sum().float().clamp(min=1.0)
-    mean = xm.sum(dims) / n
-    var = ((xm * x5).sum(dims) / n - mean * mean).clamp(min=0.0)
+    y, mean, var, n = _PackedBNTrain.apply(x5, mcell, bn.weight, bn.bias,
+                                           bn.eps)
     with torch.no_grad():
-        bn.running_mean.copy_(BN_DECAY * bn.running_mean
-                              + (1 - BN_DECAY) * mean)
-        bn.running_var.copy_(BN_DECAY * bn.running_var + (1 - BN_DECAY)
+        bn.running_mean.copy_(bn.decay * bn.running_mean
+                              + (1 - bn.decay) * mean)
+        bn.running_var.copy_(bn.decay * bn.running_var + (1 - bn.decay)
                              * var * n / (n - 1).clamp(min=1.0))
-    dt = x_pb.dtype
-    inv = (1.0 / torch.sqrt(var + bn.eps)) * bn.weight
-    y = ((x5 - mean.to(dt)) * inv.to(dt) + bn.bias.to(dt)) * m
     return y.reshape(x_pb.shape)
 
 
-def packed_basic_block_train(block, x_pb: torch.Tensor, mcell: torch.Tensor,
+def packed_basic_block_train(conv1: SpConvWeight, norm1: BatchNorm,
+                             conv2: SpConvWeight, norm2: BatchNorm,
+                             x_pb: torch.Tensor, mcell: torch.Tensor,
                              C: int) -> torch.Tensor:
-    """SparseBasicBlock in training (JAX `_PackedBasicBlock`)."""
-    net = block.net
+    """SparseBasicBlock in training (JAX `_PackedBasicBlock`, and the HD
+    encoder's `_HDBasicBlock`): K2 (mask), BN, ReLU, K2 (mask), BN, + x,
+    ReLU, mask."""
     p = x_pb.shape[-1] // C
-    y = subm_conv(x_pb, tap_weight(net[0]), p, mcell)
-    y = F.relu(packed_bn_train(net[1], y, mcell))
-    y = subm_conv(y, tap_weight(net[3]), p, mcell)
-    y = packed_bn_train(net[4], y, mcell)
+    y = subm_conv(x_pb, tap_weight(conv1), p, mcell)
+    y = F.relu(packed_bn_train(norm1, y, mcell))
+    y = subm_conv(y, tap_weight(conv2), p, mcell)
+    y = packed_bn_train(norm2, y, mcell)
     return masked(F.relu(y + x_pb), mcell)
 
 
@@ -259,7 +301,9 @@ class PackedLiDAREnc8x(DenseLiDAREnc8x):
 
     def _block(self, block, d, mcell, C):
         if self.training:
-            return packed_basic_block_train(block, d, mcell, C)
+            net = block.net
+            return packed_basic_block_train(net[0], net[1], net[3], net[4],
+                                            d, mcell, C)
         return packed_basic_block(block, d, mcell, C)
 
     def forward(self, occupancy: torch.Tensor) -> torch.Tensor:

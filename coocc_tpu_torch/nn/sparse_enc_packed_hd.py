@@ -36,13 +36,21 @@ fp32 sums; in bf16 compute every packed activation is bf16 and each
 BatchNorm computes in fp32 with one rounding; the output is fp32, as in
 JAX.
 
+Training (`.train()`, JAX's `train=True` branch): every BatchNorm takes
+the statistics of its active cells and moves its running ones by its own
+momentum (`sparse_enc_packed.packed_bn_train`, JAX `_PackedBNCore`);
+conv_input is the plain conv, then that BatchNorm and ReLU; a basic block
+is `sparse_enc_packed.packed_basic_block_train` (K2's mask-only forward
+through `subm_conv`, whose backward is K2's dX and dW in torch ops); a
+strided exit is its stride-2 conv, the count conv of the mask, the z clip,
+then the BatchNorm over the new mask (its statistics and its output) and
+ReLU (JAX `_HDStridedTwin`); conv_out the 1x1x1 conv, BatchNorm, ReLU.
+
 Parameters carry the reference checkpoint's names
 (coocc_tpu/train/convert_torch.py:254-285): conv_input.{0: SubM, 1: BN},
 encoder_layers.encoder_layer{i+1}.{j} a basic block (conv1, norm1, conv2,
 norm2) or, the last of encoder_layer1-3, {0: strided conv, 1: BN},
-conv_out.{0:
-1x1x1 conv, 1: BN}. Eval only: training (the masked BatchNorm statistics
-of JAX's `_PackedBNCore` at these eps and momentum) raises.
+conv_out.{0: 1x1x1 conv, 1: BN}.
 """
 from __future__ import annotations
 
@@ -62,6 +70,7 @@ from ..ops.voxelize import delinearize
 from .layers import BatchNorm
 from .sparse_enc_dense import SpConvWeight
 from .sparse_enc_packed import (bn_affine, conv2d_pb, dilate_packed_weight,
+                                packed_basic_block_train, packed_bn_train,
                                 packed_subm, strided_packed_weight,
                                 tap_weight)
 
@@ -91,15 +100,19 @@ def hd_subm(conv_w: SpConvWeight, x_pb: torch.Tensor, mcell: torch.Tensor,
     """SubM 3x3x3 conv of packed lanes, BN, (+ identity), ReLU, masked:
     through K2 where x_pb has a multiple of 128 lanes (JAX's Pallas
     condition), else as JAX's XLA route computes it (the conv in x's
-    dtype, then the BatchNorm in fp32, rounded once)."""
+    dtype, then the BatchNorm in fp32, rounded once; in training, on the
+    active cells' statistics)."""
     if x_pb.shape[-1] % N_LANES == 0:
         return packed_subm(conv_w, x_pb, mcell, C_in, bn, identity)
     B, bz, X, Y, L = x_pb.shape
     p = L // C_in
     y = conv2d_nhwc(shift_ext(x_pb, C_in).reshape(B * bz, X, Y, -1),
-                    subm_ext_weight(tap_weight(conv_w), p))
+                    subm_ext_weight(tap_weight(conv_w), p)).reshape(
+                        B, bz, X, Y, -1)
     # contiguous, as K2 reads the next layer's input
-    return epilogue_plain(y.reshape(B, bz, X, Y, -1), mcell, bn_affine(bn),
+    if bn.training:
+        return F.relu(packed_bn_train(bn, y, mcell)).contiguous()
+    return epilogue_plain(y, mcell, bn_affine(bn),
                           identity).to(x_pb.dtype).contiguous()
 
 
@@ -176,13 +189,14 @@ class PackedEncoderHD(nn.Module):
         slot_z = np.arange(bz)[:, None] * p_out + np.arange(p_out)
         zvalid = device_constant(slot_z < z_out, x_pb.device)
         mcell = ((cnt > 0) & zvalid[:, None, None]).contiguous()
+        if self.training:
+            # the BatchNorm masks its statistics and its output
+            return F.relu(packed_bn_train(down[1], y, mcell)).contiguous(), \
+                mcell
         return epilogue_plain(y, mcell, bn_affine(down[1])).to(
             cd).contiguous(), mcell
 
     def forward(self, sp: SparseTensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training the HD LiDAR encoder (coocc_lidar) is not ported")
         p, bz = self._pack0()
         x, mcell = self._scatter(sp, p, bz)
         x = hd_subm(self.conv_input[0], x, mcell, sp.features.shape[-1],
@@ -199,6 +213,11 @@ class PackedEncoderHD(nn.Module):
                     z = (z + 2 * padz - 3) // 2 + 1
                     x, mcell = self._down(layer[j], x, mcell, p, padz, z)
                     p //= 2
+                elif self.training:
+                    blk = layer[j]
+                    x = packed_basic_block_train(blk.conv1, blk.norm1,
+                                                 blk.conv2, blk.norm2, x,
+                                                 mcell, oc)
                 else:
                     blk = layer[j]
                     y = hd_subm(blk.conv1, x, mcell, oc, blk.norm1)
@@ -208,9 +227,13 @@ class PackedEncoderHD(nn.Module):
         w = self.conv_out[0].weight
         Co, Cl = w.shape[0], w.shape[-1]
         B, bz, X, Y, _ = x.shape
-        y = conv(F.linear, x.reshape(B, bz, X, Y, p, Cl), w.reshape(Co, Cl))
-        y = epilogue_plain(y.reshape(B, bz, X, Y, p * Co), mcell,
-                           bn_affine(self.conv_out[1])).to(x.dtype)
+        y = conv(F.linear, x.reshape(B, bz, X, Y, p, Cl),
+                 w.reshape(Co, Cl)).reshape(B, bz, X, Y, p * Co)
+        if self.training:
+            y = F.relu(packed_bn_train(self.conv_out[1], y, mcell))
+        else:
+            y = epilogue_plain(y, mcell, bn_affine(self.conv_out[1])).to(
+                x.dtype)
         # packed [B, bz, X, Y, p, Co] -> [B, Co, X, Y, Z]
         y = y.reshape(B, bz, X, Y, p, Co).permute(0, 5, 2, 3, 1, 4).reshape(
             B, Co, X, Y, bz * p)

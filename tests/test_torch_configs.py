@@ -77,26 +77,32 @@ from coocc_tpu_torch.test import __main__ as test_cli
 OCC, LIDAR, DS = (32, 32, 40), (64, 64, 80), (4, 4, 4)
 
 
-def openocc_tiny(tiny):
+def occ_grid(cfg, occ, ds):
+    """cfg's grid with cells of `ds` occupancy voxels of an `occ` grid."""
+    pc = cfg.point_cloud_range
+    return dataclasses.replace(cfg.grid, **{
+        f"{a}bound": (pc[i], pc[i + 3], (pc[i + 3] - pc[i]) / occ[i] * ds[i])
+        for i, a in enumerate("xyz")})
+
+
+def openocc_tiny(tiny, occ=OCC, lidar=LIDAR):
     """tiny() shaped like coocc_multi_r101_openoccupancy (module note),
-    for either package's tiny_config."""
+    for either package's tiny_config; `occ` and `lidar` keep the
+    config's ratio of 8 LiDAR cells to a coarse cell."""
     cfg = tiny()
     pc = cfg.point_cloud_range
     extent = [pc[i + 3] - pc[i] for i in range(3)]
-    grid = dataclasses.replace(cfg.grid, **{
-        f"{a}bound": (pc[i], pc[i + 3], extent[i] / OCC[i] * DS[i])
-        for i, a in enumerate("xyz")})
     return cfg.replace(
-        name="tiny_openoccupancy", gt_format="openoccupancy", occ_size=OCC,
-        lss_downsample=DS, scale=4, grid=grid,
+        name="tiny_openoccupancy", gt_format="openoccupancy", occ_size=occ,
+        lss_downsample=DS, scale=4, grid=occ_grid(cfg, occ, DS),
         pts=dataclasses.replace(
-            cfg.pts, sparse_shape_xyz=LIDAR,
-            voxel_size=tuple(e / n for e, n in zip(extent, LIDAR))),
+            cfg.pts, sparse_shape_xyz=lidar,
+            voxel_size=tuple(e / n for e, n in zip(extent, lidar))),
         fuser=dataclasses.replace(
             cfg.fuser, window_rx=8, window_ry=8, window_rz=9,
             window_img_rx=6, window_img_ry=6, window_img_rz=7),
         occ_head=dataclasses.replace(cfg.occ_head, cascade_ratio=4,
-                                     final_occ_size=OCC))
+                                     final_occ_size=occ))
 
 
 def cam_tiny(tiny):
