@@ -3,14 +3,14 @@
     python -m coocc_tpu_torch coocc_multi_r50_256x704 --requests 3
     python -m coocc_tpu_torch coocc_multi_r101_openoccupancy --requests 3
     python -m coocc_tpu_torch coocc_lidar --requests 3
+    python -m coocc_tpu_torch coocc_multi_r50_256x704_stereo --requests 3
 
 The twin of `tools/test.py --synthetic`: the model computes in the config's
 `compute_dtype` (bf16 for every shipped config), as tools/test.py:76-78
 maps it. Request i uses the synthetic batch of seed i; the weights are
 random (seed 0). Any registered config name is taken; one the port does not
-run (coocc_multi_r50_256x704_stereo, coocc_kitti) raises
-NotImplementedError when its model is built. Raises when there is no CUDA
-card.
+run (coocc_kitti) raises NotImplementedError when its model is built.
+Raises when there is no CUDA card.
 """
 from __future__ import annotations
 

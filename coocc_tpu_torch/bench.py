@@ -3,6 +3,7 @@
     python -m coocc_tpu_torch.bench
     BENCH_CONFIG=coocc_multi_r101_openoccupancy python -m coocc_tpu_torch.bench
     BENCH_CONFIG=coocc_lidar python -m coocc_tpu_torch.bench
+    BENCH_CONFIG=coocc_multi_r50_256x704_stereo python -m coocc_tpu_torch.bench
 
 The twin of the JAX package's `bench.py`, with its knobs: BENCH_CONFIG (the
 flagship coocc_multi_r50_256x704 by default; a config the port does not run

@@ -17,7 +17,9 @@ Layouts (JAX -> torch):
   GN                       scale/bias -> weight/bias
 The renderer's heads (renderer/sigma_head, renderer/rgb_head, which JAX
 creates in training) become sigma_head / rgb_head, the names
-convert_coocc_ray reads (convert_torch.py:518-521).
+convert_coocc_ray reads (convert_torch.py:518-521). The stereo depth net
+(`lss.stereo`) has no reference names: its entries follow the flax scopes
+(`_depthnet_stereo`), and `stereo_depth_net_to_jax` is their inverse.
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ def _has(tree, path: str) -> bool:
 
 
 class _Writer:
-    """Reads the JAX trees by '/'-path and writes torch tensors by name."""
+    """Reads the JAX trees by '/'-path and writes torch tensors by name.
+    `_Reader` has the same methods the other way round."""
 
     def __init__(self, variables):
         self.params = variables["params"]
@@ -91,6 +94,51 @@ class _Writer:
         w = w.reshape(k, k, k, *w.shape[1:])  # [kx, ky, kz, I, O]
         self.put(f"{t}.weight", w.transpose(4, 2, 1, 0, 3))
 
+    def dcn(self, t, f):
+        """The deformable conv's weight [3, 3, I/g, O] -> [O, I/g, 3, 3]."""
+        self.put(f"{t}.weight", _get(self.params, f"{f}/weight")
+                 .transpose(3, 2, 0, 1))
+
+
+class _Reader:
+    """A port state_dict -> JAX {"params", "batch_stats"} trees of numpy
+    arrays, by the same calls as `_Writer` (the inverse of each layout)."""
+
+    def __init__(self, sd):
+        self.sd = {k: v.detach().cpu().numpy() if hasattr(v, "detach")
+                   else np.asarray(v) for k, v in sd.items()}
+        self.tree = {"params": {}, "batch_stats": {}}
+
+    def _set(self, col, path, value):
+        node = self.tree[col]
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.array(value)
+
+    def conv2d(self, t, f, inner="conv"):
+        f = f"{f}/{inner}" if inner else f
+        self._set("params", f"{f}/kernel",
+                  self.sd[f"{t}.weight"].transpose(2, 3, 1, 0))
+        if f"{t}.bias" in self.sd:
+            self._set("params", f"{f}/bias", self.sd[f"{t}.bias"])
+
+    def dense(self, t, f, conv1x1=False):
+        w = self.sd[f"{t}.weight"]
+        self._set("params", f"{f}/kernel", (w[:, :, 0, 0] if conv1x1
+                                            else w).T)
+        self._set("params", f"{f}/bias", self.sd[f"{t}.bias"])
+
+    def bn(self, t, f):
+        self._set("params", f"{f}/scale", self.sd[f"{t}.weight"])
+        self._set("params", f"{f}/bias", self.sd[f"{t}.bias"])
+        self._set("batch_stats", f"{f}/mean", self.sd[f"{t}.running_mean"])
+        self._set("batch_stats", f"{f}/var", self.sd[f"{t}.running_var"])
+
+    def dcn(self, t, f):
+        self._set("params", f"{f}/weight",
+                  self.sd[f"{t}.weight"].transpose(2, 3, 1, 0))
+
 
 def _resnet(w: _Writer, t, f, depth):
     w.conv2d(f"{t}.conv1", f"{f}/conv1")
@@ -128,22 +176,78 @@ def _depthnet(w: _Writer, t, f):
         for c in ("conv_reduce", "conv_expand"):
             w.dense(f"{t}.{se}.{c}", f"{f}/{se}/{c}/linear", conv1x1=True)
     for i in range(3):
-        tb, fb = f"{t}.depth_conv.{i}", f"{f}/depth_block{i}"
-        for k in (1, 2):
-            w.conv2d(f"{tb}.conv{k}", f"{fb}/conv{k}")
-            w.bn(f"{tb}.bn{k}", f"{fb}/bn{k}/bn")
-    ta, fa = f"{t}.depth_conv.3", f"{f}/aspp"
-    for i in range(1, 5):
-        w.conv2d(f"{ta}.aspp{i}.atrous_conv", f"{fa}/aspp{i}/atrous_conv")
-        w.bn(f"{ta}.aspp{i}.bn", f"{fa}/aspp{i}/bn/bn")
-    w.conv2d(f"{ta}.global_avg_pool.1", f"{fa}/gap_conv")
-    w.bn(f"{ta}.global_avg_pool.2", f"{fa}/gap_bn/bn")
-    w.conv2d(f"{ta}.conv1", f"{fa}/conv1")
-    w.bn(f"{ta}.bn1", f"{fa}/bn1/bn")
-    w.conv2d(f"{t}.depth_conv.4.conv_offset", f"{f}/dcn/conv_offset")
-    w.put(f"{t}.depth_conv.4.weight",
-          _get(w.params, f"{f}/dcn/weight").transpose(3, 2, 0, 1))
+        _basic_block(w, f"{t}.depth_conv.{i}", f"{f}/depth_block{i}")
+    _aspp(w, f"{t}.depth_conv.3", f"{f}/aspp")
+    _dcn(w, f"{t}.depth_conv.4", f"{f}/dcn")
     w.conv2d(f"{t}.depth_conv.5", f"{f}/depth_pred")
+
+
+def _basic_block(w, t, f):
+    for k in (1, 2):
+        w.conv2d(f"{t}.conv{k}", f"{f}/conv{k}")
+        w.bn(f"{t}.bn{k}", f"{f}/bn{k}/bn")
+
+
+def _aspp(w, t, f):
+    for i in range(1, 5):
+        w.conv2d(f"{t}.aspp{i}.atrous_conv", f"{f}/aspp{i}/atrous_conv")
+        w.bn(f"{t}.aspp{i}.bn", f"{f}/aspp{i}/bn/bn")
+    w.conv2d(f"{t}.global_avg_pool.1", f"{f}/gap_conv")
+    w.bn(f"{t}.global_avg_pool.2", f"{f}/gap_bn/bn")
+    w.conv2d(f"{t}.conv1", f"{f}/conv1")
+    w.bn(f"{t}.bn1", f"{f}/bn1/bn")
+
+
+def _dcn(w, t, f):
+    w.conv2d(f"{t}.conv_offset", f"{f}/conv_offset")
+    w.dcn(t, f)
+
+
+def _depthnet_stereo(w, t, f):
+    """LSSBEVStereo (nn/lss_stereo.py) <-> JAX's, by the flax scopes (the
+    reference ships no stereo names): its DepthNetStereo under
+    `depth_net`, the similarity net, the downsampling convs and the mask
+    net beside it."""
+    td, fd = f"{t}.depth_net", f"{f}/depth_net"
+    w.bn(f"{td}.bn", f"{fd}/bn/bn")
+    for name in ("reduce_conv", "context_conv", "msr_pred", "mono_pred"):
+        w.conv2d(f"{td}.{name}", f"{fd}/{name}")
+    for name in ("reduce_bn", "msr_bn0", "msr_bn1"):
+        w.bn(f"{td}.{name}", f"{fd}/{name}/bn")
+    for kind in ("context", "depth"):
+        for fc in ("fc1", "fc2"):
+            w.dense(f"{td}.{kind}_mlp.{fc}", f"{fd}/{kind}_mlp/{fc}/linear")
+        for c in ("conv_reduce", "conv_expand"):
+            w.dense(f"{td}.{kind}_se.{c}", f"{fd}/{kind}_se/{c}/linear",
+                    conv1x1=True)
+    for name in ("depth_block0", "depth_block1", "msr_block", "mono_block"):
+        _basic_block(w, f"{td}.{name}", f"{fd}/{name}")
+    _aspp(w, f"{td}.aspp", f"{fd}/aspp")
+    _dcn(w, f"{td}.dcn", f"{fd}/dcn")
+    for i in range(2):
+        w.conv2d(f"{td}.msr_deconv{i}", f"{fd}/msr_deconv{i}", None)
+    for i in range(3):
+        w.dense(f"{t}.sim_fc{i}", f"{f}/sim_fc{i}/linear")
+    for name in ("dds_conv0", "dds_conv1", "dds_pred", "mask_conv0",
+                 "mask_pred"):
+        w.conv2d(f"{t}.{name}", f"{f}/{name}")
+    for name in ("sim_bn0", "sim_bn1", "dds_bn0", "dds_bn1", "mask_bn0"):
+        w.bn(f"{t}.{name}", f"{f}/{name}/bn")
+    for i in range(2):
+        _basic_block(w, f"{t}.mask_block{i}", f"{f}/mask_block{i}")
+
+
+def stereo_depth_net_to_jax(sd: Dict[str, Any],
+                            prefix: str = "img_view_transformer.depth_net"
+                            ) -> Dict[str, Dict]:
+    """The stereo depth net's entries of a port state_dict (under
+    `prefix`) -> JAX's {"params", "batch_stats"} subtrees of that
+    LSSBEVStereo scope, nested dicts of numpy arrays (JAX's
+    convert_coocc_ray has no stereo names; this is the inverse of
+    state_dict_from_jax for the subtree)."""
+    r = _Reader(sd)
+    _depthnet_stereo(r, prefix, "depth_net")
+    return {k: v["depth_net"] for k, v in r.tree.items()}
 
 
 def _sparse_enc8x(w: _Writer, t, f):
@@ -269,8 +373,9 @@ def state_dict_from_jax(variables_np: Dict[str, Any],
     if cfg.use_camera:
         _resnet(w, "img_backbone", "img_backbone", cfg.img_backbone.depth)
         _second_fpn(w, "img_neck", "img_neck", cfg.img_neck.upsample_strides)
-        _depthnet(w, "img_view_transformer.depth_net",
-                  "img_view_transformer/depth_net")
+        (_depthnet_stereo if cfg.lss.stereo else _depthnet)(
+            w, "img_view_transformer.depth_net",
+            "img_view_transformer/depth_net")
     if cfg.use_lidar and cfg.pts.encoder == "SparseEncoderHD":
         _sparse_encoder_hd(w, "pts_middle_encoder", "pts_middle_encoder")
         if cfg.second3d is not None:

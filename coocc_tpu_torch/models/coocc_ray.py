@@ -4,6 +4,8 @@ Counterpart of coocc_tpu/models/coocc_ray.py `CoOccRay.__call__`
 (reference detectors/coocc_ray.py:31-723):
 
   image branch   ResNet -> SECONDFPN -> DepthNet/LSS splat -> img_voxel
+                 (with lss.stereo the BEVStereo depth net, which also reads
+                 the previous keyframe's stage-0 features)
   lidar branch   occupancy voxelize -> PackedLiDAREnc8x (pts.impl 'auto'
                  or 'packed'; 'dense' gives DenseLiDAREnc8x) -> pts_voxel;
                  for SparseEncoderHD (the LiDAR-only coocc_lidar) voxel
@@ -141,8 +143,9 @@ class CoOccRay(nn.Module):
             if cfg.img_backbone.type != "ResNet":
                 raise NotImplementedError(
                     f"image backbone {cfg.img_backbone.type} is not ported")
-            if cfg.lss.stereo:
-                raise NotImplementedError("stereo LSS is not ported")
+            if cfg.lss.stereo and 0 not in cfg.img_backbone.out_indices:
+                raise ValueError("stereo LSS reads the ResNet's stage 0 "
+                                 "(img_backbone.out_indices without 0)")
             self.img_backbone = ResNet(cfg.img_backbone.depth,
                                        cfg.img_backbone.out_indices)
             self.img_neck = SECONDFPN(self.img_backbone.out_channels,
@@ -204,19 +207,50 @@ class CoOccRay(nn.Module):
                     create_frustum(cfg.data.input_size, 16,
                                    (2.0, 58.0, 0.5))), persistent=False)
 
+    def _images(self, imgs):
+        """[B, N, H, W, 3] -> [B*N, 3, H, W] in the compute dtype (the
+        images enter it at the first conv, as flax's)."""
+        B, N, H, W, _ = imgs.shape
+        return imgs.reshape(B * N, H, W, 3).permute(0, 3, 1, 2).to(
+            self.dtype)
+
     def _image_voxels(self, batch: Batch):
-        B, N, H, W, _ = batch.imgs.shape
-        # the images enter the compute dtype at the first conv, as flax's
-        x = batch.imgs.reshape(B * N, H, W, 3).permute(0, 3, 1, 2)
-        x = self.img_neck(self.img_backbone(x.to(self.dtype)))
+        B, N = batch.imgs.shape[:2]
+        feats = self.img_backbone(self._images(batch.imgs))
+        stereo = self._stereo_inputs(batch, feats[0]) \
+            if self.cfg.lss.stereo else None
+        x = self.img_neck(feats)
         img_feats = x.reshape(B, N, *x.shape[1:])  # [B, N, C, fH, fW]
         mlp_input = get_mlp_input(batch.rots, batch.trans, batch.intrins,
                                   batch.post_rots, batch.post_trans,
                                   batch.bda)
         bev, depth_prob, geom = self.img_view_transformer(
             img_feats, batch.rots, batch.trans, batch.intrins,
-            batch.post_rots, batch.post_trans, batch.bda, mlp_input)
+            batch.post_rots, batch.post_trans, batch.bda, mlp_input, stereo)
         return bev.permute(0, 4, 1, 2, 3), img_feats, depth_prob, geom
+
+    def _stereo_inputs(self, batch: Batch, key_stereo):
+        """The stereo depth net's inputs (JAX coocc_ray.py:89-109): the key
+        frame's stage-0 features, the previous keyframe's from the shared
+        backbone in a call of its own (its own batch statistics in
+        training), without a gradient (JAX's stop_gradient), and the
+        per-view intrinsics and key->previous camera rig. In training the
+        previous frame runs all four stages, as JAX's does, so every
+        stage's BN statistics move a second time, after the key frame's;
+        in eval it stops after stage 0, the only output read (the others
+        change no output)."""
+        if batch.imgs_prev is None:
+            raise ValueError("the stereo config needs imgs_prev, k2s_rots "
+                             "and k2s_trans in the batch")
+        B, N = batch.imgs_prev.shape[:2]
+        with torch.no_grad():
+            sweep = self.img_backbone(self._images(batch.imgs_prev),
+                                      None if self.training else 1)[0]
+        intrin = batch.intrins.reshape(B * N, 3, 3)
+        return dict(key_stereo=key_stereo, sweep_stereo=sweep,
+                    key_intrin=intrin, sweep_intrin=intrin,
+                    k2s_rot=batch.k2s_rots.reshape(B * N, 3, 3),
+                    k2s_tran=batch.k2s_trans.reshape(B * N, 3))
 
     def _pts_voxels(self, batch: Batch):
         cfg = self.cfg

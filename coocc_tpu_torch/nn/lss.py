@@ -1,7 +1,8 @@
 """LSS view transformer (voxel variant): DepthNet -> lift -> splat.
 
-Counterpart of coocc_tpu/nn/lss.py `LSSViewTransformerVoxel` with the mono
-DepthNet (the stereo variant is not ported).
+Counterpart of coocc_tpu/nn/lss.py `LSSViewTransformerVoxel`: the mono
+DepthNet, or with `lss.stereo` the BEVStereo depth net (nn/lss_stereo.py),
+under the same `depth_net` name.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from ..geometry.frustum import create_frustum, gen_dx_bx, get_geometry
 from ..ops.lift_splat import lift_splat
 from .depthnet import DepthNet
 from .layers import softmax
+from .lss_stereo import LSSBEVStereo
 
 
 class LSSViewTransformerVoxel(nn.Module):
@@ -22,25 +24,45 @@ class LSSViewTransformerVoxel(nn.Module):
         super().__init__()
         self.cfg = cfg
         lss = cfg.lss
-        self.depth_net = DepthNet(lss.numC_input, lss.numC_input,
-                                  lss.numC_Trans, cfg.grid.num_depth_bins,
-                                  lss.cam_channels)
+        D = cfg.grid.num_depth_bins
+        if lss.stereo:
+            self.depth_net = LSSBEVStereo(
+                lss.numC_input, lss.numC_input, lss.numC_Trans, D,
+                cfg.grid.dbound,
+                lss.stereo_range_list[:lss.stereo_num_ranges],
+                em_iteration=lss.stereo_em_iteration,
+                num_samples=lss.stereo_num_samples,
+                num_groups=lss.stereo_num_groups,
+                stereo_downsample=lss.stereo_downsample)
+        else:
+            self.depth_net = DepthNet(lss.numC_input, lss.numC_input,
+                                      lss.numC_Trans, D, lss.cam_channels)
         self.register_buffer("frustum", torch.from_numpy(create_frustum(
             cfg.data.input_size, lss.downsample, cfg.grid.dbound)),
             persistent=False)
 
     def forward(self, x, rots, trans, intrins, post_rots, post_trans, bda,
-                mlp_input):
+                mlp_input, stereo=None):
         """Returns (voxels [B, X, Y, Z, C] in x's dtype, depth_prob [B, N,
         fH, fW, D], geom [B, N, D, fH, fW, 3]). The splat weights and sums
-        are fp32 whatever the compute dtype (JAX lss.py:85-90)."""
+        are fp32 whatever the compute dtype (JAX lss.py:85-90). `stereo`
+        (the stereo depth net's other inputs, per view: key_stereo,
+        sweep_stereo, key_intrin, sweep_intrin, k2s_rot, k2s_tran) is
+        given with `lss.stereo`."""
         cfg = self.cfg
         B, N, Cin, fH, fW = x.shape
         D = cfg.grid.num_depth_bins
-        out = self.depth_net(x.reshape(B * N, Cin, fH, fW),
-                             mlp_input.reshape(B * N, -1))
-        depth_prob = softmax(out[:, :D], dim=1)  # [BN, D, fH, fW]
-        img_feat = out[:, D:D + cfg.lss.numC_Trans]
+        x = x.reshape(B * N, Cin, fH, fW)
+        mlp_input = mlp_input.reshape(B * N, -1)
+        if stereo is not None:
+            img_feat, depth_prob = self.depth_net(
+                x, stereo["sweep_stereo"], stereo["key_stereo"], mlp_input,
+                stereo["key_intrin"], stereo["sweep_intrin"],
+                stereo["k2s_rot"], stereo["k2s_tran"])
+        else:
+            out = self.depth_net(x, mlp_input)
+            depth_prob = softmax(out[:, :D], dim=1)  # [BN, D, fH, fW]
+            img_feat = out[:, D:D + cfg.lss.numC_Trans]
         geom = get_geometry(self.frustum, rots, trans, intrins, post_rots,
                             post_trans, bda)
         dx, bx, nx = gen_dx_bx(cfg.grid.xbound, cfg.grid.ybound,

@@ -7,7 +7,7 @@ layer{i}.{j}.{conv1,bn1,...,downsample.0,downsample.1}).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -85,10 +85,12 @@ class ResNet(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
             self.out_channels.append(cin)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, stages: Optional[int] = None):
+        """-> the outputs of the stages in out_indices; `stages` runs only
+        the first that many stages (the stem included)."""
         x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
         outs = []
-        for i in range(len(self.out_channels)):
+        for i in range(stages or len(self.out_channels)):
             x = getattr(self, f"layer{i + 1}")(x)
             if i in self.out_indices:
                 outs.append(x)

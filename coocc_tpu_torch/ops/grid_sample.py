@@ -1,12 +1,14 @@
-"""The cascade's samplers, with the JAX package's roundings.
+"""Bilinear and trilinear samplers, with the JAX package's roundings.
 
-Counterpart of coocc_tpu/ops/grid_sample.py `cascade_sample_3d` and
-`multicam_bilinear_gemm` (align_corners=True). Both JAX functions take a
-compute dtype: they form the interpolation weights, round them to it, sum
-weight x table products in fp32 and round the result to it once. The JAX
-versions do that as one-hot GEMMs, which the TPU runs fast; here each is a
-gather of the corners' rows and a weighted sum, the same products summed in
-another order (fp32 rounding apart).
+Counterpart of coocc_tpu/ops/grid_sample.py `grid_sample_2d` (with
+align_corners=True and zeros padding: the plane-sweep warp of the stereo
+depth net) and the cascade's
+`cascade_sample_3d` and `multicam_bilinear_gemm` (align_corners=True). The
+cascade's JAX functions take a compute dtype: they form the interpolation
+weights, round them to it, sum weight x table products in fp32 and round
+the result to it once. The JAX versions do that as one-hot GEMMs, which the
+TPU runs fast; here each is a gather of the corners' rows and a weighted
+sum, the same products summed in another order (fp32 rounding apart).
 """
 from __future__ import annotations
 
@@ -15,6 +17,39 @@ import itertools
 import torch
 
 from .gather import gather_rows
+
+
+def grid_sample_2d(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of channels-last maps, as JAX's `grid_sample_2d`
+    computes them with align_corners=True and zeros padding (torch's
+    F.grid_sample conventions), one map per leading index: img [B, H, W,
+    C]; grid [B, ..., 2] (x, y) in [-1, 1] -> [B, ..., C]. Each corner's
+    row is gathered in img's dtype and zeroed outside the map, then
+    weighted by (1 - wx or wx) and (1 - wy or wy) in the grid's dtype, and
+    the four products summed in JAX's order: a bf16 map under an fp32 grid
+    gives fp32 samples. The gather is `img[idx]`: this is for maps that
+    take no gradient (the stereo sweep's features are under stop-gradient);
+    the grid's does flow, through the weights."""
+    B, H, W, C = img.shape
+    lead = grid.shape[1:-1]
+    ix = (grid[..., 0] + 1.0) / 2.0 * (W - 1)
+    iy = (grid[..., 1] + 1.0) / 2.0 * (H - 1)
+    x0, y0 = torch.floor(ix), torch.floor(iy)
+    wx, wy = (ix - x0)[..., None], (iy - y0)[..., None]
+    x0, y0 = x0.long(), y0.long()
+    table = img.reshape(B * H * W, C)
+    base = (torch.arange(B, device=img.device) * (H * W)).reshape(
+        (B,) + (1,) * len(lead))
+
+    def corner(xi, yi):
+        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        v = table[base + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)]
+        return v * inb[..., None].to(v.dtype)
+
+    return (corner(x0, y0) * (1 - wx) * (1 - wy)
+            + corner(x0 + 1, y0) * wx * (1 - wy)
+            + corner(x0, y0 + 1) * (1 - wx) * wy
+            + corner(x0 + 1, y0 + 1) * wx * wy)
 
 
 def _axis_corners(fine: torch.Tensor, S: int, V: int):

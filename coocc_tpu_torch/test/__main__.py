@@ -3,6 +3,8 @@
     python -m coocc_tpu_torch.test coocc_multi_r50_256x704 work_dirs/smoke \
         --synthetic --max-steps 2
     python -m coocc_tpu_torch.test coocc_lidar --synthetic --max-steps 2
+    python -m coocc_tpu_torch.test coocc_multi_r50_256x704_stereo \
+        --synthetic --max-steps 2
     python -m coocc_tpu_torch.test tiny work_dirs/tiny --synthetic \
         --device cpu --max-steps 1
 

@@ -2,6 +2,8 @@
 
     python -m coocc_tpu_torch.train coocc_multi_r50_256x704 --synthetic \
         --steps-per-epoch 2 --max-epochs 1 --work-dir work_dirs/smoke
+    python -m coocc_tpu_torch.train coocc_multi_r50_256x704_stereo \
+        --synthetic --steps-per-epoch 2 --max-epochs 1
     python -m coocc_tpu_torch.train tiny --synthetic --device cpu \
         --steps-per-epoch 1 --max-epochs 1 --work-dir work_dirs/tiny
 

@@ -80,6 +80,7 @@ from coocc_tpu_torch.ops.grid_sample import (cascade_sample_3d,
 from coocc_tpu_torch.ops.lift_splat import lift_splat
 from coocc_tpu_torch.ops.subm_conv import (ext_conv_plain, masked,
                                            subm_ext_weight)
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 BF16_ULP = 2.0 ** -7   # one bf16 ulp is at most this fraction of |value|
 JIT = dict(compiler_options={"xla_allow_excess_precision": False})

@@ -31,13 +31,15 @@ package at tiny shapes (CPU).
 (d) eval_step with a visible mask on the tiny OpenOccupancy model: all its
     hists, SC_hist_visible and SSC_hist_visible among them, equal JAX's
     make_eval_step on JAX's forward of the same weights and batch.
-(e) coocc_multi_r50_256x704_stereo and coocc_kitti raise
-    NotImplementedError when each entry point builds their model: the
-    served CLI, the bench and the test CLI. coocc_lidar builds in each:
-    the served CLI and the bench build its model at full width (on the
-    meta device here) and then stop for want of a card; the test CLI runs
-    its tiny twin (`lidar_tiny`, the LiDAR-only model of
-    tests/test_torch_lidar.py) on the CPU and prints the SSC table.
+(e) coocc_kitti raises NotImplementedError when each entry point builds
+    its model: the served CLI, the bench and the test CLI. coocc_lidar and
+    the stereo config coocc_multi_r50_256x704_stereo build in each: the
+    served CLI and the bench build the model at full width (on the meta
+    device here) and then stop for want of a card; the test CLI runs the
+    config's tiny twin (`lidar_tiny`, the LiDAR-only model of
+    tests/test_torch_lidar.py; tiny_config(stereo=True)) on the CPU and
+    prints the SSC table, and the train CLI trains the stereo twin for one
+    epoch.
 """
 import dataclasses
 import functools
@@ -73,6 +75,7 @@ from coocc_tpu_torch.nn import sparse_enc_packed
 from coocc_tpu_torch.nn.resnet2d import ResNet
 from coocc_tpu_torch.parallel.train_step import eval_step
 from coocc_tpu_torch.test import __main__ as test_cli
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 OCC, LIDAR, DS = (32, 32, 40), (64, 64, 80), (4, 4, 4)
 
@@ -446,7 +449,8 @@ def test_eval_step_visible_hists_equal_jax(runs, monkeypatch):
     assert int(got["SC_hist_visible"].sum()) < int(got["SC_hist"].sum())
 
 
-UNPORTED = ("coocc_multi_r50_256x704_stereo", "coocc_kitti")
+UNPORTED = ("coocc_kitti",)
+STEREO = "coocc_multi_r50_256x704_stereo"
 
 
 def _served(name, monkeypatch):
@@ -472,6 +476,74 @@ def test_unported_config_raises_in_each_entry_point(name, entry,
     its constructor, before any weight is drawn)."""
     with torch.device("meta"), pytest.raises(NotImplementedError):
         entry(name, monkeypatch)
+
+
+@pytest.mark.parametrize("entry", [_served, _bench],
+                         ids=["served", "bench"])
+def test_stereo_config_builds_in_each_entry_point(entry, monkeypatch):
+    """The served CLI and the bench build the stereo config's model at full
+    width (on the meta device): the BEVStereo depth net under the mono
+    one's name, with the shipped 3 EM rounds over 4 ranges and 8 groups of
+    the R50's 256 stage-0 channels, in bf16; then they stop where they
+    need the card."""
+    from coocc_tpu_torch.nn.lss_stereo import LSSBEVStereo
+    built = []
+
+    def record(cfg, dtype=None):
+        built.append(CoOccRay(cfg, dtype))
+        return built[-1]
+    monkeypatch.setattr(torch_entry, "CoOccRay", record)
+    with torch.device("meta"), pytest.raises(
+            RuntimeError, match="torch.cuda.is_available"):
+        entry(STEREO, monkeypatch)
+    model, = built
+    assert model.cfg.name == STEREO and model.dtype == torch.bfloat16
+    net = model.img_view_transformer.depth_net
+    assert isinstance(net, LSSBEVStereo)
+    assert (net.em_iteration, len(net.range_list), net.num_groups) == \
+        (3, 4, 8)
+    assert model.img_backbone.out_channels[0] % net.num_groups == 0
+    assert net.depth_net.mono_pred.weight.shape[0] == 112
+
+
+def test_stereo_config_runs_through_the_test_cli(monkeypatch, capsys):
+    """`python -m coocc_tpu_torch.test coocc_multi_r50_256x704_stereo
+    --synthetic --device cpu` on the config's tiny twin: the previous
+    keyframe's images and rig move with the batch; its SSC table."""
+    cfg = tiny_config(stereo=True)
+    monkeypatch.setattr(test_cli, "config_by_name",
+                        lambda name: cfg if name == STEREO else None)
+    _test_cli(STEREO, monkeypatch)
+    assert "mIoU" in capsys.readouterr().out
+
+
+def test_stereo_config_trains_through_the_train_cli(monkeypatch):
+    """`python -m coocc_tpu_torch.train coocc_multi_r50_256x704_stereo
+    --synthetic --device cpu` on the tiny twin: one epoch of one step, its
+    eval hook and checkpoint; the similarity net's statistics moved."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from coocc_tpu_torch.train import __main__ as train_cli
+    from coocc_tpu_torch.train.checkpoint import CheckpointManager
+    cfg = tiny_config(stereo=True)
+    monkeypatch.setattr(train_cli, "config_by_name",
+                        lambda name: cfg if name == STEREO else None)
+    monkeypatch.setitem(__import__("sys").modules, "torch.utils.tensorboard",
+                        None)
+    key = "img_view_transformer.depth_net.sim_bn0.running_mean"
+    with tempfile.TemporaryDirectory() as d:
+        wd = os.path.join(d, "stereo")
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main([STEREO, "--synthetic", "--device", "cpu",
+                            "--steps-per-epoch", "1", "--max-epochs", "1",
+                            "--work-dir", wd])
+        tree, epoch = CheckpointManager(wd).restore()
+    assert epoch == 0
+    # flax's initial running mean is 0
+    moved = tree["model"][key]
+    assert torch.isfinite(moved).all() and float(moved.abs().max()) > 0
 
 
 @pytest.mark.parametrize("entry", [_served, _bench],

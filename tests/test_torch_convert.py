@@ -11,6 +11,10 @@
    zero or all one, each random leaf's std agrees with JAX's within
    sampling error, and no value of a truncated normal lies beyond its 2
    sigma (JAX's draws neither, which pins the fan_in convention).
+4. The stereo config's depth net, whose names JAX's converter lacks: the
+   tiny stereo model round-trips through convert_coocc_ray composed with
+   the port's stereo_depth_net_to_jax, and that gives every variable path
+   and shape JAX's init creates.
 """
 import math
 
@@ -31,6 +35,7 @@ from coocc_tpu_torch.data.synthetic import tiny_config
 from coocc_tpu_torch.entry import build_model, init_flax
 from coocc_tpu_torch.models.coocc_ray import CoOccRay
 from coocc_tpu_torch.nn.sparse_enc_dense import SpConvWeight
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 
 def test_state_dict_round_trip():
@@ -102,3 +107,61 @@ def test_init_flax_draws_like_jax_jit_init(jax_init):
             assert np.abs(r).max() <= limit, k
     assert n_random > 100
     assert plain, "the spconv weights draw a plain normal (JAX _kaiming)"
+
+
+def _stereo_variables(sd, monkeypatch):
+    """JAX variables of a tiny stereo model's state_dict: JAX's
+    convert_coocc_ray (its mono depth net skipped) with the port's
+    stereo_depth_net_to_jax for that subtree (tests/test_torch_stereo.py)."""
+    from coocc_tpu.train import convert_torch
+    from test_torch_stereo import _jax_variables, _skip_mono
+    monkeypatch.setattr(convert_torch, "convert_depthnet",
+                        _skip_mono(convert_torch.convert_depthnet))
+    return _jax_variables({k: v.numpy() for k, v in sd.items()},
+                          jax_tiny_config(stereo=True))
+
+
+def test_stereo_state_dict_round_trip(monkeypatch):
+    cfg = tiny_config(stereo=True)
+    sd = build_model(cfg, "cpu", seed=11).state_dict()
+    back = state_dict_from_jax(_stereo_variables(sd, monkeypatch), cfg)
+    assert set(back) == set(sd)
+    for k, v in sd.items():
+        assert torch.equal(back[k], v), k
+
+
+def _paths(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_paths(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = tuple(v.shape)
+    return out
+
+
+def test_stereo_names_are_the_flax_scopes(monkeypatch):
+    """The port's stereo depth net converts to exactly the variables JAX's
+    CoOccRay creates (every path and shape of its init, in training so
+    that the renderer's heads exist, traced with eval_shape), and JAX's
+    variables of those shapes load strict into the port's model."""
+    jcfg = jax_tiny_config(stereo=True)
+    batch = jax.tree.map(lambda x: None if x is None else jnp.asarray(x),
+                         jax_synthetic_batch(jcfg, batch_size=1, seed=0),
+                         is_leaf=lambda x: x is None)
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda b: JaxCoOccRay(cfg=jcfg).init(
+        {"params": key, "dropout": key}, b, train=True, fine_rng=key), batch)
+    cfg = tiny_config(stereo=True)
+    sd = build_model(cfg, "cpu", seed=11).state_dict()
+    ours = _stereo_variables(sd, monkeypatch)
+    for col, stereo_only in (("params", "sim_fc0"),
+                             ("batch_stats", "sim_bn0")):
+        ref = _paths(dict(shapes[col]))
+        assert _paths(ours[col]) == ref, col
+        assert any(stereo_only in p for p in ref)
+    zeros = {col: jax.tree.map(lambda s: np.zeros(s.shape, s.dtype),
+                               dict(shapes[col]))
+             for col in ("params", "batch_stats")}
+    CoOccRay(cfg).load_state_dict(state_dict_from_jax(zeros, cfg),
+                                  strict=True)

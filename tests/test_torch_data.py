@@ -16,6 +16,7 @@ from coocc_tpu.data.synthetic import tiny_config as jax_tiny_config
 
 from coocc_tpu_torch.config import get_config, list_configs
 from coocc_tpu_torch.data.synthetic import synthetic_batch, tiny_config
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 
 def test_config_names_match():

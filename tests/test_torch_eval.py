@@ -34,6 +34,7 @@ from coocc_tpu_torch.config.nuscenes import NUSC_CLASS_NAMES
 from coocc_tpu_torch.evaluation import formatting as fmt
 from coocc_tpu_torch.evaluation import ssc_metrics as sm
 from coocc_tpu_torch.nn.occ_head import forward_lidarseg
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 C = 17
 COARSE, FINE = (20, 20, 4), (40, 40, 8)

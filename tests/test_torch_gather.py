@@ -4,6 +4,7 @@ import pytest
 import torch
 
 from coocc_tpu_torch.ops.gather import gather_rows
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 
 def _inputs(dtype):

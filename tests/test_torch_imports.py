@@ -11,6 +11,7 @@ import sys
 import pytest
 
 import coocc_tpu_torch
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

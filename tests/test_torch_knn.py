@@ -18,6 +18,7 @@ import torch
 from coocc_tpu.ops.pallas.knn import knn2 as jax_knn2
 
 from coocc_tpu_torch.ops.knn import knn2
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 
 def _both(queries, keys, qmask, kmask, thresh=13.3):

@@ -18,6 +18,7 @@ import torch
 from coocc_tpu_torch.ops.window_knn import (WALK_CHUNK, best2_ranks_plain,
                                             column_tables, make_offsets,
                                             window_knn_plain)
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 SHAPES = [(10, 9, 4), (20, 20, 8), (37, 23, 5)]
 RADII = [(4, 4, 3), (4, 4, 7), (6, 6, 7)]

@@ -70,6 +70,7 @@ from coocc_tpu_torch.nn.sparse_enc_packed_hd import PackedEncoderHD
 from coocc_tpu_torch.ops.sparse_conv import SparseTensor
 from coocc_tpu_torch.ops.voxelize import delinearize, linearize, voxelize
 from coocc_tpu_torch.parallel.train_step import eval_step
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 # ---------------------------------------------------------------------------
 # (a) the voxelizer

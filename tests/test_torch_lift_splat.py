@@ -14,6 +14,7 @@ from coocc_tpu_torch.geometry.frustum import gen_dx_bx, voxel_indices
 from coocc_tpu_torch.ops.gather import gather_rows
 from coocc_tpu_torch.ops.lift_splat import lift_splat
 from coocc_tpu_torch.ops.voxelize import linearize
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 BOUNDS = ((-4.0, 4.0, 1.0), (-4.0, 4.0, 1.0), (-2.0, 2.0, 1.0))
 

@@ -54,6 +54,7 @@ from coocc_tpu_torch.train import __main__ as train_cli
 from coocc_tpu_torch.train import loop
 from coocc_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
 from coocc_tpu_torch.train.observe import MetricsLogger, dump_run_metadata
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 LR_STEP = dict(lr_step_epochs=(1,))
 

@@ -47,6 +47,7 @@ from coocc_tpu_torch.models.losses import compute_losses
 from coocc_tpu_torch.nn.layers import softmax
 from coocc_tpu_torch.nn.nerf_mlp import NeRFMLP
 from coocc_tpu_torch.train.state import Optimizer
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 RS = np.random.RandomState(0)
 LOGITS = RS.randn(2, 6, 5, 4, 17).astype(np.float32) * 2

@@ -58,6 +58,7 @@ from coocc_tpu_torch.config import get_config
 from coocc_tpu_torch.data.synthetic import synthetic_batch, tiny_config
 from coocc_tpu_torch.entry import FLAGSHIP, build_model, entry, served_model
 from coocc_tpu_torch.models.coocc_ray import STAGES, CoOccRay
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 TOL = dict(atol=5e-3, rtol=5e-3)
 
@@ -360,17 +361,39 @@ def test_pts_impl_resolves_like_jax(impl, encoder):
         assert type(model.pts_middle_encoder).__name__ == encoder
 
 
-@pytest.mark.parametrize("name", ["coocc_multi_r50_256x704_stereo",
-                                  "coocc_kitti"])
+@pytest.mark.parametrize("name", ["coocc_kitti"])
 def test_unported_configs_raise_not_implemented(name):
-    """Stereo LSS and the kitti camera layout of OccHead
-    (project_points_on_img's 4x4 BDA and 3x4 intrinsics, the 30-d camera
-    vector) are not ported: building them raises NotImplementedError, not
-    another error and not a wrong model. (The camera-only config and
-    coocc_lidar, once cases here, are served: tests/test_torch_configs.py,
-    tests/test_torch_lidar.py.)"""
+    """The kitti camera layout of OccHead (project_points_on_img's 4x4 BDA
+    and 3x4 intrinsics, the 30-d camera vector) is not ported: building it
+    raises NotImplementedError, not another error and not a wrong model.
+    (The camera-only config, coocc_lidar and the stereo config, once cases
+    here, are served: tests/test_torch_configs.py, tests/test_torch_lidar.py,
+    tests/test_torch_stereo.py.)"""
     with pytest.raises(NotImplementedError):
         CoOccRay(get_config(name))
+
+
+def test_stereo_config_builds_lss_bev_stereo():
+    """coocc_multi_r50_256x704_stereo at full width: the flagship with
+    LSSBEVStereo under img_view_transformer.depth_net (its own
+    DepthNetStereo under depth_net again, as the flax scopes nest), the
+    key frame's 512-channel neck features in, 128 context channels and
+    112 depth bins out, the similarity net on 8 groups."""
+    from coocc_tpu_torch.nn.lss_stereo import DepthNetStereo, LSSBEVStereo
+    with torch.device("meta"):
+        model = CoOccRay(get_config("coocc_multi_r50_256x704_stereo"))
+    net = model.img_view_transformer.depth_net
+    assert isinstance(net, LSSBEVStereo)
+    assert isinstance(net.depth_net, DepthNetStereo)
+    assert net.depth_net.reduce_conv.weight.shape[1] == 512
+    assert net.depth_net.context_conv.weight.shape[0] == 128
+    assert net.dds_pred.weight.shape[0] == 112
+    assert net.sim_fc0.weight.shape == (16, 8)
+    names = set(model.state_dict())
+    assert "img_view_transformer.depth_net.depth_net.msr_deconv0.weight" \
+        in names
+    assert not any(k.startswith("img_view_transformer.depth_net."
+                                "depth_conv") for k in names)
 
 
 def test_lidar_config_builds_the_lidar_only_family():

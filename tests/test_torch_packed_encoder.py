@@ -41,6 +41,7 @@ from coocc_tpu_torch.nn.sparse_enc_packed import PackedLiDAREnc8x
 from coocc_tpu_torch.ops.subm_conv import (conv2d_nhwc, epilogue_plain,
                                            shift_ext, subm_ext_conv,
                                            subm_ext_weight)
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 GRID = (160, 160, 32)
 

@@ -1,7 +1,9 @@
 """The port's forward == JAX's at real shapes, fp32 and bf16, and the
 committed fingerprints the card is held to (gated, cached), for the
-flagship coocc_multi_r50_256x704, for coocc_multi_r101_openoccupancy and
-for the LiDAR-only coocc_lidar.
+flagship coocc_multi_r50_256x704, for coocc_multi_r101_openoccupancy, for
+the LiDAR-only coocc_lidar and for the stereo flagship
+coocc_multi_r50_256x704_stereo (the flagship's shapes, the previous
+keyframe's 6 images and the BEVStereo depth net at 3 EM rounds).
 
 Both packages build the config at its own shapes (the flagship: 6x256x704
 images, the 800x800x64 LiDAR grid, the 100x100x8 coarse grid, the
@@ -66,12 +68,16 @@ from coocc_tpu_torch import parity
 from coocc_tpu_torch.config import get_config
 from coocc_tpu_torch.data.synthetic import synthetic_batch
 from coocc_tpu_torch.entry import FLAGSHIP
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 OPENOCC = "coocc_multi_r101_openoccupancy"
 LIDAR = "coocc_lidar"
-CONFIGS = (FLAGSHIP, OPENOCC, LIDAR)
-MAX_BYTES = {FLAGSHIP: 1 << 20, OPENOCC: 2 << 20, LIDAR: 1 << 20}
-IDS = {FLAGSHIP: "", OPENOCC: "openoccupancy-", LIDAR: "lidar-"}
+STEREO = "coocc_multi_r50_256x704_stereo"
+CONFIGS = (FLAGSHIP, OPENOCC, LIDAR, STEREO)
+MAX_BYTES = {FLAGSHIP: 1 << 20, OPENOCC: 2 << 20, LIDAR: 1 << 20,
+             STEREO: 1 << 20}
+IDS = {FLAGSHIP: "", OPENOCC: "openoccupancy-", LIDAR: "lidar-",
+       STEREO: "stereo-"}
 # configs whose fp32 sides already differ by more than JAX's own bf16 drift
 # (module note): the bf16 bound adds the CPU port's fp32 distance to JAX
 FP32_SLACK = (OPENOCC,)
@@ -91,7 +97,16 @@ def _jax_outputs(cfg, model, batch_np, bf16):
     from coocc_tpu.train.convert_torch import convert_coocc_ray
     jcfg = jax_get_config(cfg.name)
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
-    variables = convert_coocc_ray(sd, jcfg)
+    if jcfg.lss is not None and jcfg.lss.stereo:
+        # JAX's converter has no stereo names (tests/test_torch_stereo.py)
+        from coocc_tpu.train import convert_torch
+        from test_torch_stereo import _jax_variables, _skip_mono
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(convert_torch, "convert_depthnet",
+                       _skip_mono(convert_torch.convert_depthnet))
+            variables = _jax_variables(sd, jcfg)
+    else:
+        variables = convert_coocc_ray(sd, jcfg)
     dtype = jnp.bfloat16 if bf16 else None
     jmodel = JaxCoOccRay(cfg=jcfg, dtype=dtype)
     names = ("img_view_transformer", "pts_middle_encoder", "pts_neck",
@@ -243,6 +258,10 @@ def test_lidar_fingerprint_is_small_and_complete():
     _small_and_complete(LIDAR)
 
 
+def test_stereo_fingerprint_is_small_and_complete():
+    _small_and_complete(STEREO)
+
+
 def _digests_match(config):
     """The weights come from numpy (parity.numpy_weights), so any torch
     version draws these bits; the card checks the same digests first."""
@@ -264,6 +283,10 @@ def test_openocc_fingerprint_digests_match_the_ports_weights_and_batch():
 
 def test_lidar_fingerprint_digests_match_the_ports_weights_and_batch():
     _digests_match(LIDAR)
+
+
+def test_stereo_fingerprint_digests_match_the_ports_weights_and_batch():
+    _digests_match(STEREO)
 
 
 @pytest.mark.parametrize("config,prefix", [

@@ -42,6 +42,7 @@ from coocc_tpu_torch.ops.subm_conv import (KB, BNAffine, _panel_index,
                                            subm_ext_conv, subm_ext_conv_dx,
                                            subm_ext_conv_plain,
                                            subm_ext_weight, weight_panels)
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 SHAPES = [(1, 3, 12, 16, 32, 4), (2, 2, 9, 11, 64, 2),
           (1, 2, 10, 12, 128, 1), (1, 3, 10, 12, 16, 8)]

@@ -75,6 +75,7 @@ from coocc_tpu_torch.nn import sparse_enc_packed
 from coocc_tpu_torch.nn.layers import Dropout
 from coocc_tpu_torch.ops.subm_conv import subm_conv_unrounded
 from coocc_tpu_torch.train.state import make_optimizer
+from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 
 SEED, BATCH_SEED = 7, 3
 OUTPUTS = ("occ", "fine_logits", "depth_prob", "voxel_feats",
