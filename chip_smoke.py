@@ -114,13 +114,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      parity/stereo_real.npz (bf16 within 2x / 1.5x of JAX's own bf16
      drift, `parity.check_drift`); the bench and the test CLI in processes
      of their own.
+ 15. coocc_kitti's img and pts prefixes at full width (one 384x1280 camera
+     through R50 with the 30-d camera vector of KITTI's 3x4 intrinsics;
+     350,000 points, 245,000 valid, on the 512x512x64 LiDAR grid), from
+     its fingerprint's numpy weights, in bf16 and fp32: 3 runs each with
+     K2's 13 launches counted (K1 none), host and device busy ms, every
+     K2 call against its plain version, the full forward's ValueError
+     (its LiDAR grid is not its fuser's, as JAX's fails), both prefixes
+     held to parity/kitti_real.npz, K2's times and bound at its shapes;
+ 16. eval-time rendering: the flagship as served (bf16) with
+     render.test_rendering, 3 eval_step requests (K1 2, K2 13 each) beside
+     the same without rendering (host ms, busy ms, peak memory), the
+     rendered views' shapes and ranges, evaluate's render_PSNR and
+     render_SSIM over 2 batches, one camera's render on the card against
+     the CPU's on the same voxel_feats, and the test CLI with
+     --test-rendering in this process.
 Prints the card, the kernels' JSON line (the served bf16 path's launches
 and K2 times, K2's fp32 ones beside them; the train path's launches by
 config, K2's mask-only forward in training by config ("train"), and K2's
 dX row, the flagship's with the other configs' under "configs"; the loop's
 launches; K1's and K2's numbers at OpenOccupancy's shapes, K2's at
-coocc_lidar's, and the stereo path's launches and one-call checks, under
-"configs") and, last, the result line.
+coocc_lidar's and coocc_kitti's, the stereo path's launches and one-call
+checks, and the render path's launches, under "configs") and, last, the
+result line.
 Needs a CUDA card and the repository around it; it imports nothing of
 JAX.
 """
@@ -1027,7 +1043,7 @@ def check_bf16_drift(outs16, outs32):
             raise AssertionError(f"bf16 outputs are not finite (request {i})")
 
 
-def phase_real_shape_parity(name):
+def phase_real_shape_parity(name, each=None):
     """Config `name` at real shapes against JAX's fingerprint
     (coocc_tpu_torch/parity/, written on a CPU by
     tests/test_torch_real_shapes.py): the weights' and the batch's digests
@@ -1037,7 +1053,9 @@ def phase_real_shape_parity(name):
     parity.BF16_DRIFT_RULE of JAX's own bf16 drift (`parity.check_drift`,
     the CPU port's readings logged beside); both dtypes are read before a
     failure is raised. The
-    weights are drawn once (numpy) and loaded into the bf16 model.
+    weights are drawn once (numpy) and loaded into the bf16 model. A config
+    of parity.PREFIX_ONLY is held at that prefix. each(dtype name, model,
+    batch), where given, runs on each dtype's model before its capture.
     -> {dtype: [(name, card, cpu port, ok)]}."""
     import torch
     from coocc_tpu_torch import parity
@@ -1064,7 +1082,9 @@ def phase_real_shape_parity(name):
         if digest != str(fp["state_digest"]):
             raise AssertionError(f"{name}: the fingerprint's state_dict "
                                  f"digest differs: {digest}")
-        out = parity.capture(model, batch)
+        if each is not None:
+            each(prefix, model, batch)
+        out = parity.capture(model, batch, parity.PREFIX_ONLY.get(name))
         del model
         torch.cuda.empty_cache()
         ratio = cfg.occ_head.cascade_ratio
@@ -2026,6 +2046,233 @@ def stereo_one_call_checks(model, batch):
     return {"k1_max_abs_err": k1_err, "k2_max_abs_err": errs[0]}
 
 
+KITTI = "coocc_kitti"
+# launches per img + pts prefix of coocc_kitti: no fuser (K1), the packed
+# encoder's 13 SubMs
+PER_KITTI_PREFIX = {**dict.fromkeys(PER_REQUEST, 0), "subm_ext_conv": 13}
+
+
+def phase_kitti(kernels):
+    """coocc_kitti's img and pts prefixes at full width (one 384x1280
+    camera through R50 with the 30-d camera vector of KITTI's 3x4
+    intrinsics; 350,000 points, 245,000 valid, on the 512x512x64 LiDAR
+    grid through the packed encoder), from the fingerprint's numpy weights
+    (B=1, the synthetic batch of seed 0), in bf16 and fp32: per dtype the
+    prefix warmed up, then 3 runs with K2's 13 launches counted (K1 none),
+    host ms and device busy ms, every K2 call against its plain version on
+    its own inputs; the full forward raises ValueError (its LiDAR grid is
+    not its fuser's, as in JAX); both prefixes held to
+    parity/kitti_real.npz; K2's bf16 times and bound at kitti's shapes.
+    -> (K2's numbers, the config's numbers)."""
+    import torch
+    lap = lap_timer(KITTI)
+    nums, k2 = {}, {"max_abs_err": 0.0}
+    levels = {}
+
+    def each(prefix, model, batch):
+        lap(f"{prefix} model built")
+        model(batch, stop_at="pts")          # warm-up
+        sync()
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            out = model(batch, stop_at="pts")
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {n: k.launches for n, k in kernels.items()}
+        want = {n: 3 * c for n, c in PER_KITTI_PREFIX.items()}
+        if launches != want:
+            raise AssertionError(f"{KITTI} {prefix}: launches {launches}, "
+                                 f"want {want}")
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        if shapes != {"img_voxel": (1, 128, 128, 16, 128),
+                      "pts_voxel": (1, 64, 64, 8, 128)} or not all(
+                bool(torch.isfinite(v.float()).all()) for v in out.values()):
+            raise AssertionError(f"{KITTI} {prefix} prefix: {shapes}")
+        log(f"profile, {KITTI} img + pts prefix ({prefix}):")
+        busy = device_breakdown(lambda b: model(b, stop_at="pts"), [batch],
+                                8)
+        nums[prefix] = {"prefix_ms": statistics.median(ms),
+                        "device_busy_ms": busy,
+                        "peak_gib": torch.cuda.max_memory_allocated()
+                        / 2 ** 30, "launches": launches}
+        log(f"{KITTI} {prefix} img + pts prefix: ms "
+            f"{[round(t, 3) for t in ms]}, busy {busy} ms, launches over 3 "
+            f"{launches}, shapes {shapes}")
+        calls, err = k2_main_path_check(model, batch)
+        levels[prefix] = k2_levels(calls, model.dtype)
+        k2["max_abs_err"] = max(k2["max_abs_err"], err)
+        try:
+            model(batch)
+        except ValueError as e:
+            log(f"{KITTI} full forward raises ValueError, as JAX's fuser "
+                f"fails: {e}")
+        else:
+            raise AssertionError(f"{KITTI}: the full forward ran")
+        lap(f"{prefix} prefix served, K2 checked")
+
+    phase_real_shape_parity(KITTI, each)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    k2.update(launches=nums["bf16"]["launches"]["subm_ext_conv"],
+              **k2_times(gen, levels["bf16"], torch.bfloat16))
+    lap("K2's times")
+    return k2, nums
+
+
+# the card's render against the CPU's, as fractions of each output's max:
+# the heads' bf16 outputs may differ by an ulp (2^-8 relative) between the
+# two devices, whose products sum in other orders; compositing averages
+# them along each ray with weights that move by as little, and the x16
+# upsample averages again: the max within 4 ulps, the mean within 1/4 ulp
+RENDER_MAX_REL = 4 * BF16_ULP_REL
+RENDER_MEAN_REL = BF16_ULP_REL / 4
+
+
+def phase_render(kernels):
+    """The flagship at full width with eval-time rendering
+    (render.test_rendering, `--test-rendering`), as served (bf16): 3
+    eval_step requests (seeds 0-2) with K1 2 and K2 13 launches each, host
+    ms, device busy ms and peak memory, beside the same requests without
+    rendering; render_rgb [1, 6, 256, 704, 3] in [0, 1] and render_depth
+    finite in [0, D] (the renderer's units: D = 112 frustum samples a ray);
+    evaluate's render_PSNR and render_SSIM over 2 batches; one request's
+    render of its first camera (the renderer alone on its fused
+    voxel_feats) on the card against the same on the CPU; then the test
+    CLI with --test-rendering in this process. -> the path's numbers."""
+    import contextlib
+    import copy
+    import io
+    import torch
+    from coocc_tpu_torch.config import get_config
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.entry import served_model
+    from coocc_tpu_torch.geometry.frustum import get_geometry
+    from coocc_tpu_torch.models.renderer import render
+    from coocc_tpu_torch.parallel.train_step import eval_step
+    from coocc_tpu_torch.test import __main__ as test_cli
+    from coocc_tpu_torch.train.loop import evaluate
+    lap = lap_timer("render")
+    base = get_config(FLAGSHIP)
+    cfg = dataclasses.replace(base, render=dataclasses.replace(
+        base.render, use_rendering=True, test_rendering=True))
+    model = served_model(cfg, "cuda")
+    requests = [synthetic_batch(cfg, batch_size=1, seed=s).to("cuda")
+                for s in range(3)]
+    D = len(torch.arange(*cfg.grid.dbound))
+    nums = {}
+    for tag, c in (("render", cfg), ("plain", base)):
+        model.cfg = c
+        eval_step(model, requests[0], c)     # warm-up
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        ms = []
+        for i, b in enumerate(requests):
+            sync()
+            t0 = time.perf_counter()
+            res = eval_step(model, b, c, return_logits=False)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if tag == "render":
+                rgb, dep = res["render_rgb"], res["render_depth"]
+                if tuple(rgb.shape) != (1, 6, 256, 704, 3) or \
+                        tuple(dep.shape) != (1, 6, 256, 704):
+                    raise AssertionError(f"render shapes {rgb.shape}, "
+                                         f"{dep.shape}")
+                if not (bool(torch.isfinite(dep).all())
+                        and float(dep.min()) >= 0 and float(dep.max()) <= D
+                        and float(rgb.min()) >= 0 and float(rgb.max()) <= 1):
+                    raise AssertionError(f"request {i}: render out of range")
+                log(f"render request {i}: depth in [{float(dep.min()):.4f}, "
+                    f"{float(dep.max()):.4f}] of [0, {D}], rgb mean "
+                    f"{float(rgb.mean()):.4f}")
+            elif "render_rgb" in res:
+                raise AssertionError("rendered without test_rendering")
+            del res
+        launches = {n: k.launches for n, k in kernels.items()}
+        want = {n: 3 * c_ for n, c_ in PER_REQUEST.items()}
+        if launches != want:
+            raise AssertionError(f"{tag} eval: launches {launches}, want "
+                                 f"{want}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"profile, flagship eval_step ({tag}):")
+        busy = device_breakdown(lambda b: eval_step(model, b, c, False),
+                                requests, 10 if tag == "render" else 0)
+        nums[tag] = {"request_ms": statistics.median(ms),
+                     "device_busy_ms": busy, "peak_gib": peak,
+                     "launches": launches}
+        log(f"flagship eval_step ({tag}): ms {[round(t, 3) for t in ms]}, "
+            f"busy {busy} ms, peak {peak:.3f} GiB, launches over 3 "
+            f"{launches}")
+    model.cfg = cfg
+    nums["added_ms"] = nums["render"]["request_ms"] \
+        - nums["plain"]["request_ms"]
+    if nums["render"]["device_busy_ms"] and nums["plain"]["device_busy_ms"]:
+        nums["added_busy_ms"] = nums["render"]["device_busy_ms"] \
+            - nums["plain"]["device_busy_ms"]
+    lap("requests with and without rendering")
+    summary = evaluate(model, cfg, iter(requests[:2]))
+    nums["render_PSNR"], nums["render_SSIM"] = summary["render_PSNR"], \
+        summary["render_SSIM"]
+    log(f"evaluate over 2 batches: render_PSNR {summary['render_PSNR']:.6f} "
+        f"dB, render_SSIM {summary['render_SSIM']:.6f}, SC_IoU "
+        f"{summary['SC_IoU']:.6f}, SSC_mIoU {summary['SSC_mIoU']:.6f}")
+
+    # the renderer alone on one request's fused features and its first
+    # camera's frustum, on the card and on the CPU
+    b = requests[0]
+    with torch.no_grad():
+        vf = model(b, stop_at="fuse")["voxel_feats"]
+        geom = get_geometry(model.img_view_transformer.frustum, b.rots,
+                            b.trans, b.intrins, b.post_rots, b.post_trans,
+                            b.bda)[:, :1]
+        card = render(model.sigma_head, model.rgb_head, cfg.render, vf,
+                      geom)
+        heads = [copy.deepcopy(h).cpu() for h in (model.sigma_head,
+                                                  model.rgb_head)]
+        cpu = render(*heads, cfg.render, vf.cpu(), geom.cpu())
+    worst = {}
+    for name, a, r in (("render_rgb", card[0], cpu[0]),
+                       ("render_depth", card[1], cpu[1])):
+        scale = float(r.abs().max())
+        err = (a.float().cpu() - r.float()).abs()
+        worst[name] = (float(err.max()) / scale, float(err.mean()) / scale)
+        log(f"{name} card vs cpu (the renderer alone, bf16 voxel_feats "
+            f"{tuple(vf.shape)}, camera 0): max |diff| "
+            f"{worst[name][0]:.6g}, mean {worst[name][1]:.6g} of the scale "
+            f"{scale:.6g} (bounds {RENDER_MAX_REL:.6g}, "
+            f"{RENDER_MEAN_REL:.6g})")
+        if not (worst[name][0] <= RENDER_MAX_REL
+                and worst[name][1] <= RENDER_MEAN_REL):
+            raise AssertionError(f"{name}: the card's render differs from "
+                                 "the CPU's beyond bf16 rounding")
+    nums["card_vs_cpu"] = worst
+    del model, requests, vf, geom, card, cpu
+    torch.cuda.empty_cache()
+    lap("evaluate and the render on the CPU")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        test_cli.main([FLAGSHIP, "--synthetic", "--test-rendering",
+                       "--max-steps", "2"])
+    text = out.getvalue()
+    if "PSNR" not in text or "mIoU" not in text:
+        raise AssertionError(f"the test CLI printed {text!r}")
+    log(f"test CLI (python -m coocc_tpu_torch.test {FLAGSHIP} --synthetic "
+        "--test-rendering --max-steps 2, in this process):")
+    for line in text.strip().splitlines():
+        log(f"  {line}")
+    torch.cuda.empty_cache()
+    lap("the test CLI")
+    return nums
+
+
 def phase_tiny_agreement():
     """The tiny config on the card against the CPU, with the dense encoder
     (fp32 throughout: 5e-3) and the default packed one (full outputs at
@@ -2245,19 +2492,31 @@ def main():
         "and K2 on one call each, the plane sweep's share, real-shape "
         "parity, bench, test CLI):")
     served[STEREO] = phase_stereo(kernels)
+    t_new = time.perf_counter()
+    log(f"[{t_new - t0:.1f} s] {KITTI} (its img and pts prefixes at full "
+        "width, bf16 and fp32; K2 on every call, real-shape parity):")
+    k2_kitti, served[KITTI] = phase_kitti(kernels)
+    log(f"[{time.perf_counter() - t0:.1f} s] eval-time rendering (the "
+        "flagship, bf16, test_rendering):")
+    served["render"] = phase_render(kernels)
+    log(f"{KITTI} and the render path took {time.perf_counter() - t_new:.1f}"
+        " s")
     log(f"served configs (request ms median, device busy ms per request, "
         f"peak GiB): {json.dumps(served)}")
     # the kernels at OpenOccupancy's shapes, beside the flagship's
     k1_row["configs"] = {OPENOCC: {k: k1_oo[k] for k in (
         "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}}
-    k2_row["configs"] = {OPENOCC: k2_oo, LIDAR: k2_lidar}
+    k2_row["configs"] = {OPENOCC: k2_oo, LIDAR: k2_lidar, KITTI: k2_kitti}
     # the stereo path's launches over its 3 requests and one call's check
     # (its shapes are the flagship's, timed in this row)
     for row, key in ((k1_row, "k1_max_abs_err"), (k2_row, "k2_max_abs_err")):
         row["configs"][STEREO] = {
             "launches": served[STEREO]["launches"][row["name"]],
             "max_abs_err": served[STEREO][key]}
+        # the flagship's eval with rendering: launches over its 3 requests
+        row["configs"]["render"] = {
+            "launches": served["render"]["render"]["launches"][row["name"]]}
 
     log(f"[{time.perf_counter() - t0:.1f} s] card: {card_line()}")
     log(json.dumps({"kernels": rows}))

@@ -8,8 +8,9 @@
 The twin of `tools/test.py --synthetic`: the model computes in the config's
 `compute_dtype` (bf16 for every shipped config), as tools/test.py:76-78
 maps it. Request i uses the synthetic batch of seed i; the weights are
-random (seed 0). Any registered config name is taken; one the port does not
-run (coocc_kitti) raises NotImplementedError when its model is built.
+random (seed 0). Any registered config name is taken. coocc_kitti builds,
+and its forward raises ValueError past its pts prefix: its LiDAR grid is
+not its fuser's, and JAX's model fails there too (models/coocc_ray.py).
 Raises when there is no CUDA card.
 """
 from __future__ import annotations

@@ -6,14 +6,14 @@
     BENCH_CONFIG=coocc_multi_r50_256x704_stereo python -m coocc_tpu_torch.bench
 
 The twin of the JAX package's `bench.py`, with its knobs: BENCH_CONFIG (the
-flagship coocc_multi_r50_256x704 by default; a config the port does not run
-raises NotImplementedError when its model is built), BENCH_DTYPE (bf16, the
-default, or fp32), BENCH_BATCH (1) and BENCH_ITERS (5). The weights are
-random (seed 0). One warm-up forward on the batch of seed 0, then one
-distinct pre-staged synthetic batch per timed rep (seeds 1..BENCH_ITERS),
-each forward between two `torch.cuda.synchronize()` calls and ending in a
-reduction of every output (so no output can be skipped), host clock; the
-median gives frames/sec = BENCH_BATCH / median seconds.
+flagship coocc_multi_r50_256x704 by default; coocc_kitti's forward raises
+ValueError past its pts prefix, as JAX's fails at its fuser), BENCH_DTYPE
+(bf16, the default, or fp32), BENCH_BATCH (1) and BENCH_ITERS (5). The
+weights are random (seed 0). One warm-up forward on the batch of seed 0,
+then one distinct pre-staged synthetic batch per timed rep (seeds
+1..BENCH_ITERS), each forward between two `torch.cuda.synchronize()` calls
+and ending in a reduction of every output (so no output can be skipped),
+host clock; the median gives frames/sec = BENCH_BATCH / median seconds.
 
 Prints ONE JSON line: {"metric", "value", "unit", "dtype", "device": {"name",
 "power_limit"}}. There is no `vs_baseline`: bench.py's 10 frames/sec target

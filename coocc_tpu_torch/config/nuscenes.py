@@ -4,12 +4,16 @@ weights.
 A copy of the part of coocc_tpu/config/nuscenes.py the port reads: the 17
 occupancy class names the eval tables print (reference
 coocc_multi_r50_256x704.py:17-21), the nusc_param.py:10-12 voxel counts
-and occ_head.py:135-139's 1 / log(freq) weighting;
-tests/test_torch_losses.py and tests/test_torch_eval.py pin them equal.
+and occ_head.py:135-139's 1 / log(freq) weighting, of these counts or, for
+any other class count, of SemanticKITTI's (config/semantic_kitti.py);
+tests/test_torch_losses.py, tests/test_torch_eval.py and
+tests/test_torch_data.py pin them equal.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from .semantic_kitti import KITTI_CLASS_FREQUENCIES
 
 NUSC_CLASS_NAMES = [
     "empty", "barrier", "bicycle", "bus", "car",
@@ -29,9 +33,9 @@ NUSC_CLASS_FREQUENCIES = np.array([
 
 
 def class_weights(num_classes: int = NUM_NUSC_CLASSES) -> np.ndarray:
-    """Balanced CE class weights 1 / log(freq + 0.001), fp32. Only the
-    nuScenes table is copied: SemanticKITTI's (20 classes) raises."""
-    if num_classes != NUM_NUSC_CLASSES:
-        raise NotImplementedError(
-            f"class weights for {num_classes} classes are not ported")
-    return (1.0 / np.log(NUSC_CLASS_FREQUENCIES + 0.001)).astype(np.float32)
+    """Balanced CE class weights 1 / log(freq + 0.001), fp32: of the
+    nuScenes counts for 17 classes, of SemanticKITTI's otherwise (JAX
+    nuscenes.py:49-60)."""
+    freq = NUSC_CLASS_FREQUENCIES if num_classes == NUM_NUSC_CLASSES \
+        else KITTI_CLASS_FREQUENCIES
+    return (1.0 / np.log(freq + 0.001)).astype(np.float32)

@@ -2,7 +2,11 @@
 
 A copy of coocc_tpu/data/synthetic.py: the same seed gives arrays
 bit-identical to the reference's (tests/test_torch_data.py), so the two
-packages can be fed one batch. The arrays are numpy; `Batch.to(device)`
+packages can be fed one batch. One addition: for a SemanticKITTI config
+(occ_head.data_type 'kitti') the intrinsics are KITTI's 3x4 P2
+(`kitti_intrinsics`), as JAX's kitti loader gives them, where JAX's
+synthetic batch gives 3x3 for every config; the tests apply the same to
+JAX's batch. The arrays are numpy; `Batch.to(device)`
 (models/coocc_ray.py) moves them onto torch tensors. Geometry is consistent
 (cameras on a ring looking outward, LiDAR points inside the pc range) so
 splat, fusion and the cascade all see realistic occupancy.
@@ -95,8 +99,23 @@ def camera_ring(n_cams: int, rng: np.random.RandomState):
     return np.stack(rots).astype(np.float32), np.stack(trans).astype(np.float32)
 
 
+# the P2 camera's offset from the reference camera (m), the translation
+# that KITTI's 3x4 intrinsics carry as K @ t
+KITTI_P2_OFFSET = (0.06, -0.0003, 0.0027)
+
+
+def kitti_intrinsics(batch, offset=KITTI_P2_OFFSET):
+    """batch with its [B, N, 3, 3] intrinsics K made KITTI's [B, N, 3, 4]
+    P2 = K [I | offset] (fp32 numpy)."""
+    K = batch.intrins
+    col = K @ np.asarray(offset, np.float32)
+    return batch._replace(intrins=np.concatenate(
+        [K, col[..., None]], axis=-1).astype(np.float32))
+
+
 def synthetic_batch(cfg: CoOccConfig, batch_size: int = 1, seed: int = 0):
-    """Build a Batch of numpy arrays consistent with cfg's shapes."""
+    """Build a Batch of numpy arrays consistent with cfg's shapes (KITTI's
+    3x4 intrinsics for a 'kitti' config)."""
     from ..models.coocc_ray import Batch
 
     rng = np.random.RandomState(seed)
@@ -203,4 +222,7 @@ def synthetic_batch(cfg: CoOccConfig, batch_size: int = 1, seed: int = 0):
     po[..., 3] = rng.randint(1, cfg.num_classes, (B, Q))
     kw["points_occ"] = po
     kw["points_occ_mask"] = np.ones((B, Q), bool)
-    return Batch(**kw)
+    batch = Batch(**kw)
+    if cfg.occ_head.data_type == "kitti" and batch.intrins is not None:
+        batch = kitti_intrinsics(batch)
+    return batch

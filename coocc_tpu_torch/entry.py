@@ -143,8 +143,9 @@ def build_model(cfg: CoOccConfig, device="cuda", seed: int = 0,
                 init=init_weights) -> CoOccRay:
     """CoOccRay(cfg, dtype) with the weights `init(model, seed)` draws
     (init_weights, or init_flax), in eval mode, on `device`; the weights
-    are drawn in fp32 and stay fp32. A config the port does not run raises
-    NotImplementedError before the device is looked at."""
+    are drawn in fp32 and stay fp32. A part of a config the port does not
+    run (a LiDAR impl, a backbone) raises NotImplementedError before the
+    device is looked at."""
     model = CoOccRay(cfg, dtype)
     device = resolve_device(device)
     return init(model, seed).eval().to(device)

@@ -1,9 +1,12 @@
-"""Prediction dumps.
+"""Prediction dumps and the SemanticKITTI submission writer.
 
-A numpy copy of coocc_tpu/evaluation/savers.py `save_output_nuscenes`
-(reference coocc/apis/utils.py:18-134): per-sample npz files of the
-predicted (and ground-truth) voxel classes for offline visualization. The
-submission writers (SemanticKITTI labels, lidarseg bins) are not copied.
+A numpy copy of coocc_tpu/evaluation/savers.py (reference
+coocc/apis/utils.py:18-134): `save_output_nuscenes`, per-sample npz files
+of the predicted (and ground-truth) voxel classes for offline
+visualization; `save_output_semantic_kitti`, the SemanticKITTI `.label`
+submission (uint16 raw labels through the inverse learning map, under
+sequences/XX/predictions), and `validate_semkitti_submission`, its format
+check. The lidarseg writer is not copied.
 """
 from __future__ import annotations
 
@@ -11,6 +14,20 @@ import os
 from typing import Optional
 
 import numpy as np
+
+from ..config.semantic_kitti import KITTI_LEARNING_MAP_INV
+
+
+def save_output_semantic_kitti(pred_voxels: np.ndarray, out_dir: str,
+                               sequence: str, frame_id: str):
+    """pred_voxels: [X, Y, Z] int train-ids -> .label uint16 submission."""
+    inv = np.zeros(max(KITTI_LEARNING_MAP_INV) + 1, np.uint16)
+    for k, v in KITTI_LEARNING_MAP_INV.items():
+        inv[k] = v
+    labels = inv[pred_voxels.astype(np.int64).reshape(-1)]
+    d = os.path.join(out_dir, "sequences", sequence, "predictions")
+    os.makedirs(d, exist_ok=True)
+    labels.astype(np.uint16).tofile(os.path.join(d, f"{frame_id}.label"))
 
 
 def save_output_nuscenes(pred_voxels: np.ndarray, out_dir: str,
@@ -23,3 +40,19 @@ def save_output_nuscenes(pred_voxels: np.ndarray, out_dir: str,
         arrays["gt"] = gt_voxels.astype(np.uint8)
     np.savez_compressed(os.path.join(out_dir, f"{sample_token}.npz"),
                         **arrays)
+
+
+def validate_semkitti_submission(root: str) -> bool:
+    """The official format check (reference
+    tools/validate_semkitti_submission.py): every prediction of sequences
+    11..21 is a uint16 .label of 256 x 256 x 32 voxels."""
+    ok = True
+    for seq in [f"{i}" for i in range(11, 22)]:
+        d = os.path.join(root, "sequences", seq, "predictions")
+        if not os.path.isdir(d):
+            continue
+        for f in os.listdir(d):
+            labels = np.fromfile(os.path.join(d, f), dtype=np.uint16)
+            if labels.size != 256 * 256 * 32:
+                ok = False
+    return ok

@@ -1,8 +1,9 @@
 """Camera frustum geometry: frustum creation and camera->ego unprojection.
 
 Counterpart of coocc_tpu/geometry/frustum.py (the LSS geometry of
-ViewTransformerLSSBEVDepth.py:104-150 and get_mlp_input :636-691), for the
-3x3-intrinsics / 3x3-BDA layout of the nuScenes configs.
+ViewTransformerLSSBEVDepth.py:104-150 and get_mlp_input :636-691): the
+nuScenes layout (3x3 intrinsics, 3x3 BDA) and SemanticKITTI's (3x4 P2
+intrinsics with a baseline column; a 4x4 BDA with a translation).
 """
 from __future__ import annotations
 
@@ -41,31 +42,54 @@ def create_frustum(input_size: Tuple[int, int], downsample: int,
 def get_geometry(frustum, rots, trans, intrins, post_rots, post_trans, bda):
     """Unproject frustum pixels to ego-frame points.
 
-    frustum [D, fH, fW, 3]; rots/intrins/post_rots [B, N, 3, 3];
-    trans/post_trans [B, N, 3]; bda [B, 3, 3]. Returns [B, N, D, fH, fW, 3].
+    frustum [D, fH, fW, 3]; rots/post_rots [B, N, 3, 3]; intrins
+    [B, N, 3, 3] or KITTI's [B, N, 3, 4] (its translation column is taken
+    off the camera points before the 3x3 block is inverted);
+    trans/post_trans [B, N, 3]; bda [B, 3, 3] or [B, 4, 4] (applied to
+    homogeneous points). Returns [B, N, D, fH, fW, 3].
     """
     pts = frustum[None, None] - post_trans[:, :, None, None, None, :]
     pts = torch.einsum("bnij,bndhwj->bndhwi", torch.linalg.inv(post_rots),
                        pts)
     pts = torch.cat([pts[..., :2] * pts[..., 2:3], pts[..., 2:3]], dim=-1)
+    if intrins.shape[-1] == 4:
+        pts = pts - intrins[:, :, None, None, None, :3, 3]
+        intrins = intrins[..., :3, :3]
     combine = rots @ torch.linalg.inv(intrins)
     pts = torch.einsum("bnij,bndhwj->bndhwi", combine, pts)
     pts = pts + trans[:, :, None, None, None, :]
+    if bda.shape[-1] == 4:
+        pts = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+        return torch.einsum("bij,bndhwj->bndhwi", bda, pts)[..., :3]
     return torch.einsum("bij,bndhwj->bndhwi", bda, pts)
 
 
-def get_mlp_input(rots, trans, intrins, post_rots, post_trans, bda):
-    """27-d camera conditioning vector per camera -> [B, N, 27]."""
+def get_mlp_input(rots, trans, intrins, post_rots, post_trans, bda=None):
+    """The camera conditioning vector per camera -> [B, N, 27] for 3x3
+    intrinsics (15 scalars and the flattened 3x4 sensor2ego); [B, N, 30]
+    for KITTI's 3x4 (the translation column's three more), [B, N, 33] with
+    a 4x4 BDA too (its translation appended). A missing BDA is the
+    identity."""
     B, N = rots.shape[:2]
-    bda_n = bda[:, None].expand(B, N, 3, 3)
-    mlp_input = torch.stack([
-        intrins[:, :, 0, 0], intrins[:, :, 1, 1],
-        intrins[:, :, 0, 2], intrins[:, :, 1, 2],
-        post_rots[:, :, 0, 0], post_rots[:, :, 0, 1], post_trans[:, :, 0],
-        post_rots[:, :, 1, 0], post_rots[:, :, 1, 1], post_trans[:, :, 1],
-        bda_n[:, :, 0, 0], bda_n[:, :, 0, 1],
-        bda_n[:, :, 1, 0], bda_n[:, :, 1, 1], bda_n[:, :, 2, 2],
-    ], dim=-1)
+    if bda is None:
+        bda = torch.eye(3, dtype=rots.dtype, device=rots.device).expand(
+            B, 3, 3)
+    bda_n = bda[:, None].expand(B, N, *bda.shape[-2:])
+    cols = [intrins[:, :, 0, 0], intrins[:, :, 1, 1],
+            intrins[:, :, 0, 2], intrins[:, :, 1, 2]]
+    kitti = intrins.shape[-1] == 4
+    if kitti:
+        cols += [intrins[:, :, 0, 3], intrins[:, :, 1, 3],
+                 intrins[:, :, 2, 3]]
+    cols += [post_rots[:, :, 0, 0], post_rots[:, :, 0, 1],
+             post_trans[:, :, 0],
+             post_rots[:, :, 1, 0], post_rots[:, :, 1, 1],
+             post_trans[:, :, 1],
+             bda_n[:, :, 0, 0], bda_n[:, :, 0, 1],
+             bda_n[:, :, 1, 0], bda_n[:, :, 1, 1], bda_n[:, :, 2, 2]]
+    mlp_input = torch.stack(cols, dim=-1)
+    if kitti and bda.shape[-1] == 4:
+        mlp_input = torch.cat([mlp_input, bda_n[:, :, :3, -1]], dim=-1)
     sensor2ego = torch.cat([rots, trans.reshape(B, N, 3, 1)],
                            dim=-1).reshape(B, N, -1)
     return torch.cat([mlp_input, sensor2ego], dim=-1)

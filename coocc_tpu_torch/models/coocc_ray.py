@@ -13,7 +13,8 @@ Counterpart of coocc_tpu/models/coocc_ray.py `CoOccRay.__call__`
   fusion         BiFuserN grid-space window-KNN fusion (a config without
                  the fuser feeds pts_voxel, or img_voxel, on)
   semantics      CustomResNet3D -> FPN3D -> OccHead (+ cascade)
-  regularizer    frustum volume renderer (training only)
+  regularizer    frustum volume renderer (training, and eval with
+                 render.test_rendering)
 
 Submodule names are the reference checkpoint's top-level prefixes
 (img_backbone, img_neck, img_view_transformer.depth_net, pts_middle_encoder,
@@ -30,7 +31,16 @@ the LiDAR voxel cap `pts.max_voxels`, the cascade on `fine_topk` random
 cells (priorities passed in), and the extra outputs the losses read
 (depth_prob, voxel_feats, geom, and the renderer's render_depth and
 render_rgb; a model without the camera branch renders depth only, on a
-stride-16 frustum of the batch's camera poses, as JAX's does).
+stride-16 frustum of the batch's camera poses, as JAX's does). With
+`render.use_rendering and render.test_rendering` the eval forward renders
+too and returns render_depth and render_rgb beside the occupancy outputs
+(JAX coocc_ray.py:332-352).
+
+A config whose LiDAR grid (pts.sparse_shape_xyz / 8) is not the fuser's
+(lss_grid_size) builds and runs its img and pts prefixes, and a forward
+past them raises ValueError: JAX's fuser fails there too. The shipped
+coocc_kitti is one (its 512x512x64 LiDAR grid gives 64x64x8 against the
+128x128x16 fuser grid).
 """
 from __future__ import annotations
 
@@ -153,11 +163,14 @@ class CoOccRay(nn.Module):
                                       cfg.img_neck.upsample_strides)
             self.img_view_transformer = LSSViewTransformerVoxel(cfg)
         pts_ch = None
+        self.pts_grid = None    # the 8x encoders' output grid
         if cfg.use_lidar:
             self.pts_middle_encoder = _lidar_encoder(cfg.pts, self.dtype)
             pts_ch = cfg.pts.out_channel
-            if isinstance(self.pts_middle_encoder, PackedEncoderHD) \
-                    and cfg.second3d is not None:
+            if not isinstance(self.pts_middle_encoder, PackedEncoderHD):
+                self.pts_grid = tuple(s // 8 for s in
+                                      cfg.pts.sparse_shape_xyz)
+            elif cfg.second3d is not None:
                 # JAX coocc_ray.py:210-237: only after the HD encoder
                 s3 = cfg.second3d
                 self.pts_backbone = SECOND3D(
@@ -196,7 +209,7 @@ class CoOccRay(nn.Module):
             if cfg.use_camera else 0)
         if cfg.render.use_rendering:
             # the renderer's heads (JAX models/renderer.py:97-103), on the
-            # semantic stack's input (the fused features); training only
+            # semantic stack's input (the fused features)
             self.sigma_head = NeRFMLP(feat_ch, 1, 1)
             if cfg.use_camera:
                 self.rgb_head = NeRFMLP(feat_ch, 3, 3)
@@ -292,15 +305,35 @@ class CoOccRay(nn.Module):
         The full forward returns occ, fine_logits, fine_coords, fine_valid
         and fine_overflow, and in training depth_prob [B, N, fH, fW, D],
         voxel_feats, geom and, with rendering on, render_depth [B, N, H, W]
-        and render_rgb [B, N, H, W, 3]. Every feature output is in the
+        and render_rgb [B, N, H, W, 3] (in eval too with
+        render.test_rendering). Every feature output is in the
         compute dtype but fine_logits, which the cascade's last fc makes in
         fp32, as JAX's prefixes return them. fine_priorities [B, n coarse
         cells]: the training cascade's (nn/occ_head.py:select_occupied)."""
         if stop_at is not None and stop_at not in STAGES:
             raise ValueError(f"stop_at must be one of {STAGES}")
+        if stop_at not in ("img", "pts"):
+            self._check_fuser_grid(batch)
         with torch.set_grad_enabled(self.training
                                     and torch.is_grad_enabled()):
             return self._forward(batch, stop_at, fine_priorities)
+
+    def _check_fuser_grid(self, batch: Batch):
+        """Raises ValueError where the fuser would read two grids that
+        differ: the LiDAR branch's and the image branch's (lss_grid_size).
+        Checked from the config, before the forward runs."""
+        cfg = self.cfg
+        if cfg.fuser is None or self.pts_grid is None or not cfg.use_camera \
+                or batch.imgs is None or batch.points is None:
+            return
+        if self.pts_grid != tuple(cfg.lss_grid_size):
+            raise ValueError(
+                f"{cfg.name}: the LiDAR branch's grid {list(self.pts_grid)} "
+                f"(pts.sparse_shape_xyz {list(cfg.pts.sparse_shape_xyz)} / 8)"
+                f" is not the fuser's {list(cfg.lss_grid_size)} "
+                "(lss_grid_size): the fuser cannot pair them, and JAX's "
+                "fails there too (coocc_tpu/nn/bifuser.py:64); the img and "
+                "pts prefixes run (stop_at='pts')")
 
     def _forward(self, batch: Batch, stop_at, fine_priorities):
         cfg = self.cfg
@@ -336,11 +369,14 @@ class CoOccRay(nn.Module):
                                   transform=transform,
                                   coarse_only=(stop_at == "coarse"),
                                   fine_priorities=fine_priorities)
-        if stop_at == "coarse" or not self.training:
+        if stop_at == "coarse":
             return outs
-        # the losses' inputs (JAX coocc_ray.py:324-330)
-        outs.update(depth_prob=depth_prob, voxel_feats=cl(voxel_feats),
-                    geom=geom)
+        if self.training:
+            # the losses' inputs (JAX coocc_ray.py:324-330)
+            outs.update(depth_prob=depth_prob, voxel_feats=cl(voxel_feats),
+                        geom=geom)
+        elif not cfg.render.test_rendering:
+            return outs
         if geom is None and batch.rots is not None \
                 and hasattr(self, "render_frustum"):
             # the LiDAR-only model renders depth from the cameras' poses
@@ -351,7 +387,7 @@ class CoOccRay(nn.Module):
             # on the FUSED voxel features, before the semantic stack
             rgbs, depths = render(self.sigma_head,
                                   getattr(self, "rgb_head", None),
-                                  cfg.render, outs["voxel_feats"], geom)
+                                  cfg.render, cl(voxel_feats), geom)
             if rgbs is not None:
                 outs["render_rgb"] = rgbs
             outs["render_depth"] = depths

@@ -19,8 +19,9 @@ their priorities (uniform draws, one per coarse cell, given by the caller)
 by a stable sort, as JAX's `select_occupied` with an rng (JAX
 occ_head.py:103-121, 271).
 
-Only the nuScenes camera layout ('nus') is ported: the 'kitti' branch of
-`project_points_on_img` (a 4x4 BDA, 3x4 intrinsics) raises.
+`project_points_on_img` follows the head's `data_type`: 'nus' (the
+nuScenes layout) and 'kitti' (SemanticKITTI's 3x4 intrinsics and the
+rotation block of the inverse BDA), as JAX's does.
 """
 from __future__ import annotations
 
@@ -68,12 +69,18 @@ def fine_coordinates(coarse_coords: torch.Tensor, ratio: int) -> torch.Tensor:
 
 
 def project_points_on_img(points, rots, trans, intrins, post_rots, post_trans,
-                          bda, pts_range, img_hw, occ_whd):
+                          bda, pts_range, img_hw, occ_whd, data_type="nus"):
     """Fine voxel coords -> normalized image uv per camera + validity mask
-    (reference utils/coordinate_transform.py:25-66, 'nus' branch).
+    (reference utils/coordinate_transform.py:25-66; JAX occ_head.py:149-195).
 
-    points [P, 3] float; rots/intrins/post_rots [N, 3, 3]; trans/post_trans
-    [N, 3]; bda [3, 3]. Returns uv [N, P, 2] and mask [N, P].
+    'nus' applies the whole inverse BDA; 'kitti', or any 4x4 BDA, only the
+    rotation block of its inverse (the translation is dropped, as the
+    reference's kitti branch drops it). [N, 3, 4] intrinsics project the
+    homogeneous camera points.
+
+    points [P, 3] float; rots/post_rots [N, 3, 3]; intrins [N, 3, 3] or
+    [N, 3, 4]; trans/post_trans [N, 3]; bda [3, 3] or [4, 4]. Returns uv
+    [N, P, 2] and mask [N, P].
     """
     W_occ, H_occ, D_occ = occ_whd
     H_img, W_img = img_hw
@@ -82,9 +89,14 @@ def project_points_on_img(points, rots, trans, intrins, post_rots, post_trans,
         [W_occ - 1, H_occ - 1, D_occ - 1], dtype=torch.float32,
         device=points.device)
     pts = points * voxel_size[None] + pr[:3][None]
-    pts = pts @ torch.linalg.inv(bda).T
+    inv_bda = torch.linalg.inv(bda)
+    if data_type == "kitti" or inv_bda.shape[-1] == 4:
+        inv_bda = inv_bda[:3, :3]
+    pts = pts @ inv_bda.T
     p = pts[None] - trans[:, None, :]
     p = torch.einsum("nij,npj->npi", torch.linalg.inv(rots), p)
+    if intrins.shape[-1] == 4:
+        p = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
     p = torch.einsum("nij,npj->npi", intrins, p)
     d = p[..., 2:3]
     uv = p[..., :2] / (d + 1e-5)
@@ -104,10 +116,6 @@ def _conv_bn_relu(cin, cout, k, p):
 class OccHead(nn.Module):
     def __init__(self, cfg: OccHeadConfig, img_channels: int = 512):
         super().__init__()
-        if cfg.data_type != "nus":
-            raise NotImplementedError(
-                f"OccHead data_type={cfg.data_type!r}: only the 'nus' branch "
-                "of project_points_on_img is ported")
         self.cfg = cfg
         self.occ_convs = nn.ModuleList(
             _conv_bn_relu(c, c // 2, 3, 1) for c in cfg.in_channels)
@@ -177,7 +185,8 @@ class OccHead(nn.Module):
         if img_t is not None:
             uv, m = project_points_on_img(
                 fine.float(), *tr, pts_range=cfg.point_cloud_range,
-                img_hw=cfg.input_size, occ_whd=cfg.final_occ_size)
+                img_hw=cfg.input_size, occ_whd=cfg.final_occ_size,
+                data_type=cfg.data_type)
             fci, gni = self.img_mlp[0], self.img_mlp[1]
             s = multicam_bilinear(img_t, uv, m, cd) + fci.bias.to(cd)
             s = F.relu(F.group_norm(s.float(), gni.num_groups, gni.weight,

@@ -6,7 +6,9 @@ Counterpart of coocc_tpu/parallel/train_step.py `make_train_step` and
 priorities drawn from `generator`), the losses, the gradient of their sum,
 and the optimizer's update (clip, AdamW, LR schedule; train/state.py). The
 eval step: the eval forward (running statistics, no gradient) and its
-confusion matrices (`eval_hists`). Data parallelism is not ported.
+confusion matrices (`eval_hists`), with the rendered views where the
+config renders in eval (render.test_rendering). Data parallelism is not
+ported.
 """
 from __future__ import annotations
 
@@ -85,16 +87,17 @@ def eval_step(model, batch, cfg, return_logits: bool = True
               ) -> Dict[str, torch.Tensor]:
     """The eval forward of `model` (a CoOccRay) on `batch` in model.eval()
     without gradients, and its hists (eval_hists) -> the hists,
-    fine_overflow and, with return_logits, occ_logits and the fine
-    outputs (JAX make_eval_step's result)."""
-    if cfg.render.test_rendering:
-        raise NotImplementedError(
-            "eval-time rendering (render.test_rendering) is not ported: "
-            "the port renders in training only")
+    fine_overflow, the rendered render_depth and render_rgb where the
+    forward renders (render.test_rendering; render_rgb with the camera
+    branch) and, with return_logits, occ_logits and the fine outputs (JAX
+    make_eval_step's result)."""
     model.eval()
     with torch.no_grad():
         outs = model(batch)
         res = eval_hists(outs, batch, cfg)
+    for k in ("render_depth", "render_rgb"):
+        if k in outs:
+            res[k] = outs[k]
     if "fine_overflow" in outs:
         res["fine_overflow"] = outs["fine_overflow"]
     if return_logits:

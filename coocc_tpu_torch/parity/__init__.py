@@ -4,7 +4,8 @@ The card's machine has no JAX, so the JAX package's real-shape outputs come
 along as committed files, one per config in FINGERPRINTS
 (`flagship_real.npz` for coocc_multi_r50_256x704, `openocc_real.npz` for
 coocc_multi_r101_openoccupancy, `lidar_real.npz` for coocc_lidar,
-`stereo_real.npz` for coocc_multi_r50_256x704_stereo), written
+`stereo_real.npz` for coocc_multi_r50_256x704_stereo, `kitti_real.npz`
+for coocc_kitti), written
 by the gated test
 tests/test_torch_real_shapes.py (COOCC_TORCH_REAL=1) on a CPU that runs
 both packages. Both sides build the config from one set of weights,
@@ -15,7 +16,8 @@ xla_allow_excess_precision off).
 
 Per dtype and output (the `stop_at` prefixes img_voxel, pts_voxel,
 voxel_feats, semantic[0..3], occ, and the cascade's fine_logits, those the
-config has: coocc_lidar has no img_voxel and no cascade) the file
+config has: coocc_lidar has no img_voxel and no cascade; coocc_kitti's
+holds its img and pts prefixes only, PREFIX_ONLY) the file
 holds JAX's values at a fixed seeded sample of elements, its per-channel
 sums and max |x|; the coarse argmax at a sample of cells; JAX's refined
 coarse cells (the 20,000 of the eval cap) and a sample of their children's
@@ -42,7 +44,12 @@ import torch
 FINGERPRINTS = {"coocc_multi_r50_256x704": "flagship_real.npz",
                 "coocc_multi_r101_openoccupancy": "openocc_real.npz",
                 "coocc_lidar": "lidar_real.npz",
-                "coocc_multi_r50_256x704_stereo": "stereo_real.npz"}
+                "coocc_multi_r50_256x704_stereo": "stereo_real.npz",
+                "coocc_kitti": "kitti_real.npz"}
+# configs whose fingerprint holds a stop_at prefix only: coocc_kitti's
+# forward cannot go past its pts prefix, in JAX (its fuser fails) nor in
+# the port (models/coocc_ray.py raises there)
+PREFIX_ONLY = {"coocc_kitti": "pts"}
 N_SAMPLE = 2048        # sampled elements per output
 N_ARGMAX = 4096        # sampled coarse cells for the argmax
 N_FINE_ROWS = 4096     # sampled fine rows: the children of sampled cells
@@ -121,11 +128,16 @@ def outputs_of(out) -> tuple:
 
 
 @torch.no_grad()
-def capture(model, batch) -> Dict[str, np.ndarray]:
+def capture(model, batch, stop_at=None) -> Dict[str, np.ndarray]:
     """One full eval forward of the port, with its prefixes' outputs read
     on the way (forward hooks on the modules whose outputs they are), all
     channels-last, widened to fp32 numpy. Without the fuser voxel_feats is
-    pts_voxel; after the HD encoder pts_voxel is SECOND3DFPN's output."""
+    pts_voxel; after the HD encoder pts_voxel is SECOND3DFPN's output.
+    stop_at='pts': the img and pts prefix's outputs alone."""
+    if stop_at is not None:
+        out = model(batch, stop_at=stop_at)
+        return {k: v.float().cpu().numpy() for k, v in out.items()
+                if v is not None}
     cap = {}
 
     def cl(t):
@@ -193,10 +205,11 @@ def entries(jax_out, port_out, prefix: str,
         fp[f"{prefix}/{k}/csum"] = jax_out[k].reshape(
             -1, jax_out[k].shape[-1]).astype(np.float64).sum(0)
         fp[f"{prefix}/{k}/scale"] = np.float64(np.abs(a).max())
-    occ = jax_out["occ"].reshape(-1, jax_out["occ"].shape[-1])
-    cells = rs.choice(occ.shape[0], N_ARGMAX, replace=False)
-    fp[f"{prefix}/argmax/idx"] = cells.astype(np.int64)
-    fp[f"{prefix}/argmax/val"] = occ[cells].argmax(-1).astype(np.int8)
+    if "occ" in jax_out:
+        occ = jax_out["occ"].reshape(-1, jax_out["occ"].shape[-1])
+        cells = rs.choice(occ.shape[0], N_ARGMAX, replace=False)
+        fp[f"{prefix}/argmax/idx"] = cells.astype(np.int64)
+        fp[f"{prefix}/argmax/val"] = occ[cells].argmax(-1).astype(np.int8)
     if "fine_logits" in jax_out:
         fp.update(_fine_entries(jax_out, prefix, ratio, rs))
     for key, (dmax, dmean) in distances(fp, prefix, port_out,
@@ -243,6 +256,8 @@ def distances(fp, prefix: str, out, ratio: int) -> Dict[str, tuple]:
         cs = out[k].reshape(-1, out[k].shape[-1]).astype(np.float64).sum(0)
         ref = fp[f"{prefix}/{k}/csum"]
         d[f"{k}_csum"] = (np.abs(cs - ref).max() / np.abs(ref).max(), 0.0)
+    if f"{prefix}/argmax/idx" not in fp:
+        return d
     occ = out["occ"].reshape(-1, out["occ"].shape[-1])
     am = occ[fp[f"{prefix}/argmax/idx"]].argmax(-1)
     d["argmax"] = (float((am != fp[f"{prefix}/argmax/val"]).mean()), 0.0)

@@ -7,6 +7,8 @@
         --synthetic --max-steps 2
     python -m coocc_tpu_torch.test tiny work_dirs/tiny --synthetic \
         --device cpu --max-steps 1
+    python -m coocc_tpu_torch.test coocc_multi_r50_256x704 --synthetic \
+        --test-rendering --max-steps 2
 
 The twin of tools/test.py (one device, B=1), in the config's compute_dtype.
 `checkpoint` is a work dir of the train CLI (its last epoch), a reference
@@ -14,14 +16,19 @@ The twin of tools/test.py (one device, B=1), in the config's compute_dtype.
 lacks are warned about and keep flax's initial values), or left out
 (flax's initial weights of seed 0, entry.init_flax). --synthetic evaluates
 the synthetic batches of seeds 2000.. (2 without --max-steps); --pred-save
-dumps each sample's predicted and ground-truth classes as npz. Runs on the
-card unless `--device cpu` is given, and raises when there is none. Not
-ported: the nuScenes loader (--synthetic is required), eval-time rendering,
+dumps each sample's predicted and ground-truth classes as npz.
+--test-rendering renders every view in eval and adds the views' mean PSNR
+and SSIM to the table; --render-dir (which implies it) also writes each
+view's [render | image | depth] PNG there, which needs PIL. The table
+names SemanticKITTI's classes for a 20-class config, nuScenes' otherwise.
+Runs on the card unless `--device cpu` is given, and raises when there is
+none. Not ported: the nuScenes loader (--synthetic is required),
 --show-dir and --save-by-scene.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 from typing import Callable, Dict, Iterable, Optional, Tuple
@@ -31,6 +38,7 @@ import torch
 
 from ..config.base import CoOccConfig
 from ..config.nuscenes import NUSC_CLASS_NAMES
+from ..config.semantic_kitti import KITTI_CLASS_NAMES, NUM_KITTI_CLASSES
 from ..data.synthetic import synthetic_batch
 from ..entry import (build_model, compute_dtype, config_by_name, init_flax,
                      resolve_device)
@@ -91,14 +99,16 @@ def save_predictions(model, cfg: CoOccConfig, data_iter: Iterable,
 def evaluate_checkpoint(cfg: CoOccConfig, checkpoint: Optional[str],
                         data_iter_fn: Callable[[], Iterable], device="cuda",
                         max_steps: Optional[int] = None,
-                        pred_save: Optional[str] = None
+                        pred_save: Optional[str] = None,
+                        render_dir: Optional[str] = None
                         ) -> Tuple[Dict, Dict[str, np.ndarray]]:
     """load_model, the optional prediction dumps, then the eval over
-    data_iter_fn() -> (the summary, the summed hists)."""
+    data_iter_fn() (render_dir: sum_eval_hists') -> (the summary, the
+    summed hists)."""
     model = load_model(cfg, checkpoint, device)
     if pred_save:
         save_predictions(model, cfg, data_iter_fn(), pred_save, max_steps)
-    sums = sum_eval_hists(model, cfg, data_iter_fn(), max_steps)
+    sums = sum_eval_hists(model, cfg, data_iter_fn(), max_steps, render_dir)
     return summarize(sums), sums
 
 
@@ -113,12 +123,21 @@ def main(argv=None):
     ap.add_argument("--max-steps", type=int, default=None)
     ap.add_argument("--pred-save", default=None,
                     help="directory for per-sample npz prediction dumps")
+    ap.add_argument("--test-rendering", action="store_true",
+                    help="render rgb/depth in eval and report PSNR/SSIM "
+                    "(reference: test_rendering=True, coocc_ray.py:562-637)")
+    ap.add_argument("--render-dir", default=None,
+                    help="write [render | image | depth] PNGs here (needs "
+                    "PIL; implies --test-rendering)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
 
     cfg = config_by_name(args.config)
+    if args.test_rendering or args.render_dir:
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, use_rendering=True, test_rendering=True))
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -129,8 +148,11 @@ def main(argv=None):
             yield synthetic_batch(cfg, batch_size=1, seed=2000 + i).to(device)
 
     summary, _ = evaluate_checkpoint(cfg, args.checkpoint, val_iter, device,
-                                     args.max_steps, args.pred_save)
-    print_ssc_table(summary, NUSC_CLASS_NAMES)
+                                     args.max_steps, args.pred_save,
+                                     args.render_dir)
+    print_ssc_table(summary, KITTI_CLASS_NAMES
+                    if cfg.num_classes == NUM_KITTI_CLASSES
+                    else NUSC_CLASS_NAMES)
 
 
 if __name__ == "__main__":

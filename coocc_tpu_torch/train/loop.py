@@ -11,6 +11,7 @@ the run's (JAX's `_all_proc_sum` is the identity in one process).
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Callable, Dict, Iterable, Optional
 
@@ -19,6 +20,8 @@ import numpy as np
 from ..config.base import CoOccConfig
 from ..entry import Trainer, init_flax
 from ..evaluation.formatting import cm_to_ious
+from ..evaluation.render_metrics import (compute_psnr, compute_ssim,
+                                         save_rendered_img)
 from ..evaluation.ssc_metrics import ssc_summary
 from ..parallel.train_step import eval_step
 from .checkpoint import CheckpointManager
@@ -31,13 +34,19 @@ HISTS = ("SC_hist", "SSC_hist", "SC_hist_visible", "SSC_hist_visible",
 
 
 def sum_eval_hists(model, cfg: CoOccConfig, data_iter: Iterable,
-                   max_steps: Optional[int] = None) -> Dict[str, np.ndarray]:
+                   max_steps: Optional[int] = None,
+                   render_dir: Optional[str] = None) -> Dict[str, np.ndarray]:
     """The eval step over `data_iter` (at most max_steps batches, each a
     Batch on the model's device) -> each hist the step returns, summed on
-    the host in int64. Logs each batch's eval time (host clock, from the
-    step's start until its hists are on the host) and JAX's warning when
-    the cascade's capacity dropped occupied cells."""
+    the host in int64, and where the step renders rgb (the config's
+    render.test_rendering) "render_PSNR" and "render_SSIM": each view's
+    against the batch's image (JAX train/loop.py:72-89), with render_dir
+    each view's [render | image | depth] PNG there (PIL). Logs each
+    batch's eval time (host clock, from the step's start until its hists
+    and views are on the host) and JAX's warning when the cascade's
+    capacity dropped occupied cells."""
     sums: Dict[str, np.ndarray] = {}
+    views = {"render_PSNR": [], "render_SSIM": []}
     overflow = n = 0
     ms = []
     for batch in data_iter:
@@ -47,6 +56,21 @@ def sum_eval_hists(model, cfg: CoOccConfig, data_iter: Iterable,
             if k in out:
                 h = out[k].cpu().numpy().astype(np.int64)
                 sums[k] = sums[k] + h if k in sums else h
+        if "render_rgb" in out and batch.imgs is not None:
+            rgb = out["render_rgb"].float().cpu().numpy()
+            dep = out["render_depth"].float().cpu().numpy()
+            gt = batch.imgs.float().cpu().numpy()
+            for b in range(rgb.shape[0]):
+                for v in range(rgb.shape[1]):
+                    views["render_PSNR"].append(compute_psnr(rgb[b, v],
+                                                             gt[b, v]))
+                    views["render_SSIM"].append(compute_ssim(rgb[b, v],
+                                                             gt[b, v]))
+                    if render_dir is not None:
+                        save_rendered_img(rgb[b, v], gt[b, v], dep[b, v],
+                                          os.path.join(
+                                              render_dir,
+                                              f"render_{n}_{b}_cam{v}.png"))
         ms.append((time.perf_counter() - t0) * 1e3)
         if "fine_overflow" in out:
             overflow = max(overflow, int(out["fine_overflow"].max()))
@@ -61,13 +85,15 @@ def sum_eval_hists(model, cfg: CoOccConfig, data_iter: Iterable,
             "cells (max_coarse_occupied=%d) — fine refinement silently "
             "truncated; raise cfg.occ_head.max_coarse_occupied", overflow,
             cfg.occ_head.max_coarse_occupied)
+    sums.update({k: np.asarray(v) for k, v in views.items() if v})
     return sums
 
 
 def summarize(sums: Dict[str, np.ndarray]) -> Dict[str, float]:
     """Summed hists -> JAX evaluate's summary: ssc_summary's keys, and
-    SSC_mIoU / SC_IoU of the _visible and _fine hists, and lidarseg_mIoU,
-    where those hists are there."""
+    SSC_mIoU / SC_IoU of the _visible and _fine hists, lidarseg_mIoU, and
+    the mean render_PSNR and render_SSIM over the views, where those are
+    there."""
     summary = ssc_summary(sums["SC_hist"], sums["SSC_hist"])
     for tag in ("visible", "fine"):
         if f"SSC_hist_{tag}" in sums:
@@ -77,14 +103,20 @@ def summarize(sums: Dict[str, np.ndarray]) -> Dict[str, float]:
     if "lidarseg_hist" in sums:
         summary["lidarseg_mIoU"] = float(
             np.nanmean(cm_to_ious(sums["lidarseg_hist"])[1:]))
+    for k in ("render_PSNR", "render_SSIM"):
+        if k in sums:
+            summary[k] = float(np.mean(sums[k]))
     return summary
 
 
 def evaluate(model, cfg: CoOccConfig, data_iter: Iterable,
-             max_steps: Optional[int] = None) -> Dict[str, float]:
+             max_steps: Optional[int] = None,
+             render_dir: Optional[str] = None) -> Dict[str, float]:
     """The eval over data_iter (the model in eval mode, running
-    statistics) -> the summary of its summed hists."""
-    return summarize(sum_eval_hists(model, cfg, data_iter, max_steps))
+    statistics) -> the summary of its summed hists (and rendered views'
+    scores; sum_eval_hists)."""
+    return summarize(sum_eval_hists(model, cfg, data_iter, max_steps,
+                                    render_dir))
 
 
 def train(cfg: CoOccConfig, train_iter_fn: Callable[[], Iterable],

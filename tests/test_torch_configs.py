@@ -31,15 +31,14 @@ package at tiny shapes (CPU).
 (d) eval_step with a visible mask on the tiny OpenOccupancy model: all its
     hists, SC_hist_visible and SSC_hist_visible among them, equal JAX's
     make_eval_step on JAX's forward of the same weights and batch.
-(e) coocc_kitti raises NotImplementedError when each entry point builds
-    its model: the served CLI, the bench and the test CLI. coocc_lidar and
-    the stereo config coocc_multi_r50_256x704_stereo build in each: the
-    served CLI and the bench build the model at full width (on the meta
-    device here) and then stop for want of a card; the test CLI runs the
-    config's tiny twin (`lidar_tiny`, the LiDAR-only model of
-    tests/test_torch_lidar.py; tiny_config(stereo=True)) on the CPU and
-    prints the SSC table, and the train CLI trains the stereo twin for one
-    epoch.
+(e) coocc_lidar, the stereo config coocc_multi_r50_256x704_stereo and
+    coocc_kitti build in each entry point: the served CLI and the bench
+    build the model at full width (on the meta device here) and then stop
+    for want of a card; the test CLI runs the config's tiny twin
+    (`lidar_tiny`, the LiDAR-only model of tests/test_torch_lidar.py;
+    tiny_config(stereo=True); `kitti_tiny`, the kitti twin of
+    tests/test_torch_kitti.py) on the CPU and prints the SSC table, and the
+    train CLI trains the stereo twin for one epoch.
 """
 import dataclasses
 import functools
@@ -76,6 +75,7 @@ from coocc_tpu_torch.nn.resnet2d import ResNet
 from coocc_tpu_torch.parallel.train_step import eval_step
 from coocc_tpu_torch.test import __main__ as test_cli
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 OCC, LIDAR, DS = (32, 32, 40), (64, 64, 80), (4, 4, 4)
 
@@ -146,6 +146,19 @@ def lidar_configs():
     """(JAX's, the port's) tiny LiDAR-only config."""
     return (lidar_tiny(jax_tiny_config, JaxSECOND3DConfig),
             lidar_tiny(tiny_config, SECOND3DConfig))
+
+
+def kitti_tiny(make):
+    """make(num_classes=20) (either package's tiny_config, which sizes the
+    head with it) shaped like coocc_kitti: 20 classes, one camera, the 30-d
+    camera vector of KITTI's 3x4 intrinsics, OccHead's 'kitti' branch,
+    cascade ratio 2 (the tiny config's)."""
+    cfg = make(num_classes=20)
+    return cfg.replace(
+        name="tiny_kitti", num_classes=20,
+        data=dataclasses.replace(cfg.data, cams=("CAM_LEFT",)),
+        lss=dataclasses.replace(cfg.lss, cam_channels=30),
+        occ_head=dataclasses.replace(cfg.occ_head, data_type="kitti"))
 
 
 _k2 = sparse_enc_packed.subm_ext_conv
@@ -449,7 +462,7 @@ def test_eval_step_visible_hists_equal_jax(runs, monkeypatch):
     assert int(got["SC_hist_visible"].sum()) < int(got["SC_hist"].sum())
 
 
-UNPORTED = ("coocc_kitti",)
+KITTI = "coocc_kitti"
 STEREO = "coocc_multi_r50_256x704_stereo"
 
 
@@ -467,15 +480,42 @@ def _test_cli(name, monkeypatch):
                    "1"])
 
 
-@pytest.mark.parametrize("entry", [_served, _bench, _test_cli],
-                         ids=["served", "bench", "test_cli"])
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_config_raises_in_each_entry_point(name, entry,
-                                                    monkeypatch):
-    """The model is built on the meta device here (the raise comes from
-    its constructor, before any weight is drawn)."""
-    with torch.device("meta"), pytest.raises(NotImplementedError):
-        entry(name, monkeypatch)
+@pytest.mark.parametrize("entry", [_served, _bench],
+                         ids=["served", "bench"])
+def test_kitti_config_builds_in_each_entry_point(entry, monkeypatch):
+    """The served CLI and the bench build coocc_kitti's model at full width
+    (on the meta device): one 384x1280 camera, the depth net's 30-d camera
+    vector, 20 classes, OccHead's 'kitti' branch, cascade ratio 2; then
+    they stop where they need the card (on the card its forward raises
+    ValueError past the pts prefix: tests/test_torch_kitti.py)."""
+    built = []
+
+    def record(cfg, dtype=None):
+        built.append(CoOccRay(cfg, dtype))
+        return built[-1]
+    monkeypatch.setattr(torch_entry, "CoOccRay", record)
+    with torch.device("meta"), pytest.raises(
+            RuntimeError, match="torch.cuda.is_available"):
+        entry(KITTI, monkeypatch)
+    model, = built
+    assert model.cfg.name == KITTI and model.dtype == torch.bfloat16
+    assert model.img_view_transformer.depth_net.bn.weight.shape == (30,)
+    head = model.pts_bbox_head
+    assert head.cfg.data_type == "kitti" and head.cfg.cascade_ratio == 2
+    assert head.fine_mlp[3].weight.shape[0] == 20
+    assert model.pts_grid == (64, 64, 8)
+
+
+def test_kitti_config_runs_through_the_test_cli(monkeypatch, capsys):
+    """`python -m coocc_tpu_torch.test coocc_kitti --synthetic --device
+    cpu` on the config's tiny twin (its synthetic batch with KITTI's 3x4
+    intrinsics): the SSC table names SemanticKITTI's 20 classes."""
+    cfg = kitti_tiny(tiny_config)
+    monkeypatch.setattr(test_cli, "config_by_name",
+                        lambda name: cfg if name == KITTI else None)
+    _test_cli(KITTI, monkeypatch)
+    out = capsys.readouterr().out
+    assert "mIoU" in out and "traffic-sign" in out and "barrier" not in out
 
 
 @pytest.mark.parametrize("entry", [_served, _bench],

@@ -71,6 +71,7 @@ from coocc_tpu_torch.ops.sparse_conv import SparseTensor
 from coocc_tpu_torch.ops.voxelize import delinearize, linearize, voxelize
 from coocc_tpu_torch.parallel.train_step import eval_step
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 # ---------------------------------------------------------------------------
 # (a) the voxelizer

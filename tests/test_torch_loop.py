@@ -55,6 +55,7 @@ from coocc_tpu_torch.train import loop
 from coocc_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager
 from coocc_tpu_torch.train.observe import MetricsLogger, dump_run_metadata
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 LR_STEP = dict(lr_step_epochs=(1,))
 
@@ -104,18 +105,6 @@ def _state(trainer):
     """A copy: a state_dict holds the live tensors, which later steps move."""
     return copy.deepcopy({"model": trainer.model.state_dict(),
                           "optimizer": trainer.optimizer.state_dict()})
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads: the tiny model's steps are thousands of small
-    ops, and with a thread per core each op's barrier stalls while the
-    suite's other workers hold the cores (the loop fixture took 701 s in a
-    6-worker run, 27 s alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -1,9 +1,13 @@
 """The port's forward == JAX's at real shapes, fp32 and bf16, and the
 committed fingerprints the card is held to (gated, cached), for the
 flagship coocc_multi_r50_256x704, for coocc_multi_r101_openoccupancy, for
-the LiDAR-only coocc_lidar and for the stereo flagship
+the LiDAR-only coocc_lidar, for the stereo flagship
 coocc_multi_r50_256x704_stereo (the flagship's shapes, the previous
-keyframe's 6 images and the BEVStereo depth net at 3 EM rounds).
+keyframe's 6 images and the BEVStereo depth net at 3 EM rounds), and for
+coocc_kitti's img and pts prefixes (one 384x1280 camera through R50 with
+KITTI's 3x4 intrinsics, 350,000 points on the 512x512x64 LiDAR grid): its
+forward cannot go past them, in JAX nor in the port
+(tests/test_torch_kitti.py).
 
 Both packages build the config at its own shapes (the flagship: 6x256x704
 images, the 800x800x64 LiDAR grid, the 100x100x8 coarse grid, the
@@ -51,7 +55,8 @@ forwards included) and 8 GB of memory at its peak. OpenOccupancy: JAX's
 fp32 forward alone (its compile included) took 262 s and 12.2 GB at its
 peak (measured first, in a process of its own); the whole case 825 s and
 14.2 GB (ps samples), 252 s and 11.8 GB with JAX's side cached.
-coocc_lidar: see `LIDAR_COST`.
+coocc_lidar: see `LIDAR_COST`. coocc_kitti's prefixes: 67 s wall with
+JAX's side computed (48 s cached), 8 Xeon cores.
 
 The ungated cases check the committed files: their size, their digests
 against the weights and batch the port draws here, and the distances they
@@ -73,11 +78,12 @@ from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 OPENOCC = "coocc_multi_r101_openoccupancy"
 LIDAR = "coocc_lidar"
 STEREO = "coocc_multi_r50_256x704_stereo"
-CONFIGS = (FLAGSHIP, OPENOCC, LIDAR, STEREO)
+KITTI = "coocc_kitti"
+CONFIGS = (FLAGSHIP, OPENOCC, LIDAR, STEREO, KITTI)
 MAX_BYTES = {FLAGSHIP: 1 << 20, OPENOCC: 2 << 20, LIDAR: 1 << 20,
-             STEREO: 1 << 20}
+             STEREO: 1 << 20, KITTI: 1 << 20}
 IDS = {FLAGSHIP: "", OPENOCC: "openoccupancy-", LIDAR: "lidar-",
-       STEREO: "stereo-"}
+       STEREO: "stereo-", KITTI: "kitti-"}
 # configs whose fp32 sides already differ by more than JAX's own bf16 drift
 # (module note): the bf16 bound adds the CPU port's fp32 distance to JAX
 FP32_SLACK = (OPENOCC,)
@@ -89,7 +95,8 @@ DTYPES = {"fp32": None, "bf16": torch.bfloat16}
 def _jax_outputs(cfg, model, batch_np, bf16):
     """JAX's full forward of config `cfg` at real shapes, every prefix
     captured on the way, as the port's `parity.capture` names them (fp32
-    numpy)."""
+    numpy); for the configs of parity.PREFIX_ONLY that prefix's outputs
+    alone."""
     import jax
     import jax.numpy as jnp
     from coocc_tpu.config import get_config as jax_get_config
@@ -119,6 +126,12 @@ def _jax_outputs(cfg, model, batch_np, bf16):
         if bf16 else jax.jit
     jbatch = jax.tree.map(lambda x: None if x is None else jnp.asarray(x),
                           batch_np, is_leaf=lambda x: x is None)
+    stop = parity.PREFIX_ONLY.get(cfg.name)
+    if stop is not None:
+        outs = jit(functools.partial(jmodel.apply, train=False,
+                                     stop_at=stop))(variables, jbatch)
+        return {k: np.asarray(v.astype(jnp.float32))
+                for k, v in outs.items() if v is not None}
     outs, state = jit(fn)(variables, jbatch)
     cap = {k: v["__call__"][0] for k, v in state["intermediates"].items()}
     res = {}
@@ -168,7 +181,8 @@ def test_real_shapes_match_jax_and_write_the_fingerprint(config):
         sdig = parity.state_digest(model)
         fp["state_digest"] = np.array(sdig)
         jax_out = _cached_jax(cfg, model, batch_np, name, sdig[:12])
-        port_out = parity.capture(model, batch)
+        port_out = parity.capture(model, batch,
+                                  parity.PREFIX_ONLY.get(config))
         runs[name] = (jax_out, port_out)
         fp.update(parity.entries(jax_out, port_out, name, ratio))
         del model
@@ -181,6 +195,7 @@ def test_real_shapes_match_jax_and_write_the_fingerprint(config):
     for key, (dmax, dmean) in own.items():
         fp[f"bf16/{key}/own"] = np.array([dmax, dmean])
         fp[f"bf16/{key}/port_own"] = np.array(port_own[key])
+    fp.update(_full_drifts(runs))
     np.savez_compressed(parity.path(config), **fp)
     assert os.path.getsize(parity.path(config)) < MAX_BYTES[config]
 
@@ -193,15 +208,36 @@ def test_real_shapes_match_jax_and_write_the_fingerprint(config):
     _bf16_holds(fp, config)
 
 
+def _full_drifts(runs):
+    """Over every element of each output: (max, mean) of |port bf16 - JAX
+    bf16| relative to JAX bf16's max |x| ("bf16/<key>/port_full") and of
+    JAX's own |bf16 - fp32| relative to JAX fp32's ("bf16/<key>/own_full"),
+    the readings the tiny-shape tests hold."""
+    (j32, _), (j16, p16) = runs["fp32"], runs["bf16"]
+    fp = {}
+    for key in parity.outputs_of(j32):
+        own = np.abs(j16[key] - j32[key]) / np.abs(j32[key]).max()
+        port = np.abs(p16[key] - j16[key]) / np.abs(j16[key]).max()
+        fp[f"bf16/{key}/own_full"] = np.array([own.max(), own.mean()])
+        fp[f"bf16/{key}/port_full"] = np.array([port.max(), port.mean()])
+    return fp
+
+
 def _bf16_holds(fp, config):
-    """The bf16 port against JAX's bf16, at JAX bf16's samples: within
-    2x (max) and 1.5x (mean) of JAX's own bf16-vs-fp32 drift, plus, for
-    the configs in FP32_SLACK, the CPU port's fp32 distance to JAX (the
-    triangle |p16 - j16| <= |p16 - p32| + |p32 - j32| + |j32 - j16|, with
-    the port's own drift as large as JAX's)."""
+    """The bf16 port against JAX's bf16: within 2x (max) and 1.5x (mean)
+    of JAX's own bf16-vs-fp32 drift, plus, for the configs in FP32_SLACK,
+    the CPU port's fp32 distance to JAX (the triangle |p16 - j16| <=
+    |p16 - p32| + |p32 - j32| + |j32 - j16|, with the port's own drift as
+    large as JAX's). Over every element where the fingerprint records it
+    ("_full", the tiny-shape tests' reading; fingerprints written since
+    coocc_kitti's), else at JAX bf16's samples. A heavy-tailed output
+    makes the sampled max a draw: coocc_kitti's bf16 img_voxel reads 2.38x
+    JAX's own max at the 2,048 samples and 0.47x over all 33.5M elements
+    (mean 0.96x and 0.91x)."""
     for key in _outputs(fp):
-        pmax, pmean = fp[f"bf16/{key}/port"]
-        omax, omean = fp[f"bf16/{key}/own"]
+        full = "_full" if f"bf16/{key}/own_full" in fp else ""
+        pmax, pmean = fp[f"bf16/{key}/port{full}"]
+        omax, omean = fp[f"bf16/{key}/own{full}"]
         fmax, fmean = fp[f"fp32/{key}/port"] if config in FP32_SLACK \
             else (0.0, 0.0)
         assert pmax <= 2.0 * omax + fmax and pmean <= 1.5 * omean + fmean, \
@@ -228,6 +264,12 @@ def _small_and_complete(config):
         for key in _outputs(fp):
             assert fp[f"{prefix}/{key}/val"].shape == (parity.N_SAMPLE,)
             assert np.isfinite(fp[f"{prefix}/{key}/val"]).all()
+        if config in parity.PREFIX_ONLY:
+            # the img and pts prefixes: no argmax, no cascade
+            assert _outputs(fp) == ("img_voxel", "pts_voxel")
+            assert not any(k.startswith((f"{prefix}/argmax",
+                                         f"{prefix}/cells")) for k in fp)
+            continue
         if not cfg.use_camera:
             # the LiDAR-only model: no image branch, no cascade
             assert _outputs(fp) == parity.OUTPUTS[1:]
@@ -262,6 +304,10 @@ def test_stereo_fingerprint_is_small_and_complete():
     _small_and_complete(STEREO)
 
 
+def test_kitti_fingerprint_is_small_and_complete():
+    _small_and_complete(KITTI)
+
+
 def _digests_match(config):
     """The weights come from numpy (parity.numpy_weights), so any torch
     version draws these bits; the card checks the same digests first."""
@@ -287,6 +333,11 @@ def test_lidar_fingerprint_digests_match_the_ports_weights_and_batch():
 
 def test_stereo_fingerprint_digests_match_the_ports_weights_and_batch():
     _digests_match(STEREO)
+
+
+def test_kitti_fingerprint_digests_match_the_ports_weights_and_batch():
+    """The batch's digest covers KITTI's 3x4 intrinsics."""
+    _digests_match(KITTI)
 
 
 @pytest.mark.parametrize("config,prefix", [

@@ -74,6 +74,7 @@ from coocc_tpu_torch.nn.lss_stereo import (LSSBEVStereo, depth_sampling_k_list,
                                            homo_warp)
 from coocc_tpu_torch.ops.grid_sample import grid_sample_2d
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 DEPTH_NET = "img_view_transformer.depth_net"
 JIT16 = dict(compiler_options={"xla_allow_excess_precision": False})

@@ -76,6 +76,7 @@ from coocc_tpu_torch.nn.layers import Dropout
 from coocc_tpu_torch.ops.subm_conv import subm_conv_unrounded
 from coocc_tpu_torch.train.state import make_optimizer
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 SEED, BATCH_SEED = 7, 3
 OUTPUTS = ("occ", "fine_logits", "depth_prob", "voxel_feats",
@@ -93,13 +94,14 @@ def _np(t):
     return np.asarray(t).astype(np.float32)
 
 
-def _jax_step(jcfg, variables, bf16):
+def _jax_step(jcfg, variables, bf16, edit=None):
     """JAX's value_and_grad of its train loss (dropout off) -> (raw loss
     terms, outputs, port-named {grads | moved statistics}, grad fn): one
-    compile, reused with perturbed weights through the returned fn."""
+    compile, reused with perturbed weights through the returned fn.
+    edit(batch) -> batch changes the synthetic batch, where given."""
+    batch = jax_synthetic_batch(jcfg, batch_size=1, seed=BATCH_SEED)
     batch = jax.tree.map(lambda x: None if x is None else jnp.asarray(x),
-                         jax_synthetic_batch(jcfg, batch_size=1,
-                                             seed=BATCH_SEED),
+                         edit(batch) if edit else batch,
                          is_leaf=lambda x: x is None)
     model = JaxCoOccRay(cfg=jcfg, dtype=jnp.bfloat16 if bf16 else None)
     rng = jax.random.PRNGKey(0)
@@ -142,16 +144,18 @@ def _to_port(tree, stats, cfg):
         np.asarray, {"params": tree, "batch_stats": stats}), cfg)
 
 
-def _port_step(cfg, sd, prio, dtype, swap_k2):
+def _port_step(cfg, sd, prio, dtype, swap_k2, edit=None):
     """The port's forward + losses + backward with dropout off -> (raw loss
-    terms, outputs, {name: grad}, {name: moved statistic})."""
+    terms, outputs, {name: grad}, {name: moved statistic}); edit as
+    _jax_step's."""
     model = build_model(cfg, "cpu", seed=SEED, dtype=dtype)
     model.load_state_dict(sd)
     model.train()
     for m in model.modules():
         if isinstance(m, Dropout):
             m.p = 0.0
-    batch = synthetic_batch(cfg, batch_size=1, seed=BATCH_SEED).to("cpu")
+    batch = synthetic_batch(cfg, batch_size=1, seed=BATCH_SEED)
+    batch = (edit(batch) if edit else batch).to("cpu")
     with pytest.MonkeyPatch.context() as mp:
         if swap_k2:
             mp.setattr(sparse_enc_packed, "subm_conv", subm_conv_unrounded)

@@ -80,6 +80,7 @@ from coocc_tpu_torch.nn.sparse_enc_packed import packed_bn_train
 from coocc_tpu_torch.train import __main__ as train_cli
 from coocc_tpu_torch.train.checkpoint import CheckpointManager
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 
 # The training twins of openocc_tiny and cam_tiny. The serving twins'
