@@ -63,7 +63,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (not timed again); coocc_lidar's train CLI (`python -m
      coocc_tpu_torch.train coocc_lidar --synthetic --steps-per-epoch 2
      --max-epochs 1`, its eval hook and checkpoint) in a process of its
-     own; then a tiny train step on the card against the CPU;
+     own; then a tiny train step on the card against the CPU. For the
+     flagship and coocc_lidar (C8_CONFIGS) two more steps from one state,
+     generator and batch (the leaves that differ between them), the
+     step's device busy time with the two repaired sums (ops/gather.py's
+     backward, ops/subm_conv.py's tap fold) in their fixed orders against
+     index_add_, and each site's ms on the step's own calls
+     (coocc_tpu_torch/tools/train_repeat.py's helpers; the tool also
+     names the op that still differs); for the flagship, the
+     data-parallel step over an NCCL group of one against the
+     single-device step, bit for bit (both under
+     torch.use_deterministic_algorithms while the step does not repeat);
  10. the epoch loop (train/loop.py:train, the train CLI's function): the
      flagship in bf16 from flax's initial weights, 1 epoch of 2 steps and
      the eval hook on 2 batches, with the counts set to 0 before it and
@@ -129,13 +139,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      render_SSIM over 2 batches, one camera's render on the card against
      the CPU's on the same voxel_feats, and the test CLI with
      --test-rendering in this process.
+ 17. data parallelism (run after phase 10): the flagship's train step at
+     full width (bf16) over 2 ranks, spawned processes that share the
+     card through gloo (NCCL refuses two ranks on one device; NCCL across
+     2 cards where the host has them), 3 steps on synthetic_batch(cfg,
+     batch_size=2, seed=i) split by rows: K1 2 / K2 13 / K2's dX 13
+     launches a step on each rank, both ranks bit-equal after each step,
+     ms a step, device busy, the gradient all-reduce's bytes and ms, the
+     all-reduces a step (SyncBN's), peak memory a rank; SyncBN on the
+     first BatchNorm's real input against one process's BatchNorm on the
+     concatenated batch; the 2-rank eval's hists against one process's of
+     the same two samples.
+The real-shape parity phases' numpy weights are drawn and hashed in a
+background thread from phase 4 on (ParityWeights).
 Prints the card, the kernels' JSON line (the served bf16 path's launches
 and K2 times, K2's fp32 ones beside them; the train path's launches by
 config, K2's mask-only forward in training by config ("train"), and K2's
 dX row, the flagship's with the other configs' under "configs"; the loop's
 launches; K1's and K2's numbers at OpenOccupancy's shapes, K2's at
 coocc_lidar's and coocc_kitti's, the stereo path's launches and one-call
-checks, and the render path's launches, under "configs") and, last, the
+checks, and the render path's launches, under "configs"; each rank's
+launches in the data-parallel steps under "data_parallel") and, last, the
 result line.
 Needs a CUDA card and the repository around it; it imports nothing of
 JAX.
@@ -1043,17 +1067,64 @@ def check_bf16_drift(outs16, outs32):
             raise AssertionError(f"bf16 outputs are not finite (request {i})")
 
 
-def phase_real_shape_parity(name, each=None):
+def _parity_weights(name):
+    """Config `name`'s fingerprint weights (parity.fingerprint_model, drawn
+    with numpy on the host) and their digest (parity.state_digest's)."""
+    from coocc_tpu_torch import parity
+    from coocc_tpu_torch.config import get_config
+    weights = parity.fingerprint_model(get_config(name), "cpu").state_dict()
+    return weights, parity.digest({k: v.numpy() for k, v in weights.items()})
+
+
+class ParityWeights:
+    """The real-shape parity phases' weights, drawn and hashed in one
+    background thread (a daemon: a failed run does not wait for it) in the
+    order the phases read them: numpy's draws and sha256 release the
+    interpreter lock, so the host's part overlaps the card's work of the
+    phases before. take(name) waits for config `name`'s and drops the
+    thread's reference to them."""
+
+    def __init__(self, names):
+        import threading
+        from concurrent.futures import Future
+        self.jobs = {n: Future() for n in names}
+        threading.Thread(target=self._draw, args=(dict(self.jobs),),
+                         daemon=True).start()
+
+    @staticmethod
+    def _draw(jobs):
+        while jobs:
+            name, job = next(iter(jobs.items()))
+            del jobs[name]
+            t0 = time.perf_counter()
+            try:
+                job.set_result(_parity_weights(name))
+            except BaseException as e:  # raised by take()
+                job.set_exception(e)
+            log(f"parity weights of {name} drawn and hashed in the "
+                f"background in {time.perf_counter() - t0:.1f} s")
+            del job
+
+    def take(self, name):
+        t0 = time.perf_counter()
+        out = self.jobs.pop(name).result()
+        log(f"parity weights of {name}: waited {time.perf_counter() - t0:.1f}"
+            " s for them")
+        return out
+
+
+def phase_real_shape_parity(name, weights, each=None):
     """Config `name` at real shapes against JAX's fingerprint
     (coocc_tpu_torch/parity/, written on a CPU by
-    tests/test_torch_real_shapes.py): the weights' and the batch's digests
-    first, then the card's fp32 (TF32 off) and bf16 forwards, every prefix
-    within 2x (max) and 1.5x (mean) of the CPU port's own distance to JAX
-    (`parity.check`), or in bf16 for the configs in
-    parity.BF16_DRIFT_RULE of JAX's own bf16 drift (`parity.check_drift`,
-    the CPU port's readings logged beside); both dtypes are read before a
-    failure is raised. The
-    weights are drawn once (numpy) and loaded into the bf16 model. A config
+    tests/test_torch_real_shapes.py): the weights' (from `weights`, a
+    ParityWeights) and the batch's digests first, then the card's fp32
+    (TF32 off) and bf16 forwards, every prefix within 2x (max) and 1.5x
+    (mean) of the CPU port's own distance to JAX (`parity.check`), or in
+    bf16 for the configs in parity.BF16_DRIFT_RULE of JAX's own bf16 drift
+    (`parity.check_drift`, the CPU port's readings logged beside); both
+    dtypes are read before a failure is raised. The weights are drawn once
+    (numpy), hashed once, and loaded into both models (load_state_dict
+    copies them exactly). A config
     of parity.PREFIX_ONLY is held at that prefix. each(dtype name, model,
     batch), where given, runs on each dtype's model before its capture.
     -> {dtype: [(name, card, cpu port, ok)]}."""
@@ -1071,17 +1142,16 @@ def phase_real_shape_parity(name, each=None):
                              "differs")
     batch = batch_np.to("cuda")
     results = {}
-    weights = parity.fingerprint_model(cfg, "cpu").state_dict()
+    state, digest = weights.take(name)
+    if digest != str(fp["state_digest"]):
+        raise AssertionError(f"{name}: the fingerprint's state_dict "
+                             f"digest differs: {digest}")
     for prefix, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
         # built on the card (its default init is fast there); .to() moves
         # the buffers made from numpy (the frustum)
         with torch.device("cuda"):
             model = CoOccRay(cfg, dtype).eval().to("cuda")
-        model.load_state_dict(weights)
-        digest = parity.state_digest(model)
-        if digest != str(fp["state_digest"]):
-            raise AssertionError(f"{name}: the fingerprint's state_dict "
-                                 f"digest differs: {digest}")
+        model.load_state_dict(state)
         if each is not None:
             each(prefix, model, batch)
         out = parity.capture(model, batch, parity.PREFIX_ONLY.get(name))
@@ -1243,6 +1313,14 @@ def phase_train(name, kernels):
     elif name in TRAIN_K2_ONE_CALL:
         nums["one_call"] = train_k2_one_call(trainer, batches[1])
         lap("K2's first forward and dX of a step")
+    if name in C8_CONFIGS:
+        nums["c8"], snap = c8_check(name, trainer, batches[0])
+        if name == FLAGSHIP:
+            nums["dp_world1"] = dp_world_one(
+                trainer, batches[0], snap,
+                not any(nums["c8"]["differing"].values()))
+            lap("the data-parallel step over a group of one")
+        del snap
     del trainer, model, batches
     torch.cuda.empty_cache()
     return nums
@@ -1776,7 +1854,7 @@ def phase_served_config(name, kernels):
         "peak_gib": peak / 2 ** 30}
 
 
-def phase_openocc(kernels):
+def phase_openocc(kernels, weights):
     """coocc_multi_r101_openoccupancy at full width (6x896x1600 images,
     350,000 LiDAR points, the 1024x1024x80 grid, cascade ratio 4 onto
     512x512x40), as served: 3 requests with K1 2 and K2 13 launches each;
@@ -1835,7 +1913,7 @@ def phase_openocc(kernels):
     torch.cuda.empty_cache()
     lap("eval_step")
 
-    phase_real_shape_parity(OPENOCC)
+    phase_real_shape_parity(OPENOCC, weights)
     nums["test_cli_eval_ms"] = phase_test_cli(OPENOCC)
     nums["bench_fps"] = phase_bench(OPENOCC)
     return k1, k2, nums
@@ -1891,7 +1969,7 @@ def stage_device_times(model, requests):
     return busy
 
 
-def phase_lidar(kernels):
+def phase_lidar(kernels, weights):
     """coocc_lidar, the LiDAR-only model, at full width as served (bf16):
     350,000 points (245,000 valid) voxelized onto the 800x800x65 grid at
     the 120,000-voxel eval cap, the HD encoder (p = 8, 4, 2, 1 at bz = 9,
@@ -1931,13 +2009,13 @@ def phase_lidar(kernels):
           **k2_times(gen, levels, torch.bfloat16)}
     torch.cuda.empty_cache()
     lap("K2's times")
-    phase_real_shape_parity(LIDAR)
+    phase_real_shape_parity(LIDAR, weights)
     nums["test_cli_eval_ms"] = phase_test_cli(LIDAR)
     nums["bench_fps"] = phase_bench(LIDAR)
     return k2, nums
 
 
-def phase_stereo(kernels):
+def phase_stereo(kernels, weights):
     """coocc_multi_r50_256x704_stereo at full width as served (bf16): the
     flagship's 6x256x704 images and LiDAR grid, the previous keyframe's 6
     images through the shared R50's stage 0, and the BEVStereo depth net
@@ -1961,7 +2039,7 @@ def phase_stereo(kernels):
     lap("K1 and K2 on one call each")
     del model, requests
     torch.cuda.empty_cache()
-    phase_real_shape_parity(STEREO)
+    phase_real_shape_parity(STEREO, weights)
     nums["bench_fps"] = phase_bench(STEREO)
     nums["test_cli_eval_ms"] = phase_test_cli(STEREO)
     return nums
@@ -2052,7 +2130,7 @@ KITTI = "coocc_kitti"
 PER_KITTI_PREFIX = {**dict.fromkeys(PER_REQUEST, 0), "subm_ext_conv": 13}
 
 
-def phase_kitti(kernels):
+def phase_kitti(kernels, weights):
     """coocc_kitti's img and pts prefixes at full width (one 384x1280
     camera through R50 with the 30-d camera vector of KITTI's 3x4
     intrinsics; 350,000 points, 245,000 valid, on the 512x512x64 LiDAR
@@ -2115,7 +2193,7 @@ def phase_kitti(kernels):
             raise AssertionError(f"{KITTI}: the full forward ran")
         lap(f"{prefix} prefix served, K2 checked")
 
-    phase_real_shape_parity(KITTI, each)
+    phase_real_shape_parity(KITTI, weights, each)
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(6)
     k2.update(launches=nums["bf16"]["launches"]["subm_ext_conv"],
@@ -2339,6 +2417,373 @@ def phase_tiny_agreement():
                              "cpu's by more than bf16 noise")
 
 
+# ---------------------------------------------------------------------------
+# C8 (the train step repeats) and data parallelism
+# ---------------------------------------------------------------------------
+
+# the configs whose step is run twice from one state (C8)
+C8_CONFIGS = ("coocc_multi_r50_256x704", "coocc_lidar")
+DP_WORLD = 2
+DP_STEPS = 3
+# SyncBN on a real activation against one process's BatchNorm on the
+# concatenated batch: the statistics are summed in other orders (two
+# ranks' means averaged against one mean), fp32 rounding of sums over
+# millions of values, as fractions of each output's largest magnitude
+SYNCBN_REL = 2e-5
+
+
+def c8_check(name, trainer, batch):
+    """C8: two train steps of `trainer` from one state, generator and batch
+    (the card's step should repeat bit for bit) and the leaves that
+    differ; the step's device busy ms with the two repaired sums in their
+    fixed orders against the index_add_ they replace (new, old, old, new,
+    each from the same state) and each site's ms on the step's own calls
+    (coocc_tpu_torch/tools/train_repeat.py, which also names the op that
+    still differs). -> (the numbers, the state before the steps)."""
+    from coocc_tpu_torch.tools import train_repeat as tr
+    lap = lap_timer(f"{name} C8")
+    snap = tr.snapshot(trainer)
+    record = {"gather": [], "taps": []}
+    with tr.repaired_sites("new", record):
+        first = tr.step_result(trainer, batch)
+    tr.restore(trainer, snap)
+    diff = tr.differing(first, tr.step_result(trainer, batch))
+    del first
+    counts = {k: len(v) for k, v in diff.items()}
+    log(f"C8 {name}: two bf16 train steps from one state: differing loss "
+        f"terms {counts['losses']}, gradient leaves {counts['grads']} of "
+        f"{len(list(trainer.model.parameters()))}, moved statistics "
+        f"{counts['stats']}, parameters after the update {counts['params']}")
+    if diff["grads"]:
+        log(f"C8 {name}: differing gradients, the first: "
+            f"{diff['grads'][:4]}")
+    lap("two steps")
+    sites = tr.site_times(record)
+    del record
+    for site in ("gather_rows backward", "K2 dW tap fold"):
+        t = sites[site]
+        log(f"C8 {name}: {site}: {t['calls']} calls a step, index_add_ "
+            f"{t['old_ms']:.4f} ms, fixed order {t['new_ms']:.4f} ms")
+    for n, row, rows, old, new in sites.pop("gather_calls"):
+        log(f"C8 {name}: gather_rows backward, {n} values of {row} onto "
+            f"{rows} rows: index_add_ {old:.4f} ms, fixed order {new:.4f} ms")
+    busy = {"new": [], "old": []}
+    for version in ("new", "old", "old", "new"):
+        tr.restore(trainer, snap)
+        with tr.repaired_sites(version):
+            log(f"profile, {name} one train step, sites {version}:")
+            busy[version].append(device_breakdown(trainer.step, [batch], 0))
+    tr.restore(trainer, snap)
+    lap("site times and busy, new against old")
+    nums = {"differing": counts, "sites": sites,
+            "busy_ms": {k: statistics.mean(v) for k, v in busy.items()
+                        if None not in v}}
+    if len(nums["busy_ms"]) == 2:
+        rise = nums["busy_ms"]["new"] / nums["busy_ms"]["old"] - 1
+        nums["busy_rise"] = rise
+        log(f"C8 {name}: step busy {nums['busy_ms']['new']:.3f} ms with "
+            f"the fixed orders, {nums['busy_ms']['old']:.3f} ms with "
+            f"index_add_ ({100 * rise:+.2f}%)")
+    return nums, snap
+
+
+def dp_world_one(trainer, batch, snap, repeats: bool):
+    """The data-parallel step over an NCCL group of one process against
+    the single-device step from the same state, bit for bit: both as they
+    run where the step repeats (`repeats`), else both under
+    torch.use_deterministic_algorithms, in which it does (C8). -> the
+    differing counts (all 0) and the mode."""
+    import contextlib
+    import tempfile
+    import torch.distributed as dist
+    from coocc_tpu_torch.tools import train_repeat as tr
+    mode = None if repeats else "algorithms"
+    with tempfile.TemporaryDirectory() as d, (
+            tr.deterministic(mode) if mode else contextlib.nullcontext()):
+        tr.restore(trainer, snap)
+        one = tr.step_result(trainer, batch)
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                world_size=1, rank=0)
+        try:
+            tr.restore(trainer, snap)
+            dp = tr.step_result(trainer, batch, dist.group.WORLD)
+        finally:
+            dist.destroy_process_group()
+    tr.restore(trainer, snap)
+    counts = {k: len(v) for k, v in tr.differing(one, dp).items()}
+    log(f"data-parallel step over an NCCL group of 1 against the "
+        f"single-device step from one state (deterministic algorithms: "
+        f"{bool(mode)}): differing {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"the world-size-1 data-parallel step departs "
+                             f"from the single-device step: {counts}")
+    return {"differing": counts, "mode": mode}
+
+
+def _rank0_copy(t, src):
+    """Rank src's t on every rank (a broadcast of a copy)."""
+    import torch.distributed as dist
+    out = t.detach().clone().contiguous()
+    dist.broadcast(out, src)
+    return out
+
+
+def dp_equal_across_ranks(model):
+    """Whether every parameter and buffer equals rank 0's bit for bit (a
+    broadcast of rank 0's flat copy, compared on each rank; the answers
+    combined by a MIN all-reduce)."""
+    import torch
+    import torch.distributed as dist
+    from torch._utils import _flatten_dense_tensors
+    ts = [t.detach() for t in model.state_dict().values()
+          if t.dtype == torch.float32]
+    flat = _flatten_dense_tensors(ts)
+    from coocc_tpu_torch.tools.train_repeat import bits
+    ok = torch.equal(bits(_rank0_copy(flat, 0)), bits(flat))
+    flag = torch.tensor(int(ok), device=flat.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def dp_syncbn_check(model, batch, mesh):
+    """SyncBN at a real shape: the input of the model's first BatchNorm on
+    this rank's sample, in fp32, through a
+    BatchNorm with that layer's affine under bn_sync_group, forward and
+    backward with a seeded cotangent; rank 0 holds the single-process
+    BatchNorm on both ranks' rows concatenated: y and dx of each rank, and
+    dw, db against the sum of the ranks' own. -> {output: max |err| /
+    scale} on rank 0."""
+    import torch
+    from coocc_tpu_torch.nn.layers import BatchNorm, bn_sync_group
+    name, bn = next((n, m) for n, m in model.named_modules()
+                    if isinstance(m, BatchNorm))
+    seen = []
+
+    class Captured(Exception):
+        pass
+
+    def capture(m, args):
+        seen.append(args[0].detach())
+        raise Captured
+    # the first BatchNorm's input comes before any other BatchNorm: an eval
+    # forward reaches it with the training forward's values, moves no
+    # statistic, and stops there
+    hook = bn.register_forward_pre_hook(capture)
+    try:
+        with torch.no_grad():
+            model.eval()(batch)
+    except Captured:
+        pass
+    finally:
+        hook.remove()
+    x = seen[0].float().contiguous()
+    g = torch.randn(x.shape, generator=torch.Generator(mesh.device)
+                    .manual_seed(100 + mesh.rank), device=mesh.device)
+
+    def run(x, g, group):
+        layer = BatchNorm(x.shape[1], bn.eps).to(mesh.device).train()
+        layer.load_state_dict(bn.state_dict())
+        x = x.clone().requires_grad_()
+        with bn_sync_group(group):
+            y = layer(x)
+        (y * g).sum().backward()
+        return y.detach(), x.grad, layer.weight.grad, layer.bias.grad
+
+    y, dx, dw, db = run(x, g, mesh.group)
+    xs = [_rank0_copy(x, r) for r in range(mesh.world)]
+    gs = [_rank0_copy(g, r) for r in range(mesh.world)]
+    ys = [_rank0_copy(y, r) for r in range(mesh.world)]
+    dxs = [_rank0_copy(dx, r) for r in range(mesh.world)]
+    dws = [_rank0_copy(dw, r) for r in range(mesh.world)]
+    dbs = [_rank0_copy(db, r) for r in range(mesh.world)]
+    if mesh.rank != 0:
+        return None
+    ry, rdx, rdw, rdb = run(torch.cat(xs), torch.cat(gs), None)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    res = {"layer": name, "shape": list(x.shape),
+           "y": rel(torch.cat(ys), ry), "dx": rel(torch.cat(dxs), rdx),
+           "dw": rel(sum(dws), rdw), "db": rel(sum(dbs), rdb)}
+    return res
+
+
+def dp_rank_worker(steps):
+    """One rank of the 2-rank flagship step (spawned; phase_data_parallel):
+    its Trainer replica (bf16, seed 0, its own generator), `steps` steps
+    on its row of synthetic_batch(cfg, batch_size=2, seed=i) with the
+    kernels' counts set to 0 before them and read after them, each
+    followed by the bit check of every parameter and statistic against
+    rank 0's; ms a step, one profiled step's device busy time (the card is
+    shared with the other rank), the gradient all-reduce's bytes and ms,
+    the all-reduces of one step (SyncBN's among them), peak memory; the
+    SyncBN check and the 2-rank eval's hists against rank 0's one-process
+    hists of both samples. -> the rank's numbers."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from coocc_tpu_torch.config import get_config
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.entry import FLAGSHIP, Trainer
+    from coocc_tpu_torch.ops._build import load_all_kernel_libraries
+    from coocc_tpu_torch.ops.knn import knn2
+    from coocc_tpu_torch.ops.subm_conv import subm_ext_conv, subm_ext_conv_dx
+    from coocc_tpu_torch.ops.window_knn import window_knn
+    from coocc_tpu_torch.parallel import train_step as ts
+    from coocc_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    load_all_kernel_libraries()
+    kernels = {"window_knn": window_knn, "subm_ext_conv": subm_ext_conv,
+               "subm_ext_conv_dx": subm_ext_conv_dx, "knn2": knn2}
+    mesh = make_mesh(device_type="cuda")
+    cfg = get_config(FLAGSHIP)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, seed=0, steps_per_epoch=steps, mesh=mesh)
+    build_s = time.perf_counter() - t0
+
+    def rows(seed):
+        return shard_batch(synthetic_batch(cfg, batch_size=mesh.world,
+                                           seed=seed), mesh.rank,
+                           mesh.world).to(mesh.device)
+    batches = [rows(i) for i in range(steps)]
+    # the all-reduces of one step: SyncBN's two a BatchNorm call, then the
+    # gradients', the loss terms' and the statistics'
+    reduces = []
+    all_reduce = dist.all_reduce
+
+    def counting(t, *a, **k):
+        reduces.append(t.numel() * t.element_size())
+        return all_reduce(t, *a, **k)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    step_ms, equal, losses = [], [], []
+    for i, b in enumerate(batches):
+        if i == 0:
+            dist.all_reduce = counting
+        sync()
+        t1 = time.perf_counter()
+        m = trainer.step(b)
+        sync()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        dist.all_reduce = all_reduce
+        losses.append({k: float(v) for k, v in m.items()})
+        equal.append(dp_equal_across_ranks(trainer.model))
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grads_bytes = max(reduces)
+    ar_ms = []
+    for _ in range(2):
+        sync()
+        t1 = time.perf_counter()
+        ts.average_gradients(trainer.optimizer.params, mesh.group)
+        sync()
+        ar_ms.append((time.perf_counter() - t1) * 1e3)
+    busy = device_breakdown(trainer.step, batches[:1], 0)
+    syncbn = dp_syncbn_check(trainer.model, batches[0], mesh)
+    eval_batch = synthetic_batch(cfg, batch_size=mesh.world, seed=2000)
+    hists = {k: v.cpu().numpy().tolist() for k, v in ts.eval_step(
+        trainer.model, shard_batch(eval_batch, mesh.rank, mesh.world)
+        .to(mesh.device), cfg, return_logits=False, group=mesh.group)
+        .items() if k in ts.HISTS}
+    one = None
+    if mesh.rank == 0:
+        one = {}
+        for r in range(mesh.world):
+            out = ts.eval_step(trainer.model, shard_batch(
+                eval_batch, r, mesh.world).to(mesh.device), cfg,
+                return_logits=False)
+            for k in ts.HISTS:
+                if k in out:
+                    h = out[k].cpu().numpy()
+                    one[k] = one[k] + h if k in one else h
+        one = {k: v.tolist() for k, v in one.items()}
+    return {"rank": mesh.rank, "device": str(mesh.device),
+            "backend": dist.get_backend(), "build_s": build_s,
+            "step_ms": step_ms, "losses": losses, "equal": equal,
+            "launches": launches, "peak_gib": peak, "busy_ms": busy,
+            "grad_allreduce_bytes": grads_bytes,
+            "grad_allreduce_ms": statistics.median(ar_ms),
+            "allreduces_a_step": len(reduces),
+            "syncbn_allreduces_a_step": len(reduces) - 3,
+            "syncbn": syncbn, "hists": hists, "one_process_hists": one}
+
+
+def phase_data_parallel(kernels, trained):
+    """Data parallelism on the card: C8's results and the world-size-1
+    step (run in phase_train on the flagship's and coocc_lidar's trainers,
+    `trained`), then the flagship's train step over DP_WORLD ranks at full
+    width (bf16), DP_STEPS steps (dp_rank_worker). The machine has one
+    card, and NCCL refuses two ranks on one device, so the ranks join
+    through gloo (asked for by name) and share it; NCCL across 2 cards
+    where the host has them. Checks: both ranks bit-equal after each step,
+    finite losses, K1 2 / K2 13 / K2's dX 13 launches a step on each rank,
+    SyncBN at a real shape within SYNCBN_REL, the 2-rank eval's hists equal
+    to one process's of the same two samples. -> the numbers."""
+    import torch
+    from coocc_tpu_torch.parallel.distributed import spawn_ranks
+    lap = lap_timer("data parallel")
+    res = {"c8": {n: trained[n]["c8"] for n in C8_CONFIGS},
+           "world1": trained[FLAGSHIP]["dp_world1"]}
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count()
+                           >= DP_WORLD else [])
+    for backend in backends:
+        log(f"{DP_WORLD} ranks of the flagship's train step, backend "
+            f"{backend}" + (" (asked for: NCCL refuses two ranks on one "
+                            "card, and this host has "
+                            f"{torch.cuda.device_count()})"
+                            if backend == "gloo" else ""))
+        ranks = spawn_ranks(dp_rank_worker, DP_WORLD, backend, (DP_STEPS,))
+        lap(f"{DP_WORLD} ranks, {backend} (spawn, build, steps, checks)")
+        want = {n: DP_STEPS * per for n, per in PER_TRAIN_STEP.items()}
+        for r in ranks:
+            log(f"rank {r['rank']} on {r['device']} ({r['backend']}): build "
+                f"{r['build_s']:.1f} s; step ms "
+                f"{[round(t, 3) for t in r['step_ms']]} (median "
+                f"{statistics.median(r['step_ms']):.3f}), busy "
+                f"{r['busy_ms']} ms, peak {r['peak_gib']:.3f} GiB; "
+                f"launches over {DP_STEPS} steps {r['launches']}; gradient "
+                f"all-reduce {r['grad_allreduce_bytes']} bytes in "
+                f"{r['grad_allreduce_ms']:.3f} ms; {r['allreduces_a_step']} "
+                f"all-reduces a step, {r['syncbn_allreduces_a_step']} of "
+                f"them SyncBN's; bit-equal to rank 0 after each step "
+                f"{r['equal']}; loss_total "
+                f"{[round(m['loss_total'], 6) for m in r['losses']]}")
+            if r["launches"] != want:
+                raise AssertionError(f"rank {r['rank']}: launches "
+                                     f"{r['launches']}, want {want}")
+            if not all(r["equal"]):
+                raise AssertionError(f"rank {r['rank']} departs from rank 0 "
+                                     f"after a step: {r['equal']}")
+            if not all(math.isfinite(v) for m in r["losses"]
+                       for v in m.values()):
+                raise AssertionError(f"rank {r['rank']}: {r['losses']}")
+            if r["losses"] != ranks[0]["losses"]:
+                raise AssertionError("the ranks' loss metrics differ")
+        sb = ranks[0]["syncbn"]
+        log(f"SyncBN at a real shape ({sb['layer']}, {sb['shape']} a rank, "
+            f"fp32): max |err| / scale y {sb['y']:.3g}, dx {sb['dx']:.3g}, "
+            f"dw {sb['dw']:.3g}, db {sb['db']:.3g} (bound {SYNCBN_REL})")
+        if max(sb[k] for k in ("y", "dx", "dw", "db")) > SYNCBN_REL:
+            raise AssertionError(f"SyncBN departs from one process's "
+                                 f"BatchNorm: {sb}")
+        one = ranks[0]["one_process_hists"]
+        for r in ranks:
+            if r["hists"] != one:
+                raise AssertionError(f"rank {r['rank']}'s {DP_WORLD}-rank "
+                                     "eval hists differ from one "
+                                     "process's")
+        log(f"{DP_WORLD}-rank eval: summed hists ({sorted(one)}) equal one "
+            f"process's of the same {DP_WORLD} samples on every rank")
+        res[backend] = {k: [r[k] for r in ranks] for k in (
+            "step_ms", "busy_ms", "peak_gib", "launches",
+            "grad_allreduce_bytes", "grad_allreduce_ms",
+            "allreduces_a_step", "syncbn_allreduces_a_step", "build_s")}
+        res[backend]["syncbn"] = sb
+    return res
+
+
 def train_phases(kernels, t0):
     """phase_train for every config of TRAIN_CONFIGS, then coocc_lidar's
     train CLI. -> {config: its numbers}."""
@@ -2437,6 +2882,9 @@ def main():
     check_bf16_masks(masks16, masks)
     check_bf16_drift(outs16, outs32)
     del outs16, outs32
+    # the parity phases' numpy weights, drawn from here on beside the card's
+    # work (after the request timings of the host-bound served path)
+    weights = ParityWeights((FLAGSHIP, OPENOCC, LIDAR, STEREO, KITTI))
     log(f"[{time.perf_counter() - t0:.1f} s] dense path:")
     phase_dense_path(model, requests)
     log(f"[{time.perf_counter() - t0:.1f} s] kernels against their plain "
@@ -2463,7 +2911,7 @@ def main():
     phase_tiny_agreement()
     log(f"[{time.perf_counter() - t0:.1f} s] real-shape parity against JAX's "
         "fingerprint:")
-    phase_real_shape_parity(FLAGSHIP)
+    phase_real_shape_parity(FLAGSHIP, weights)
     trained = train_phases(kernels, t0)
     dx_row = train_rows(trained, k1_row, k2_row)
     rows.insert(2, dx_row)
@@ -2473,11 +2921,25 @@ def main():
     loop_launches = phase_loop(kernels)
     for row in rows:
         row["loop_launches"] = loop_launches[row["name"]]
+    t_dp = time.perf_counter()
+    log(f"[{t_dp - t0:.1f} s] data parallelism (C8, the step over a group "
+        f"of one, the flagship over {DP_WORLD} ranks):")
+    dp = phase_data_parallel(kernels, trained)
+    log(f"data parallelism took {time.perf_counter() - t_dp:.1f} s (C8 and "
+        "the group of one in the train phase not counted)")
+    log("data parallelism: " + json.dumps(dp))
+    for row in rows:
+        # each rank's launches over the DP_STEPS steps, by backend
+        row["data_parallel"] = {
+            b: {"launches_per_rank": [r[row["name"]]
+                                      for r in dp[b]["launches"]],
+                "steps": DP_STEPS}
+            for b in ("gloo", "nccl") if b in dp}
 
     log(f"[{time.perf_counter() - t0:.1f} s] {OPENOCC} (bf16, as served; "
         "K1 and K2 at its shapes, real-shape parity, test CLI, bench):")
     served = {}
-    k1_oo, k2_oo, served[OPENOCC] = phase_openocc(kernels)
+    k1_oo, k2_oo, served[OPENOCC] = phase_openocc(kernels, weights)
     for name in ("coocc_multi_r101_896x1600", "coocc_cam_r101_896x1600"):
         log(f"[{time.perf_counter() - t0:.1f} s] {name} (bf16, as served):")
         model, _, launches_c, served[name] = phase_served_config(name,
@@ -2487,15 +2949,15 @@ def main():
         torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - t0:.1f} s] {LIDAR} (bf16, as served; K2 "
         "at its HD levels, real-shape parity, test CLI, bench):")
-    k2_lidar, served[LIDAR] = phase_lidar(kernels)
+    k2_lidar, served[LIDAR] = phase_lidar(kernels, weights)
     log(f"[{time.perf_counter() - t0:.1f} s] {STEREO} (bf16, as served; K1 "
         "and K2 on one call each, the plane sweep's share, real-shape "
         "parity, bench, test CLI):")
-    served[STEREO] = phase_stereo(kernels)
+    served[STEREO] = phase_stereo(kernels, weights)
     t_new = time.perf_counter()
     log(f"[{t_new - t0:.1f} s] {KITTI} (its img and pts prefixes at full "
         "width, bf16 and fp32; K2 on every call, real-shape parity):")
-    k2_kitti, served[KITTI] = phase_kitti(kernels)
+    k2_kitti, served[KITTI] = phase_kitti(kernels, weights)
     log(f"[{time.perf_counter() - t0:.1f} s] eval-time rendering (the "
         "flagship, bf16, test_rendering):")
     served["render"] = phase_render(kernels)

@@ -7,11 +7,14 @@ weights drawn from a seeded `torch.Generator` and a synthetic batch, and
 returns `(fn, args)` with `fn(*args)` the eval forward. `served_model`
 builds the model the CLI serves, in the config's `compute_dtype`.
 `train_steps` trains it on synthetic batches in the config's
-`compute_dtype`. `init_flax` draws the weights the JAX package starts a
-run from (flax's initializers), which the train and test CLIs use.
+`compute_dtype`; `data_parallel_train_steps` does so over several
+processes, one a device (the twin of `__graft_entry__.dryrun_multichip`).
+`init_flax` draws the weights the JAX package starts a run from (flax's
+initializers), which the train and test CLIs use.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -22,7 +25,9 @@ from .config.base import CoOccConfig
 from .data.synthetic import synthetic_batch, tiny_config
 from .models.coocc_ray import CoOccRay
 from .nn.layers import BatchNorm
-from .parallel.train_step import train_step
+from .parallel.distributed import spawn_ranks
+from .parallel.mesh import Mesh, make_mesh, shard_batch
+from .parallel.train_step import rank_seed, train_step
 from .train.state import make_optimizer
 
 FLAGSHIP = "coocc_multi_r50_256x704"
@@ -143,10 +148,17 @@ def build_model(cfg: CoOccConfig, device="cuda", seed: int = 0,
                 init=init_weights) -> CoOccRay:
     """CoOccRay(cfg, dtype) with the weights `init(model, seed)` draws
     (init_weights, or init_flax), in eval mode, on `device`; the weights
-    are drawn in fp32 and stay fp32. A part of a config the port does not
-    run (a LiDAR impl, a backbone) raises NotImplementedError before the
-    device is looked at."""
-    model = CoOccRay(cfg, dtype)
+    are drawn in fp32 and stay fp32. For the card the model is built
+    there: its modules' default initializers, which `init` overwrites
+    (parameters and BatchNorm statistics alike), take seconds of host
+    time for a full-width model on the CPU; the buffers made from numpy
+    are the same. A part of a config the port does not run (a LiDAR impl,
+    a backbone) raises NotImplementedError before the device is
+    resolved."""
+    on_card = torch.device(device).type == "cuda" and \
+        torch.cuda.is_available()
+    with torch.device(device) if on_card else contextlib.nullcontext():
+        model = CoOccRay(cfg, dtype)
     device = resolve_device(device)
     return init(model, seed).eval().to(device)
 
@@ -168,19 +180,26 @@ class Trainer:
     `init(model, seed)` draws), its optimizer (train/state.py, its LR
     schedule counting `steps_per_epoch` updates an epoch) and the
     generator its dropout and cascade priorities draw from, seeded with
-    `seed`. `step(batch)` is one train step."""
+    `seed`. `step(batch)` is one train step. With `mesh` (parallel/
+    mesh.py) it is this rank's replica on the mesh's device: its generator
+    seeded with rank_seed(seed, rank), each step data-parallel over the
+    mesh's group on this rank's rows of the global batch."""
 
     def __init__(self, cfg: CoOccConfig, device="cuda", seed: int = 0, *,
-                 steps_per_epoch: int, init=init_weights):
-        device = resolve_device(device)
+                 steps_per_epoch: int, init=init_weights,
+                 mesh: Optional[Mesh] = None):
+        device = resolve_device(device if mesh is None else mesh.device)
         self.model = build_model(cfg, device, seed, compute_dtype(cfg),
                                  init).train()
         self.optimizer = make_optimizer(self.model, cfg.optim,
                                         steps_per_epoch)
-        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.group = None if mesh is None else mesh.group
+        self.generator = torch.Generator(device=device).manual_seed(
+            rank_seed(seed, 0 if mesh is None else mesh.rank))
 
     def step(self, batch):
-        return train_step(self.model, self.optimizer, batch, self.generator)
+        return train_step(self.model, self.optimizer, batch, self.generator,
+                          self.group)
 
 
 def train_steps(cfg: CoOccConfig, steps: int, device="cuda", seed: int = 0):
@@ -192,6 +211,38 @@ def train_steps(cfg: CoOccConfig, steps: int, device="cuda", seed: int = 0):
     metrics = [trainer.step(synthetic_batch(cfg, batch_size=1, seed=i)
                             .to(device)) for i in range(steps)]
     return trainer, metrics
+
+
+def _data_parallel_rank(cfg: CoOccConfig, steps: int, device_type: str,
+                        seed: int):
+    mesh = make_mesh(device_type=device_type)
+    trainer = Trainer(cfg, seed=seed, steps_per_epoch=steps, mesh=mesh)
+    metrics = []
+    for i in range(steps):
+        batch = shard_batch(synthetic_batch(cfg, batch_size=mesh.world,
+                                            seed=i), mesh.rank, mesh.world)
+        m = trainer.step(batch.to(mesh.device))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics
+
+
+def data_parallel_train_steps(cfg: CoOccConfig, steps: int, world: int,
+                              backend: str, device="cuda", seed: int = 0):
+    """`steps` data-parallel train steps, one epoch, in `world` processes
+    of this host joined by `backend` ("nccl" between cards, "gloo" on the
+    CPU or for ranks that share a card): each rank a Trainer(cfg, seed)
+    replica on its device (parallel/mesh.py), step i on its row of
+    synthetic_batch(cfg, batch_size=world, seed=i), as JAX's mesh step
+    takes the global batch. -> each rank's metrics of each step, as
+    floats (equal across ranks: the loss terms are the ranks' mean)."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        device_type = "cpu"
+    else:
+        resolve_device(dev)
+        device_type = "cuda"
+    return spawn_ranks(_data_parallel_rank, world, backend,
+                       (cfg, steps, device_type, seed))
 
 
 def entry(device="cuda"):

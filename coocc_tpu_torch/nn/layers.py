@@ -23,7 +23,13 @@ and every layer here follows the dtype of the activation it is given:
     (`_BatchNormTrain`) keeps the input in its own dtype and the [C]
     statistics, and computes the batch-statistics gradient from them in
     fp32, rounded once to the input's dtype: autograd through the forward's
-    ops would keep two fp32 copies of the input a layer. It keeps no
+    ops would keep two fp32 copies of the input a layer. Under
+    `bn_sync_group(group)` (a data-parallel step, parallel/train_step.py)
+    it is SyncBN as flax's BatchNorm with an `axis_name` computes it: the
+    [2, C] means of x and x^2 are averaged over the group's ranks in one
+    all-reduce before the variance E[x^2] - E[x]^2 is formed, and its
+    backward sums the [2, C] sums of g and g * xhat over the ranks (the
+    gradient of that mean). It keeps no
     `num_batches_tracked` counter (a counter the JAX variables cannot carry,
     so `convert.state_dict_from_jax` round-trips exactly).
   * `Dropout`: flax's, its keep mask drawn from the module's `generator`.
@@ -34,11 +40,16 @@ is never cast as a whole.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv import conv
+from ..parallel.distributed import group_mean_
 
 
 class Conv2d(nn.Conv2d):
@@ -79,24 +90,51 @@ class Linear(nn.Linear):
         return conv(F.linear, x, self.weight, self.bias)
 
 
+# The process group the training BatchNorms sync their statistics over;
+# None outside a data-parallel step.
+_BN_SYNC_GROUP = contextvars.ContextVar("bn_sync_group", default=None)
+
+
+@contextlib.contextmanager
+def bn_sync_group(group):
+    """Inside the block every BatchNorm in training syncs its batch
+    statistics over `group` (a torch.distributed process group; None: no
+    sync): SyncBN, the twin of JAX's `bn_sync_axis` (coocc_tpu/nn/
+    layers.py:34-49; reference tools/train.py:222-223). The packed
+    encoders' masked BatchNorms stay rank-local, as JAX's `_PackedBNCore`
+    does."""
+    token = _BN_SYNC_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BN_SYNC_GROUP.reset(token)
+
+
 class _BatchNormTrain(torch.autograd.Function):
     """BatchNorm on the batch's statistics over dim 1 of x: the forward in
     fp32 as flax computes it (mean, biased variance E[x^2] - E[x]^2),
     rounded once to x's dtype; -> (y, mean, var). The backward keeps x in
     its dtype and the [C] statistics, and recomputes the normalized input:
-    dx = w*rstd * (g - mean(g) - xhat * mean(g * xhat)), in fp32."""
+    dx = w*rstd * (g - mean(g) - xhat * mean(g * xhat)), in fp32. With a
+    process group the means of x and x^2 are the group's (flax's pmean of
+    both in one call) and mean(g), mean(g * xhat) are over the group's
+    n * world values; dw and db stay this rank's sums (the step averages
+    every gradient)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group):
         dims = [0] + list(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.float()
-        mean = xf.mean(dims)
-        var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+        mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)
+        if group is not None:
+            mean, mean2 = group_mean_(torch.stack([mean, mean2]), group)
+        var = (mean2 - mean * mean).clamp(min=0.0)
         rstd = torch.rsqrt(var + eps)
         mul = rstd * weight
         y = (xf - mean.view(shape)) * mul.view(shape) + bias.view(shape)
         ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y.to(x.dtype), mean, var
 
@@ -111,15 +149,22 @@ class _BatchNormTrain(torch.autograd.Function):
         xhat = torch.sub(x, mean.view(shape)).mul_(rstd.view(shape))
         db = g.sum(dims)
         dw = (g * xhat).sum(dims)
-        dx = xhat.mul_((-dw / n).view(shape)).add_(g).sub_(
-            (db / n).view(shape)).mul_((weight * rstd).view(shape))
-        return dx.to(x.dtype), dw, db, None
+        sdb, sdw = db, dw
+        if ctx.group is not None:
+            sums = torch.stack([db, dw])
+            dist.all_reduce(sums, group=ctx.group)
+            sdb, sdw = sums
+            n *= dist.get_world_size(ctx.group)
+        dx = xhat.mul_((-sdw / n).view(shape)).add_(g).sub_(
+            (sdb / n).view(shape)).mul_((weight * rstd).view(shape))
+        return dx.to(x.dtype), dw, db, None, None
 
 
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 of [N, C, ...] (1d, 2d and 3d alike), in fp32
     with one rounding to the input's dtype: the running statistics in eval,
-    the batch's in training (see the module note).
+    the batch's in training (see the module note), the group's under
+    `bn_sync_group`, which the running statistics then move towards.
 
     eps and momentum follow the call site, as in the reference: 1e-5 and
     0.1 are torch's and the JAX BatchNorm's defaults; SECONDFPN passes 1e-3
@@ -146,7 +191,7 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias,
-                                             self.eps)
+                                             self.eps, _BN_SYNC_GROUP.get())
         if update_stats:
             with torch.no_grad():
                 self.running_mean.copy_(self.decay * self.running_mean

@@ -52,6 +52,19 @@ def grid_sample_2d(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
             + corner(x0 + 1, y0 + 1) * wx * wy)
 
 
+def _corner_rows(table: torch.Tensor, idxs):
+    """Each corner's rows of `table` at the indices `idxs` yields, in
+    order. Where the table takes a gradient, one gather_rows of every
+    corner: its backward sums each row's cotangents in one fixed-order
+    pass (ops/gather.py), and a call costs some 20 small kernels. Without
+    one, each corner's indices and gather as the caller reaches them, so
+    that no two are held at once (all 8 took 2.8 GB at OpenOccupancy's
+    cascade)."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return gather_rows(table, torch.stack(tuple(idxs)))
+    return (table[i] for i in idxs)
+
+
 def _axis_corners(fine: torch.Tensor, S: int, V: int):
     """Trilinear corners of fine coords [P] along one axis of a V-cell grid
     sampled as an S-cell one (grid_sample, align_corners=False, zeros
@@ -81,9 +94,12 @@ def cascade_sample_3d(vol: torch.Tensor, fine: torch.Tensor,
                for a, n in enumerate((X, Y, Z))]
     out = torch.zeros(fine.shape[0], C, dtype=torch.float32,
                       device=vol.device)
-    for (xi, wx), (yi, wy), (zi, wz) in itertools.product(*corners):
+    both = list(itertools.product(*corners))
+    rows = _corner_rows(table, ((xi * Y + yi) * Z + zi for (
+        xi, _), (yi, _), (zi, _) in both))
+    for v, ((_, wx), (_, wy), (_, wz)) in zip(rows, both):
         w = (wx * wy * wz).to(vol.dtype).float()
-        out += w[:, None] * gather_rows(table, (xi * Y + yi) * Z + zi).float()
+        out += w[:, None] * v.float()
     return out.to(vol.dtype)
 
 
@@ -106,11 +122,13 @@ def multicam_bilinear(imgs: torch.Tensor, uv: torch.Tensor,
     cam = torch.arange(N, device=imgs.device)[:, None] * (H * W)
     out = torch.zeros(uv.shape[1], C, dtype=torch.float32,
                       device=imgs.device)
-    for yi, w_y in ((y0, 1 - wy), (y0 + 1, wy)):
-        for xi, w_x in ((x0, 1 - wx), (x0 + 1, wx)):
-            inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-            w = (w_y * md * inb.to(dtype)) * w_x             # [N, P]
-            rows = cam + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
-            v = gather_rows(table, rows.reshape(-1)).reshape(N, -1, C)
-            out += (w.float()[..., None] * v.float()).sum(0)
+    both = [(yi, w_y, xi, w_x) for yi, w_y in ((y0, 1 - wy), (y0 + 1, wy))
+            for xi, w_x in ((x0, 1 - wx), (x0 + 1, wx))]
+    rows = _corner_rows(table, (
+        cam + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        for yi, _, xi, _ in both))                           # [N, P, C] each
+    for v, (yi, w_y, xi, w_x) in zip(rows, both):
+        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        w = (w_y * md * inb.to(dtype)) * w_x                 # [N, P]
+        out += (w.float()[..., None] * v.float()).sum(0)
     return out.to(dtype)

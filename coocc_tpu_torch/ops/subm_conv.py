@@ -110,18 +110,29 @@ def subm_ext_weight(w27: torch.Tensor, p: int) -> torch.Tensor:
     return gather_taps(w27, subm_ext_table(p))
 
 
+def tap_readers(table: np.ndarray) -> np.ndarray:
+    """[3, k]: for each z tap, the blocks (i * n_out + o, in that order)
+    that read it from an [n_in, n_out] table of z taps, padded with the
+    index n_in * n_out (a zero block appended after them)."""
+    flat = table.reshape(-1)
+    lists = [np.flatnonzero(flat == dz) for dz in range(ZERO_TAP)]
+    k = max(len(r) for r in lists)
+    return np.stack([np.pad(r, (0, k - len(r)), constant_values=flat.size)
+                     for r in lists])
+
+
 def gather_taps_transpose(g: torch.Tensor, table: np.ndarray, Ci: int,
                           Co: int) -> torch.Tensor:
     """The transpose of `gather_taps`: a block weight's gradient [3, 3,
     n_in*Ci, n_out*Co] -> the taps' [27, Ci, Co], each tap summing the
-    blocks that read it, in fp32."""
+    blocks that read it in fp32, in the order of `tap_readers` (a sum over
+    one axis: the same order on every run, where atomics would not be)."""
     n_in, n_out = table.shape
     blocks = g.float().reshape(3, 3, n_in, Ci, n_out, Co).permute(
         0, 1, 2, 4, 3, 5).reshape(3, 3, n_in * n_out, Ci, Co)
-    idx = device_constant(table.reshape(-1), g.device)
-    w3 = g.new_zeros((3, 3, ZERO_TAP + 1, Ci, Co), dtype=torch.float32)
-    w3.index_add_(2, idx, blocks)
-    return w3[:, :, :ZERO_TAP].reshape(27, Ci, Co)
+    blocks = torch.cat([blocks, blocks.new_zeros(3, 3, 1, Ci, Co)], dim=2)
+    idx = device_constant(tap_readers(table), g.device)
+    return blocks[:, :, idx].sum(3).reshape(27, Ci, Co)
 
 
 def flip_taps(w27: torch.Tensor) -> torch.Tensor:

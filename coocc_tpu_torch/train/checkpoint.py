@@ -14,7 +14,8 @@ statistics), "optimizer": Optimizer.state_dict(), "epoch": N}. best/ holds
 hard links to the epoch's files, where JAX copies the directory: the same
 files under the same names, without a second copy of the flagship's 2.5 GB,
 and pruning an epoch dir leaves best/ whole. JAX's orbax checkpoints are not
-read.
+read. A data-parallel run's rank 0 writes it (train/loop.py): the same
+state_dict as one process's, its replicas being equal.
 """
 from __future__ import annotations
 

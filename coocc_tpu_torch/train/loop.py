@@ -5,8 +5,15 @@ custom_train_detector, apis/mmdet_train.py:29-199 + mmcv's
 EpochBasedRunner + OccDistEvalHook, eval_hooks.py:27-87): iterate epochs,
 take the train step (parallel/train_step.py), log the losses every
 `log_interval` steps, evaluate each epoch, checkpoint with
-save_best='SSC_mIoU'. One process, one device: the hists summed here are
-the run's (JAX's `_all_proc_sum` is the identity in one process).
+save_best='SSC_mIoU'. Data-parallel (a Mesh of parallel/mesh.py: one
+process per device, each given its rank's rows by the caller's iterators):
+every rank steps (parallel/train_step.py with the mesh's group), the eval
+hists are summed over the ranks at the end (parallel/distributed.py:
+allgather_metrics, JAX's `_all_proc_sum`, train/loop.py:29-37) and the
+rendered views' scores gathered, so every
+rank holds the run's summary; rank 0 alone logs the metrics and writes the
+checkpoints while the others wait at a barrier; on resume every rank
+restores the same checkpoint.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import time
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..config.base import CoOccConfig
 from ..entry import Trainer, init_flax
@@ -23,19 +32,20 @@ from ..evaluation.formatting import cm_to_ious
 from ..evaluation.render_metrics import (compute_psnr, compute_ssim,
                                          save_rendered_img)
 from ..evaluation.ssc_metrics import ssc_summary
-from ..parallel.train_step import eval_step
+from ..parallel.distributed import (allgather_metrics, is_main_process,
+                                    world_size)
+from ..parallel.mesh import Mesh
+from ..parallel.train_step import HISTS, eval_step
 from .checkpoint import CheckpointManager
 from .observe import MetricsLogger, dump_run_metadata
 
 log = logging.getLogger("coocc_tpu_torch")
 
-HISTS = ("SC_hist", "SSC_hist", "SC_hist_visible", "SSC_hist_visible",
-         "SC_hist_fine", "SSC_hist_fine", "lidarseg_hist")
-
 
 def sum_eval_hists(model, cfg: CoOccConfig, data_iter: Iterable,
                    max_steps: Optional[int] = None,
-                   render_dir: Optional[str] = None) -> Dict[str, np.ndarray]:
+                   render_dir: Optional[str] = None,
+                   group=None) -> Dict[str, np.ndarray]:
     """The eval step over `data_iter` (at most max_steps batches, each a
     Batch on the model's device) -> each hist the step returns, summed on
     the host in int64, and where the step renders rgb (the config's
@@ -44,7 +54,9 @@ def sum_eval_hists(model, cfg: CoOccConfig, data_iter: Iterable,
     each view's [render | image | depth] PNG there (PIL). Logs each
     batch's eval time (host clock, from the step's start until its hists
     and views are on the host) and JAX's warning when the cascade's
-    capacity dropped occupied cells."""
+    capacity dropped occupied cells. With `group` (data_iter this rank's
+    rows) the hists are summed over the ranks, the views' scores gathered
+    (rank order) and the dropped cells' maximum taken over them."""
     sums: Dict[str, np.ndarray] = {}
     views = {"render_PSNR": [], "render_SSIM": []}
     overflow = n = 0
@@ -79,6 +91,17 @@ def sum_eval_hists(model, cfg: CoOccConfig, data_iter: Iterable,
             break
     log.info("eval: %d batches, ms a batch %s", n,
              [round(t, 3) for t in ms])
+    if world_size(group) > 1:
+        device = next(model.parameters()).device
+        sums = {k: allgather_metrics(v, group, device)
+                for k, v in sums.items()}
+        for k, v in views.items():
+            parts = [None] * world_size(group)
+            dist.all_gather_object(parts, v, group=group)
+            views[k] = [x for part in parts for x in part]
+        top = torch.tensor(overflow, device=device)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        overflow = int(top)
     if overflow > 0:
         log.warning(
             "cascade eval capacity exceeded by up to %d occupied coarse "
@@ -111,19 +134,20 @@ def summarize(sums: Dict[str, np.ndarray]) -> Dict[str, float]:
 
 def evaluate(model, cfg: CoOccConfig, data_iter: Iterable,
              max_steps: Optional[int] = None,
-             render_dir: Optional[str] = None) -> Dict[str, float]:
+             render_dir: Optional[str] = None, group=None) -> Dict[str, float]:
     """The eval over data_iter (the model in eval mode, running
     statistics) -> the summary of its summed hists (and rendered views'
-    scores; sum_eval_hists)."""
+    scores; sum_eval_hists, over the group's ranks where one is given)."""
     return summarize(sum_eval_hists(model, cfg, data_iter, max_steps,
-                                    render_dir))
+                                    render_dir, group))
 
 
 def train(cfg: CoOccConfig, train_iter_fn: Callable[[], Iterable],
           val_iter_fn: Optional[Callable[[], Iterable]] = None,
           steps_per_epoch: int = 1000, work_dir: str = "work_dirs/run",
           resume: bool = False, seed: int = 0, log_interval: int = 50,
-          eval_max_steps: Optional[int] = None, device="cuda") -> Trainer:
+          eval_max_steps: Optional[int] = None, device="cuda",
+          mesh: Optional[Mesh] = None) -> Trainer:
     """cfg.optim.max_epochs epochs of steps_per_epoch train steps on the
     batches train_iter_fn() yields (on `device`), from the weights
     init_flax draws with `seed`; after each epoch the eval over
@@ -132,11 +156,14 @@ def train(cfg: CoOccConfig, train_iter_fn: Callable[[], Iterable],
     epoch from its weights, BN statistics, AdamW moments and LR count. The
     generator of dropout and the cascade's priorities starts from `seed`
     on every start, resumed or not (JAX keeps no RNG in its checkpoint).
-    -> the Trainer (model, optimizer, generator)."""
+    With `mesh` (its device in place of `device`) the run is data-parallel
+    (the module note). -> the Trainer (model, optimizer, generator)."""
     trainer = Trainer(cfg, device, seed, steps_per_epoch=steps_per_epoch,
-                      init=init_flax)
+                      init=init_flax, mesh=mesh)
     model, optimizer = trainer.model, trainer.optimizer
     device = next(model.parameters()).device
+    group = None if mesh is None else mesh.group
+    main = is_main_process()
 
     ckpt = CheckpointManager(work_dir, max_keep=1)
     start_epoch = 0
@@ -148,8 +175,10 @@ def train(cfg: CoOccConfig, train_iter_fn: Callable[[], Iterable],
             start_epoch = tree["epoch"] + 1
             log.info("resumed from epoch %d", epoch)
 
-    dump_run_metadata(work_dir, cfg)
-    mlog = MetricsLogger(work_dir)
+    mlog = None
+    if main:
+        dump_run_metadata(work_dir, cfg)
+        mlog = MetricsLogger(work_dir)
 
     for epoch in range(start_epoch, cfg.optim.max_epochs):
         t0 = time.time()
@@ -159,28 +188,34 @@ def train(cfg: CoOccConfig, train_iter_fn: Callable[[], Iterable],
                 break
             metrics = trainer.step(batch)
             values = {k: float(v) for k, v in metrics.items()}
-            if (i + 1) % log_interval == 0:
+            if (i + 1) % log_interval == 0 and main:
                 log.info("epoch %d iter %d: %s", epoch, i + 1,
                          {k: round(v, 4) for k, v in values.items()})
                 mlog.log("train", epoch=epoch, iter=i + 1, **values)
             running = {k: running.get(k, 0.0) + v for k, v in values.items()}
 
-        log.info("epoch %d done in %.1fs", epoch, time.time() - t0)
         n_it = max(min(i + 1, steps_per_epoch), 1)
-        mlog.log("epoch", epoch=epoch, time_s=time.time() - t0,
-                 **{k: v / n_it for k, v in running.items()})
+        if main:
+            log.info("epoch %d done in %.1fs", epoch, time.time() - t0)
+            mlog.log("epoch", epoch=epoch, time_s=time.time() - t0,
+                     **{k: v / n_it for k, v in running.items()})
 
         metrics_out = None
         if val_iter_fn is not None:
             metrics_out = evaluate(model, cfg, val_iter_fn(),
-                                   max_steps=eval_max_steps)
+                                   max_steps=eval_max_steps, group=group)
             model.train()
-            log.info("epoch %d eval: SC IoU %.4f SSC mIoU %.4f", epoch,
-                     metrics_out["SC_IoU"], metrics_out["SSC_mIoU"])
-            mlog.log("val", epoch=epoch, **metrics_out)
+            if main:
+                log.info("epoch %d eval: SC IoU %.4f SSC mIoU %.4f", epoch,
+                         metrics_out["SC_IoU"], metrics_out["SSC_mIoU"])
+                mlog.log("val", epoch=epoch, **metrics_out)
 
-        ckpt.save({"model": model.state_dict(),
-                   "optimizer": optimizer.state_dict(), "epoch": epoch},
-                  epoch, metrics=metrics_out)
-    mlog.close()
+        if main:
+            ckpt.save({"model": model.state_dict(),
+                       "optimizer": optimizer.state_dict(), "epoch": epoch},
+                      epoch, metrics=metrics_out)
+        if group is not None:
+            dist.barrier(group)
+    if main:
+        mlog.close()
     return trainer

@@ -49,7 +49,8 @@ def test_every_port_module_imports_without_jax():
               "parallel.train_step", "parity", "evaluation.ssc_metrics",
               "evaluation.formatting", "evaluation.savers", "train.loop",
               "train.checkpoint", "train.observe", "test.__main__",
-              "config.semantic_kitti", "evaluation.render_metrics"):
+              "config.semantic_kitti", "evaluation.render_metrics",
+              "parallel.distributed", "parallel.mesh"):
         assert f"coocc_tpu_torch.{m}" in mods
     _run_clean("\n".join(["import coocc_tpu_torch"]
                          + [f"import {m}" for m in mods]))

@@ -19,6 +19,12 @@
     coocc_tpu_torch.test tiny <work_dir> ...` run in-process, the latter
     printing the SSC table; a .pth of the port's state_dict loads back
     equal, a leaf it lacks keeps flax's initial value.
+  * Data-parallel CLIs: `python -m coocc_tpu_torch.train tiny --synthetic
+    --devices 2 --device cpu --dist-backend gloo` trains an epoch of 2
+    steps with rank 0 alone writing the checkpoint and records, and
+    `python -m coocc_tpu_torch.test tiny <work_dir> --synthetic --devices
+    2 --device cpu` prints the table one process prints for the same two
+    samples.
 
 TensorBoard is kept out (its import costs seconds here): MetricsLogger
 mirrors to it only where torch.utils.tensorboard imports.
@@ -45,10 +51,12 @@ from coocc_tpu.train.observe import MetricsLogger as JaxMetricsLogger
 from coocc_tpu.train.observe import dump_run_metadata as jax_dump_metadata
 from coocc_tpu.train.state import step_lr_schedule
 
+from coocc_tpu_torch.config.nuscenes import NUSC_CLASS_NAMES
 from coocc_tpu_torch.data.synthetic import synthetic_batch, tiny_config
-from coocc_tpu_torch.entry import Trainer, init_flax
+from coocc_tpu_torch.entry import Trainer, build_model, init_flax
 from coocc_tpu_torch.evaluation.formatting import format_ssc_table
-from coocc_tpu_torch.test.__main__ import load_model
+from coocc_tpu_torch.parallel.mesh import shard_batch
+from coocc_tpu_torch.test.__main__ import evaluate_checkpoint, load_model
 from coocc_tpu_torch.test.__main__ import main as eval_cli
 from coocc_tpu_torch.train import __main__ as train_cli
 from coocc_tpu_torch.train import loop
@@ -324,3 +332,83 @@ def test_pth_state_dict_loads_back(run, caplog):
         "a leaf the checkpoint lacks keeps flax's initial value"
     for k, v in sd.items():
         assert torch.equal(got[k], v), k
+
+
+@pytest.fixture(scope="module")
+def dp_cli(tmp_path_factory):
+    """The train CLI data-parallel over 2 gloo ranks on the CPU (one epoch
+    of 2 steps, each on synthetic_batch(tiny, batch_size=2, seed=i) split
+    by rows, the eval hook on seeds 1000-1001), then the test CLI over 2
+    ranks on its work dir, and one process's eval of the same samples.
+    The ranks are spawned processes: two intra-op threads each, and a
+    `tensorboard` that fails to import on their path (its TensorFlow
+    import costs seconds), as the module's other tests keep it out."""
+    d = tmp_path_factory.mktemp("dp_cli")
+    wd = str(d / "run")
+    fake = d / "no_tb" / "tensorboard"
+    fake.mkdir(parents=True)
+    (fake / "__init__.py").write_text("raise ImportError('kept out')\n")
+    out = {"wd": wd}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "2")
+        mp.syspath_prepend(str(d / "no_tb"))
+        train_cli.main(["tiny", "--synthetic", "--device", "cpu",
+                        "--devices", "2", "--dist-backend", "gloo",
+                        "--steps-per-epoch", "2", "--max-epochs", "1",
+                        "--work-dir", wd])
+        out["listing"] = sorted(os.listdir(wd))
+        with open(os.path.join(wd, "ckpt_meta.json")) as f:
+            out["meta"] = json.load(f)
+        with open(os.path.join(wd, "metrics.jsonl")) as f:
+            out["records"] = [json.loads(ln) for ln in f]
+        sys.stdout.flush()
+        r, w = os.pipe()
+        saved = os.dup(1)
+        os.dup2(w, 1)
+        try:
+            eval_cli(["tiny", wd, "--synthetic", "--device", "cpu",
+                      "--devices", "2", "--max-steps", "1"])
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(w)
+            os.close(saved)
+        with os.fdopen(r) as f:
+            out["table"] = f.read().splitlines()
+    cfg = tiny_config()
+    batch = synthetic_batch(cfg, batch_size=2, seed=2000)
+    summary, out["one_process"] = evaluate_checkpoint(
+        cfg, wd, lambda: (shard_batch(batch, r, 2).to("cpu")
+                          for r in range(2)), "cpu")
+    out["one_table"] = format_ssc_table(summary, NUSC_CLASS_NAMES)
+    return out
+
+
+def test_train_cli_data_parallel_writes_one_checkpoint(dp_cli):
+    """Rank 0 alone writes the records and the checkpoint: one epoch, one
+    record of each kind, the trained weights moved from flax's initial
+    ones (all but the biases and affines without weight decay whose
+    gradient is 0 in these 2 steps) and the BatchNorm statistics."""
+    assert dp_cli["listing"] == ["best", "ckpt_meta.json", "config.json",
+                                 "env.json", "epoch_0", "metrics.jsonl"]
+    assert dp_cli["meta"]["epochs"] == [0]
+    assert [r["kind"] for r in dp_cli["records"]] == ["epoch", "val"]
+    state = _load(os.path.join(dp_cli["wd"], "epoch_0", STATE_FILE))
+    model = init_flax(build_model(tiny_config(), "cpu"), 0)
+    init = model.state_dict()
+    params = [k for k, _ in model.named_parameters()]
+    moved = [k for k in params if not torch.equal(state["model"][k],
+                                                  init[k])]
+    assert len(moved) > 0.8 * len(params)
+    stats = [k for k in init if "running" in k]
+    still = [k for k in stats if torch.equal(state["model"][k], init[k])]
+    assert len(still) < 0.1 * len(stats), still
+
+
+def test_test_cli_data_parallel_prints_one_process_table(dp_cli):
+    """`python -m coocc_tpu_torch.test ... --devices 2` prints (rank 0) the
+    table of the hists summed over the ranks: the one-process eval of the
+    same two samples prints the same table."""
+    table = [ln for ln in dp_cli["table"] if ln.startswith(("===", "  "))]
+    assert table == dp_cli["one_table"]
+    assert dp_cli["one_process"]["SSC_hist"].sum() > 0

@@ -36,8 +36,11 @@ from coocc_tpu.nn import sparse_enc_packed as jpk
 from coocc_tpu.ops.pallas.subm_conv import subm_ext_conv as jax_subm_ext_conv
 
 from coocc_tpu_torch.nn import sparse_enc_packed as tpk
-from coocc_tpu_torch.ops.subm_conv import (KB, BNAffine, _panel_index,
-                                           flip_taps, kblocks, shift_ext,
+from coocc_tpu_torch.ops.subm_conv import (KB, ZERO_TAP, BNAffine,
+                                           _panel_index, flip_taps,
+                                           gather_taps_transpose, kblocks,
+                                           shift_ext, subm_ext_table,
+                                           tap_readers,
                                            subm_conv, subm_conv_unrounded,
                                            subm_ext_conv, subm_ext_conv_dx,
                                            subm_ext_conv_plain,
@@ -338,3 +341,37 @@ def test_subm_conv_backward_matches_jax_vjp(B, bz, X, Y, C, p, dtype):
         tol = 1e-5 * scale if dtype == "float32" else 2.0 ** -7 * scale
         np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
                                    atol=tol)
+
+
+def _index_add_taps(g, table, Ci, Co):
+    """gather_taps_transpose as it was: an fp32 index_add_ of the blocks
+    onto their taps (atomics on the card, so two calls could differ)."""
+    n_in, n_out = table.shape
+    blocks = g.float().reshape(3, 3, n_in, Ci, n_out, Co).permute(
+        0, 1, 2, 4, 3, 5).reshape(3, 3, n_in * n_out, Ci, Co)
+    w3 = torch.zeros((3, 3, ZERO_TAP + 1, Ci, Co))
+    w3.index_add_(2, torch.from_numpy(table.reshape(-1)), blocks)
+    return w3[:, :, :ZERO_TAP].reshape(27, Ci, Co)
+
+
+# the flagship's p = 4 (C = 32), and the HD encoder's packings (p = 8, 4,
+# 2, 1 at C = 16, 32, 64, 128)
+@pytest.mark.parametrize("p,C", [(4, 32), (8, 16), (2, 64), (1, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tap_fold_sums_in_a_fixed_order(p, C, dtype):
+    """gather_taps_transpose sums each tap's blocks in tap_readers' order:
+    equal bit for bit to the old index_add_ fold on the CPU (the same
+    order), and two calls repeat."""
+    table = subm_ext_table(p)
+    g = torch.from_numpy(np.random.RandomState(p * C).standard_normal(
+        (3, 3, (p + 2) * C, p * C)).astype(np.float32)).to(dtype)
+    got = gather_taps_transpose(g, table, C, C)
+    assert got.dtype == torch.float32 and got.shape == (27, C, C)
+    assert torch.equal(got, _index_add_taps(g, table, C, C))
+    assert torch.equal(got, gather_taps_transpose(g, table, C, C))
+    readers = tap_readers(table)
+    # every block that reads a tap, once, and the pad past the last block
+    for dz in range(3):
+        np.testing.assert_array_equal(
+            np.sort(readers[dz][readers[dz] < table.size]),
+            np.flatnonzero(table.reshape(-1) == dz))
