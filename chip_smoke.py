@@ -60,17 +60,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      their plain versions, with their times, bound and cuDNN's, and dW's
      time; for the stereo config, whose LiDAR shapes are the flagship's,
      the step's first K2 forward and first dX against their plain versions
-     (not timed again); coocc_lidar's train CLI (`python -m
-     coocc_tpu_torch.train coocc_lidar --synthetic --steps-per-epoch 2
-     --max-epochs 1`, its eval hook and checkpoint) in a process of its
-     own; then a tiny train step on the card against the CPU. For the
-     flagship and coocc_lidar (C8_CONFIGS) two more steps from one state,
-     generator and batch (the leaves that differ between them), the
-     step's device busy time with the two repaired sums (ops/gather.py's
-     backward, ops/subm_conv.py's tap fold) in their fixed orders against
-     index_add_, and each site's ms on the step's own calls
-     (coocc_tpu_torch/tools/train_repeat.py's helpers; the tool also
-     names the op that still differs); for the flagship, the
+     (not timed again); the flagship's train CLI (`python -m
+     coocc_tpu_torch.train coocc_multi_r50_256x704 --synthetic
+     --steps-per-epoch 1 --max-epochs 1`, its eval hook and checkpoint) in
+     a process of its own; then a tiny train step on the card against the
+     CPU. For the flagship and coocc_lidar (C8_CONFIGS) two more steps
+     from one state, generator and batch (the leaves that differ between
+     them: none may differ) and the kernels of one step (no upsample
+     kernel may run), with coocc_tpu_torch/tools/train_repeat.py's helpers
+     (the tool also times the repaired sites against what they replace
+     and names an op that still differs); for the flagship, the
      data-parallel step over an NCCL group of one against the
      single-device step, bit for bit (both under
      torch.use_deterministic_algorithms while the step does not repeat);
@@ -112,8 +111,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      every K2 call of a pts prefix against its plain version (4 each at
      Co = 16, 32, 64, 128), K2 on random inputs at those levels in fp32
      and bf16 and every epilogue, its times and bound there; the fp32 and
-     bf16 forwards against parity/lidar_real.npz; the test CLI and the
-     bench in processes of their own.
+     bf16 forwards against parity/lidar_real.npz; its data path at real
+     size: a nuScenes tree written from a seed (coocc_tpu_torch/tools/
+     nuscenes_tree.py: 3 train and 2 val keyframes of 34,720 points with
+     10 sweeps each, 381,920 points past the 350,000 capacity, SurroundOcc
+     ground truth, lidarseg labels, six cameras' calibration, no image),
+     get_sample's ms per sample and collate's, no PIL imported, the served
+     model on a loaded batch (K2 16 launches, its first call against its
+     plain version), then the train CLI (`--data-root ... --steps-per-epoch
+     2 --max-epochs 1`: finite losses, K2 16 and its dX 16 a step, the
+     loop's wait for each batch against its step, the checkpoint, the eval
+     hook's lidarseg metric) and the test CLI (`--max-steps 2
+     --save-by-scene --pred-save`: the SC/SSC and lidarseg tables, one
+     prediction file per token) in processes of their own; the bench in a
+     process of its own.
  14. coocc_multi_r50_256x704_stereo, the flagship with BEVStereo depth, at
      full width as served (bf16): the previous keyframe's 6 images through
      the shared R50's stage 0 and 12 plane-sweep warps of [6, 3, 64, 176,
@@ -157,8 +168,9 @@ and K2 times, K2's fp32 ones beside them; the train path's launches by
 config, K2's mask-only forward in training by config ("train"), and K2's
 dX row, the flagship's with the other configs' under "configs"; the loop's
 launches; K1's and K2's numbers at OpenOccupancy's shapes, K2's at
-coocc_lidar's and coocc_kitti's, the stereo path's launches and one-call
-checks, and the render path's launches, under "configs"; each rank's
+coocc_lidar's (with its data path's launches and one-call check) and
+coocc_kitti's, the stereo path's launches and one-call checks, and the
+render path's launches, under "configs"; each rank's
 launches in the data-parallel steps under "data_parallel") and, last, the
 result line.
 Needs a CUDA card and the repository around it; it imports nothing of
@@ -1518,11 +1530,11 @@ def train_k2_checks(trainer, batch):
     return {"fwd": rows["fwd"], "dx": rows["dx"], "dW_ms": dw}
 
 
-def phase_train_cli(config):
+def phase_train_cli(config, steps: int = 1):
     """`python -m coocc_tpu_torch.train <config> --synthetic
-    --steps-per-epoch 2 --max-epochs 1` (flax's initial weights, 2 steps,
-    the eval hook on 2 batches, a checkpoint with save-best) in a process
-    of its own, into a temporary work dir. -> its eval ms per batch (the
+    --steps-per-epoch <steps> --max-epochs 1` (flax's initial weights, the
+    eval hook on 2 batches, a checkpoint with save-best) in a process of
+    its own, into a temporary work dir. -> its eval ms per batch (the
     second's)."""
     import tempfile
     t0 = time.perf_counter()
@@ -1530,16 +1542,16 @@ def phase_train_cli(config):
         wd = os.path.join(d, "work_dir")
         proc = subprocess.run(
             [sys.executable, "-m", "coocc_tpu_torch.train", config,
-             "--synthetic", "--steps-per-epoch", "2", "--max-epochs", "1",
-             "--work-dir", wd], cwd=ROOT, capture_output=True, text=True,
-            timeout=600)
+             "--synthetic", "--steps-per-epoch", str(steps), "--max-epochs",
+             "1", "--work-dir", wd], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
         listing = sorted(os.listdir(wd)) if os.path.isdir(wd) else []
     out = proc.stdout + proc.stderr
     if proc.returncode != 0 or "mIoU" not in out or "epoch_0" not in listing:
         raise AssertionError(f"the train CLI failed: {proc.stdout[-2000:]}"
                              f"{proc.stderr[-2000:]}")
     log(f"train CLI (python -m coocc_tpu_torch.train {config} --synthetic "
-        f"--steps-per-epoch 2 --max-epochs 1, "
+        f"--steps-per-epoch {steps} --max-epochs 1, "
         f"{time.perf_counter() - t0:.1f} s): work dir {listing}")
     for line in out.strip().splitlines():
         if any(w in line for w in ("ms a batch", "mIoU", "device:")):
@@ -1980,8 +1992,10 @@ def phase_lidar(kernels, weights):
     own bf16 inputs (4 each at Co = 16, 32, 64, 128), K2 on random inputs
     at each of those levels in fp32 and bf16 and every epilogue mode, K2's
     times and bound at those shapes; the fp32 and bf16 forwards against
-    parity/lidar_real.npz; the test CLI and the bench in processes of their
-    own. -> (K2's numbers, the config's numbers)."""
+    parity/lidar_real.npz; the data path (data_path_in_process,
+    data_path_clis: the train and test CLIs on a nuScenes tree) and the
+    bench in processes of their own. -> (K2's numbers, the config's
+    numbers)."""
     import torch
     lap = lap_timer(LIDAR)
     model, requests, launches, nums = phase_served_config(LIDAR, kernels)
@@ -1998,9 +2012,12 @@ def phase_lidar(kernels, weights):
     per_co = {Co: sum(c.values()) for (_, _, Co), c in levels.items()}
     if per_co != {16: 4, 32: 4, 64: 4, 128: 4}:
         raise AssertionError(f"{LIDAR}: K2 calls by Co {per_co}")
+    lap("K2 on the main path's calls")
+    tree = NuScenesTree()
+    nums["data_path"] = data_path_in_process(model, kernels, tree)
     del model, requests
     torch.cuda.empty_cache()
-    lap("K2 on the main path's calls")
+    lap("the data path in this process")
     gen = torch.Generator(device="cuda").manual_seed(5)
     k2_random_checks(gen, [(s, p, Co, f"{LIDAR} level") for s, p, Co
                            in levels])
@@ -2010,9 +2027,215 @@ def phase_lidar(kernels, weights):
     torch.cuda.empty_cache()
     lap("K2's times")
     phase_real_shape_parity(LIDAR, weights)
-    nums["test_cli_eval_ms"] = phase_test_cli(LIDAR)
+    nums["data_path"].update(data_path_clis(tree))
+    tree.close()
+    lap("the train and test CLIs on the tree")
     nums["bench_fps"] = phase_bench(LIDAR)
+    k2["data_path"] = {k: nums["data_path"][k] for k in (
+        "launches", "max_abs_err", "train_cli_launches")}
     return k2, nums
+
+
+class NuScenesTree:
+    """A nuScenes tree in the reference's layout, written from seed 0 into
+    a temporary directory (coocc_tpu_torch/tools/nuscenes_tree.py: 3 train
+    and 2 val keyframes of 34,720 points with 10 sweeps each, SurroundOcc
+    ground truth, lidarseg labels, six cameras' calibration, no image)."""
+
+    def __init__(self):
+        import tempfile
+        from coocc_tpu_torch.tools.nuscenes_tree import write_tree
+        self.dir = tempfile.TemporaryDirectory()
+        t0 = time.perf_counter()
+        self.flags = write_tree(self.dir.name, seed=0)
+        self.write_s = time.perf_counter() - t0
+        log(f"nuScenes tree written in {self.write_s:.2f} s: {self.flags}")
+
+    def close(self):
+        self.dir.cleanup()
+
+
+def data_path_in_process(model, kernels, tree):
+    """The data path of coocc_lidar at real size in this process:
+    get_sample's ms per sample (training, with the BDA draws, and eval),
+    collate's ms, the padded clouds (10 sweeps take each keyframe past the
+    350,000-point capacity), that PIL is not imported; then the served
+    model (bf16) on a loaded val batch with the kernels' counts set to 0
+    before it and read after it (K2 16, no other kernel), its outputs
+    checked, and K2's first call of its pts prefix against its plain
+    version. -> the numbers."""
+    import numpy as np
+    import torch
+    from coocc_tpu_torch.data.nuscenes_dataset import (NuScenesOccDataset,
+                                                       collate)
+    cfg = model.cfg
+    f = tree.flags
+    nums = {"tree_write_s": tree.write_s}
+    for split, ann, train in (("train", f["ann_file"], True),
+                              ("val", f["val_ann_file"], False)):
+        ds = NuScenesOccDataset(cfg, f["data_root"], ann, f["occ_path"],
+                                is_train=train)
+        ms, samples = [], []
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            samples.append(ds.get_sample(i, np.random.RandomState(i)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        batch = collate(samples[:1], cfg)
+        nums[f"collate_ms_{split}"] = (time.perf_counter() - t0) * 1e3
+        nums[f"get_sample_ms_{split}"] = ms
+        s = samples[0]
+        log(f"{LIDAR} get_sample ({split}, {len(ds)} keyframes): ms "
+            f"{[round(t, 3) for t in ms]}; collate of one "
+            f"{nums[f'collate_ms_{split}']:.3f} ms; keys {sorted(s)}; "
+            f"points {int(s['points_mask'].sum())} of "
+            f"{s['points_mask'].size}, lidarseg points "
+            f"{int(s['points_occ_mask'].sum())}, occupied gt cells "
+            f"{int(((s['gt_occ'] > 0) & (s['gt_occ'] < 255)).sum())}, "
+            f"depth pixels {int((s['gt_depths'] > 0).sum())}")
+        if "imgs" in s or not s["points_mask"].all():
+            raise AssertionError(f"{LIDAR}: a sample with images, or a "
+                                 "cloud under the capacity")
+    from coocc_tpu_torch.data.pipelines.image_loading import pil_image
+    log(f"PIL used by the data path: {pil_image.calls > 0}; PIL in this "
+        f"process: {'PIL' in sys.modules}")
+    if pil_image.calls or "PIL" in sys.modules:
+        raise AssertionError("the LiDAR-only data path imported PIL")
+    loaded = batch.to("cuda")
+    for k in kernels.values():
+        k.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    out = model(loaded)
+    sync()
+    nums["loaded_request_ms"] = (time.perf_counter() - t0) * 1e3
+    launches = {n: k.launches for n, k in kernels.items()}
+    check_outputs(out, cfg)
+    log(f"{LIDAR} on a loaded val batch: {nums['loaded_request_ms']:.3f} "
+        f"ms, launches {launches}")
+    if launches != PER_REQUEST_OF[LIDAR]:
+        raise AssertionError(f"{LIDAR} on a loaded batch: launches "
+                             f"{launches}, want {PER_REQUEST_OF[LIDAR]}")
+    from coocc_tpu_torch.nn import sparse_enc_packed
+    inner, kept = sparse_enc_packed.subm_ext_conv, []
+
+    def keep(x_pb, w27, p, mcell, bn=None, identity=None):
+        if not kept:
+            kept.append((x_pb.clone(), w27, p, mcell, bn, identity))
+        return inner(x_pb, w27, p, mcell, bn, identity)
+    sparse_enc_packed.subm_ext_conv = keep
+    try:
+        model(loaded, stop_at="pts")
+    finally:
+        sparse_enc_packed.subm_ext_conv = inner
+    x, w27, p, mcell, bn, idn = kept[0]
+    err, scale, _, ok = k2_check(x, w27, p, mcell, bn, idn)
+    log(f"{LIDAR} subm_ext_conv vs plain [a loaded batch, the pts prefix's "
+        f"first call, {tuple(x.shape)} p={p} {str(x.dtype)[6:]} "
+        f"{k2_mode(bn, idn)}]: max_abs_err {err:.6g}, scale {scale:.6g}")
+    if not ok:
+        raise AssertionError(f"{LIDAR}: subm_ext_conv differs from its plain "
+                             "version on a loaded batch")
+    nums.update(launches=launches["subm_ext_conv"], max_abs_err=err)
+    del out, loaded, kept, x
+    return nums
+
+
+def _cli_lines(out: str, *words):
+    return [ln for ln in out.splitlines() if any(w in ln for w in words)]
+
+
+def data_path_clis(tree):
+    """coocc_lidar's train and test CLIs on the tree, each in a process of
+    its own: `python -m coocc_tpu_torch.train coocc_lidar --data-root ...
+    --steps-per-epoch 2 --max-epochs 1` (2 steps, the eval hook over the 2
+    val keyframes, a checkpoint), then `python -m coocc_tpu_torch.test
+    coocc_lidar <its work dir> --data-root ... --max-steps 2
+    --save-by-scene --pred-save ...`. Checks: exit 0, finite losses in
+    the epoch's record, the SC/SSC table and the lidarseg table, the
+    checkpoint, one prediction file per val token in its scene's folder,
+    no PIL used by either process's data path (their `data:` lines, which
+    also say whether PIL is in the process), K2's launches in the
+    train steps (16 and 16 dX a step). -> the CLIs' wall seconds, the
+    loop's data ms and step ms a step, K2's launches."""
+    import math
+    import pickle
+    f = tree.flags
+    data = ["--data-root", f["data_root"], "--occ-path", f["occ_path"]]
+    wd = os.path.join(tree.dir.name, "work_dir")
+    preds = os.path.join(tree.dir.name, "preds")
+    nums = {}
+    for name, argv in (
+            ("train", ["coocc_tpu_torch.train", LIDAR, *data, "--ann-file",
+                       f["ann_file"], "--val-ann-file", f["val_ann_file"],
+                       "--steps-per-epoch", "2", "--max-epochs", "1",
+                       "--work-dir", wd]),
+            ("test", ["coocc_tpu_torch.test", LIDAR, wd, *data, "--ann-file",
+                      f["val_ann_file"], "--max-steps", "2",
+                      "--save-by-scene", "--pred-save", preds])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        nums[f"{name}_cli_s"] = time.perf_counter() - t0
+        out = proc.stdout + proc.stderr
+        data_lines = _cli_lines(out, "data: data root")
+        if proc.returncode != 0 or "mIoU" not in out or not data_lines:
+            raise AssertionError(f"the {name} CLI on the tree failed: "
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        log(f"{name} CLI on the tree (python -m {' '.join(argv[:2])} "
+            f"--data-root ..., {nums[f'{name}_cli_s']:.1f} s):")
+        for line in _cli_lines(out, "device:", "data:", "ms a step",
+                               "kernel launches", "ms a batch", "eval:",
+                               "work dir"):
+            log(f"  {line.split(' INFO ')[-1][:400]}")
+        if "PIL used by the data path: False" not in data_lines[-1]:
+            raise AssertionError(f"the {name} CLI's data path used PIL: "
+                                 f"{data_lines[-1]}")
+        if name == "train":
+            wait = _cli_lines(out, "data ms a step")[-1].split("included) ")
+            data_ms, step_ms = wait[-1].split(", step ms ")
+            nums["loop_data_ms"] = json.loads(data_ms)
+            nums["loop_step_ms"] = json.loads(step_ms)
+            launched = _cli_lines(out, "kernel launches in its")[-1]
+            nums["train_cli_launches"] = json.loads(launched.split(
+                " steps ")[-1].replace("'", '"'))
+            want = {k: 2 * v for k, v in PER_TRAIN_STEP_OF[LIDAR].items()}
+            if nums["train_cli_launches"] != want:
+                raise AssertionError(f"the train CLI's steps launched "
+                                     f"{nums['train_cli_launches']}, want "
+                                     f"{want}")
+            with open(os.path.join(wd, "metrics.jsonl")) as fh:
+                records = [json.loads(ln) for ln in fh]
+            epoch = [r for r in records if r["kind"] == "epoch"][-1]
+            losses = {k: v for k, v in epoch.items() if k.startswith("loss")}
+            val = [r for r in records if r["kind"] == "val"][-1]
+            log(f"  epoch record losses {losses}; val SC_IoU "
+                f"{val['SC_IoU']:.4f}, SSC_mIoU {val['SSC_mIoU']:.4f}, "
+                f"lidarseg_mIoU {val.get('lidarseg_mIoU')}; work dir "
+                f"{sorted(os.listdir(wd))}")
+            if not losses or not all(math.isfinite(v)
+                                     for v in losses.values()):
+                raise AssertionError(f"the train CLI's losses: {losses}")
+            if "epoch_0" not in os.listdir(wd) \
+                    or "lidarseg_mIoU" not in val:
+                raise AssertionError("no checkpoint or no lidarseg metric")
+        else:
+            if "=== LiDAR segmentation ===" not in out \
+                    or "=== Semantic Scene Completion (SSC) ===" not in out:
+                raise AssertionError("the test CLI printed no SC/SSC or "
+                                     "lidarseg table")
+            with open(f["val_ann_file"], "rb") as fh:
+                infos = pickle.load(fh)["infos"]
+            want = sorted(os.path.join(x["scene_name"], x["token"] + ".npz")
+                          for x in infos)
+            got = sorted(os.path.join(d, p) for d in os.listdir(preds)
+                         for p in os.listdir(os.path.join(preds, d)))
+            log(f"  predictions: {got}")
+            if got != want:
+                raise AssertionError(f"predictions {got}, want {want}")
+    log(f"{LIDAR} on the tree: the loop waited {nums['loop_data_ms']} ms "
+        f"a step for its batch against steps of {nums['loop_step_ms']} ms")
+    return nums
 
 
 def phase_stereo(kernels, weights):
@@ -2434,18 +2657,15 @@ SYNCBN_REL = 2e-5
 
 def c8_check(name, trainer, batch):
     """C8: two train steps of `trainer` from one state, generator and batch
-    (the card's step should repeat bit for bit) and the leaves that
-    differ; the step's device busy ms with the two repaired sums in their
-    fixed orders against the index_add_ they replace (new, old, old, new,
-    each from the same state) and each site's ms on the step's own calls
-    (coocc_tpu_torch/tools/train_repeat.py, which also names the op that
-    still differs). -> (the numbers, the state before the steps)."""
+    (the card's step repeats bit for bit) and the leaves that differ; the
+    kernels of one step (no upsample kernel, F.interpolate's, may run).
+    What the repaired sites cost against what they replace is
+    coocc_tpu_torch/tools/train_repeat.py's to time (PERF.md §6).
+    -> (the numbers, the state before the steps)."""
     from coocc_tpu_torch.tools import train_repeat as tr
     lap = lap_timer(f"{name} C8")
     snap = tr.snapshot(trainer)
-    record = {"gather": [], "taps": []}
-    with tr.repaired_sites("new", record):
-        first = tr.step_result(trainer, batch)
+    first = tr.step_result(trainer, batch)
     tr.restore(trainer, snap)
     diff = tr.differing(first, tr.step_result(trainer, batch))
     del first
@@ -2454,37 +2674,21 @@ def c8_check(name, trainer, batch):
         f"terms {counts['losses']}, gradient leaves {counts['grads']} of "
         f"{len(list(trainer.model.parameters()))}, moved statistics "
         f"{counts['stats']}, parameters after the update {counts['params']}")
-    if diff["grads"]:
-        log(f"C8 {name}: differing gradients, the first: "
-            f"{diff['grads'][:4]}")
+    if any(counts.values()):
+        raise AssertionError(f"C8 {name}: two train steps from one state "
+                             f"differ: {counts}, the first gradients "
+                             f"{diff['grads'][:4]}")
     lap("two steps")
-    sites = tr.site_times(record)
-    del record
-    for site in ("gather_rows backward", "K2 dW tap fold"):
-        t = sites[site]
-        log(f"C8 {name}: {site}: {t['calls']} calls a step, index_add_ "
-            f"{t['old_ms']:.4f} ms, fixed order {t['new_ms']:.4f} ms")
-    for n, row, rows, old, new in sites.pop("gather_calls"):
-        log(f"C8 {name}: gather_rows backward, {n} values of {row} onto "
-            f"{rows} rows: index_add_ {old:.4f} ms, fixed order {new:.4f} ms")
-    busy = {"new": [], "old": []}
-    for version in ("new", "old", "old", "new"):
-        tr.restore(trainer, snap)
-        with tr.repaired_sites(version):
-            log(f"profile, {name} one train step, sites {version}:")
-            busy[version].append(device_breakdown(trainer.step, [batch], 0))
     tr.restore(trainer, snap)
-    lap("site times and busy, new against old")
-    nums = {"differing": counts, "sites": sites,
-            "busy_ms": {k: statistics.mean(v) for k, v in busy.items()
-                        if None not in v}}
-    if len(nums["busy_ms"]) == 2:
-        rise = nums["busy_ms"]["new"] / nums["busy_ms"]["old"] - 1
-        nums["busy_rise"] = rise
-        log(f"C8 {name}: step busy {nums['busy_ms']['new']:.3f} ms with "
-            f"the fixed orders, {nums['busy_ms']['old']:.3f} ms with "
-            f"index_add_ ({100 * rise:+.2f}%)")
-    return nums, snap
+    upsample = sorted(k for k in tr.kernel_ms(lambda: trainer.step(batch))
+                      if "upsample" in k)
+    tr.restore(trainer, snap)
+    log(f"C8 {name}: upsample kernels in one train step: {upsample}")
+    if upsample:
+        raise AssertionError(f"{name}: the train step still runs "
+                             f"F.interpolate's kernels {upsample}")
+    lap("the kernels of one step")
+    return {"differing": counts, "upsample_kernels": upsample}, snap
 
 
 def dp_world_one(trainer, batch, snap, repeats: bool):
@@ -2785,15 +2989,17 @@ def phase_data_parallel(kernels, trained):
 
 
 def train_phases(kernels, t0):
-    """phase_train for every config of TRAIN_CONFIGS, then coocc_lidar's
-    train CLI. -> {config: its numbers}."""
+    """phase_train for every config of TRAIN_CONFIGS, then the flagship's
+    train CLI on synthetic batches (one step; coocc_lidar's runs on a
+    nuScenes tree in phase_data_path). -> {config: its numbers}."""
     trained = {}
     for name in TRAIN_CONFIGS:
         log(f"[{time.perf_counter() - t0:.1f} s] train path, {name} (bf16, "
             "the config's compute_dtype):")
         trained[name] = phase_train(name, kernels)
-    log(f"[{time.perf_counter() - t0:.1f} s] train CLI, {LIDAR}:")
-    trained[LIDAR]["train_cli_eval_ms"] = phase_train_cli(LIDAR)
+    log(f"[{time.perf_counter() - t0:.1f} s] train CLI, {FLAGSHIP} "
+        "(synthetic):")
+    trained[FLAGSHIP]["train_cli_eval_ms"] = phase_train_cli(FLAGSHIP)
     log("train steps (step ms median, device busy ms, peak GiB, launches "
         "over 3 steps): " + json.dumps(
             {n: {k: v for k, v in t.items() if k not in ("fwd", "dx")}

@@ -1,12 +1,13 @@
-"""nuScenes class metadata: the class names and the balanced CE class
-weights.
+"""nuScenes class metadata: the class names, the balanced CE class
+weights and the lidarseg learning map.
 
 A copy of the part of coocc_tpu/config/nuscenes.py the port reads: the 17
 occupancy class names the eval tables print (reference
 coocc_multi_r50_256x704.py:17-21), the nusc_param.py:10-12 voxel counts
 and occ_head.py:135-139's 1 / log(freq) weighting, of these counts or, for
-any other class count, of SemanticKITTI's (config/semantic_kitti.py);
-tests/test_torch_losses.py, tests/test_torch_eval.py and
+any other class count, of SemanticKITTI's (config/semantic_kitti.py), and
+the 32 -> 17 lidarseg learning map (reference nuscenes.yaml:53-85) the
+loader reads; tests/test_torch_losses.py, tests/test_torch_eval.py and
 tests/test_torch_data.py pin them equal.
 """
 from __future__ import annotations
@@ -30,6 +31,24 @@ NUSC_CLASS_FREQUENCIES = np.array([
     2158753, 26539491, 4004729, 34838681, 75173306, 2255027978, 50959399,
     646022466, 869055679, 1446141335, 1724391378,
 ], dtype=np.float64)
+
+
+# lidarseg raw label (0..31) -> 17-class learning map
+NUSC_LEARNING_MAP = {
+    1: 0, 5: 0, 7: 0, 8: 0, 10: 0, 11: 0, 13: 0, 19: 0, 20: 0, 0: 0,
+    29: 0, 31: 0,
+    9: 1, 14: 2, 15: 3, 16: 3, 17: 4, 18: 5, 21: 6,
+    2: 7, 3: 7, 4: 7, 6: 7,
+    12: 8, 22: 9, 23: 10, 24: 11, 25: 12, 26: 13, 27: 14, 28: 15, 30: 16,
+}
+
+
+def learning_map_array() -> np.ndarray:
+    """Dense lookup table: raw lidarseg label -> train id."""
+    table = np.zeros(32, dtype=np.int64)
+    for src, dst in NUSC_LEARNING_MAP.items():
+        table[src] = dst
+    return table
 
 
 def class_weights(num_classes: int = NUM_NUSC_CLASSES) -> np.ndarray:

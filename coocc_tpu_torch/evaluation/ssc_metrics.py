@@ -14,6 +14,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.interpolate import resize_trilinear_chlast
+
 
 def fast_hist(pred: torch.Tensor, label: torch.Tensor, num_classes: int,
               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -26,57 +28,10 @@ def fast_hist(pred: torch.Tensor, label: torch.Tensor, num_classes: int,
     return hist[:-1].reshape(num_classes, num_classes)
 
 
-def _shift_edge(x: torch.Tensor, axis: int, delta: int) -> torch.Tensor:
-    """x[i + delta] along `axis` (delta = +-1), the edge replicated."""
-    n = x.shape[axis]
-    if delta > 0:
-        return torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)],
-                         axis)
-    return torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, n - 1)], axis)
-
-
-def _resize_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
-    """One axis of JAX's resize_linear (align_corners=False), op for op so
-    that it rounds where JAX rounds: an integer ratio r <= 16 is r blends
-    x + f * (x[i +- 1] - x) in x's dtype, interleaved; any other ratio
-    gathers the two neighbours and lerps with fp32 weights, which promotes
-    a bf16 x to fp32 as JAX's promotion does."""
-    in_size = x.shape[axis]
-    if in_size == out_size:
-        return x
-    if out_size % in_size == 0 and out_size // in_size <= 16:
-        r = out_size // in_size
-        xm1, xp1 = _shift_edge(x, axis, -1), _shift_edge(x, axis, 1)
-        phases = []
-        for p in range(r):
-            f = (p + 0.5) / r - 0.5
-            if f < 0:
-                phases.append(x + torch.tensor(-f, dtype=x.dtype)
-                              * (xm1 - x))
-            elif f == 0:
-                phases.append(x)
-            else:
-                phases.append(x + torch.tensor(f, dtype=x.dtype) * (xp1 - x))
-        shape = list(x.shape)
-        shape[axis] = out_size
-        return torch.stack(phases, axis + 1).reshape(shape)
-    out = torch.arange(out_size, dtype=torch.float32, device=x.device)
-    src = ((out + 0.5) * (in_size / out_size) - 0.5).clamp(min=0.0)
-    lo = src.floor().long().clamp(0, in_size - 1)
-    hi = (lo + 1).clamp(0, in_size - 1)
-    shape = [1] * x.ndim
-    shape[axis] = out_size
-    w = (src - lo).reshape(shape)
-    return (x.index_select(axis, lo) * (1 - w)
-            + x.index_select(axis, hi) * w)
-
-
 def resize_logits(logits: torch.Tensor, size) -> torch.Tensor:
     """[B, X, Y, Z, C] -> [B, *size, C], trilinear with align_corners=False:
-    JAX's resize_trilinear_chlast, one axis at a time (_resize_axis)."""
-    for axis in range(3):
-        logits = _resize_axis(logits, 1 + axis, size[axis])
-    return logits
+    JAX's resize_trilinear_chlast, op for op (ops/interpolate.py)."""
+    return resize_trilinear_chlast(logits, size)
 
 
 def occupancy_hists(logits: torch.Tensor, gt_occ: torch.Tensor,

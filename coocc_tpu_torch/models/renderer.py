@@ -5,7 +5,8 @@ the camera branch of the training renderer): the LSS frustum's ego points
 look up the fused voxel features on the render grid (its own bounds,
 RenderConfig.render_{x,y,z}bound), the sigma and rgb heads run on every
 sample, and the samples are alpha-composited along each ray's D depths,
-then upsampled x16 bilinearly (align_corners=False).
+then upsampled x16 bilinearly (align_corners=False) by JAX's op sequence
+(ops/interpolate.py).
 
 The reference's quirks are kept: rgb is zeroed outside the grid BEFORE the
 sigmoid (0.5 after it), the distances between samples are measured on the
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 
 from ..config.base import RenderConfig
 from ..ops.gather import gather_rows
+from ..ops.interpolate import resize_bilinear_chlast
 
 
 def composite(rgb: torch.Tensor, sigma: torch.Tensor, pts: torch.Tensor):
@@ -99,9 +101,6 @@ def render(sigma_head, rgb_head, cfg: RenderConfig, voxel_feats, geom,
     B, N, H, W = depth_map.shape
 
     def up(x):  # [B, N, H, W, c] -> [B, N, H*s, W*s, c]
-        y = F.interpolate(x.reshape(B * N, H, W, -1).permute(0, 3, 1, 2),
-                          size=(H * scale, W * scale), mode="bilinear",
-                          align_corners=False)
-        return y.permute(0, 2, 3, 1).reshape(B, N, H * scale, W * scale, -1)
+        return resize_bilinear_chlast(x, (H * scale, W * scale))
     depth_up = up(depth_map[..., None])[..., 0]
     return (up(rgb_map) if rgb_head is not None else None), depth_up

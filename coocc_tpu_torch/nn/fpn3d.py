@@ -1,9 +1,13 @@
 """FPN3D neck: lateral 1x1x1 convs + trilinear top-down + 3x3x3 fpn convs.
 
 Counterpart of coocc_tpu/nn/fpn3d.py (reference necks/fpn3d.py:14-108).
-The top-down upsampling is F.interpolate(mode="trilinear",
-align_corners=False), the torch semantics the JAX package's
-resize_trilinear_chlast re-implements. With `with_cp` (the config's
+The top-down upsampling is JAX's resize_linear op for op, in the axis
+order of its z-batch layout (ops/interpolate.py:resize_trilinear_zxy:
+F.interpolate's trilinear semantics, align_corners=False). Where a ratio
+is not an integer (the flagship's 13 -> 25) it promotes a bf16 lateral to
+fp32, as JAX's does, and the sums below it stay fp32; each fpn conv takes
+its input in the laterals' compute dtype, as flax's Conv with `dtype`
+casts it. With `with_cp` (the config's
 neck_with_cp) each ConvModule3d runs under torch.utils.checkpoint in
 training, as JAX wraps it in nn.remat (coocc_ray.py:304): the backward
 recomputes it, and the recomputation leaves the BN's running statistics
@@ -18,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.interpolate import resize_trilinear_zxy
 from .layers import BatchNorm, Conv3d
 
 
@@ -56,8 +61,8 @@ class FPN3D(nn.Module):
 
     def forward(self, inputs):
         laterals = [m(x) for m, x in zip(self.lateral_convs, inputs)]
+        dtype = laterals[0].dtype
         for i in range(len(laterals) - 1, 0, -1):
-            laterals[i - 1] = laterals[i - 1] + F.interpolate(
-                laterals[i], size=laterals[i - 1].shape[2:],
-                mode="trilinear", align_corners=False)
-        return tuple(m(x) for m, x in zip(self.fpn_convs, laterals))
+            laterals[i - 1] = laterals[i - 1] + resize_trilinear_zxy(
+                laterals[i], laterals[i - 1].shape[2:])
+        return tuple(m(x.to(dtype)) for m, x in zip(self.fpn_convs, laterals))

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ..config.base import OccHeadConfig
 from ..ops.grid_sample import cascade_sample_3d, multicam_bilinear
+from ..ops.interpolate import resize_trilinear_zxy
 from .layers import BatchNorm, Conv3d, softmax
 
 
@@ -147,8 +148,10 @@ class OccHead(nn.Module):
 
     def coarse(self, voxel_feats):
         """list of [B, C_i, X_i, Y_i, Z_i] -> (blended [B, mid, X, Y, Z],
-        logits [B, out, X, Y, Z]) at the finest level, in the features'
-        dtype (the blend weights too, JAX occ_head.py:223)."""
+        logits [B, out, X, Y, Z]) at the finest level: the logits in the
+        features' dtype (the blend weights too, JAX occ_head.py:223), the
+        blend in fp32 where a level's resize (ops/interpolate.py) promoted
+        it, as JAX's does."""
         cfg = self.cfg
         outs = [conv(f) for conv, f in zip(self.occ_convs, voxel_feats)]
         if cfg.soft_weights:
@@ -161,10 +164,9 @@ class OccHead(nn.Module):
         blended = 0
         for i, f in enumerate(outs):
             if f.shape[2:] != size:
-                f = F.interpolate(f, size=size, mode="trilinear",
-                                  align_corners=False)
+                f = resize_trilinear_zxy(f, size)
             blended = blended + f * w[:, i:i + 1]
-        return blended, self.occ_pred_conv(blended)
+        return blended, self.occ_pred_conv(blended.to(outs[0].dtype))
 
     def _fine(self, vox_t, img_t, tr, coarse_mask, cd, cap, priorities):
         """One sample: vox_t [X, Y, Z, 64] (cd) the blended features times
@@ -215,12 +217,17 @@ class OccHead(nn.Module):
             return out
         # the fc weights are folded into the sampled tables (JAX
         # occ_head.py:300-304): sample(T) @ W == sample(T @ W)
-        cd = blended.dtype
+        # blended is fp32 where a level's resize promoted it (JAX too): the
+        # product with the fc's cd-rounded rows is then fp32, and the
+        # sampler rounds its table to cd (JAX occ_head.py:303, grid_sample
+        # .py:cascade_sample_3d)
+        cd = logits.dtype
         fc1 = self.fine_mlp[0]
         vox_t = img_t = None
         if cfg.sample_from_voxel:
-            vox_t = blended.permute(0, 2, 3, 4, 1) @ fc1.weight[
-                :, :blended.shape[1]].T.to(cd)             # [B, X, Y, Z, 64]
+            vox_t = (blended.permute(0, 2, 3, 4, 1) @ fc1.weight[
+                :, :blended.shape[1]].T.to(cd).to(blended.dtype)
+            ).to(cd)                                        # [B, X, Y, Z, 64]
         if cfg.sample_from_img and img_feats is not None:
             # flax's default dtype: img_mlp_0 runs in fp32, and its product
             # with the fc (rounded to cd) too

@@ -14,11 +14,19 @@ from __future__ import annotations
 
 import torch
 
+from .gather import gather_rows
+
 
 def _bilinear_taps(x, py, px):
-    """x [B, C, H, W]; py/px [B, T, P] pixel positions -> [B, C, T, P]."""
+    """x [B, C, H, W]; py/px [B, T, P] pixel positions -> [B, C, T, P].
+    Each corner's pixels are gathered as rows of the [B*H*W, C] table
+    (ops/gather.py:gather_rows), so their gradient sums each pixel's
+    cotangents in a fixed order: torch.gather's own backward (a
+    scatter-add) sums with atomics on the card, and a train step did not
+    repeat."""
     B, C, H, W = x.shape
-    flat = x.reshape(B, 1, C, H * W)
+    table = x.reshape(B, C, H * W).transpose(1, 2).reshape(B * H * W, C)
+    base = (torch.arange(B, device=x.device) * (H * W))[:, None, None]
     y0 = torch.floor(py)
     x0 = torch.floor(px)
     wy = py - y0
@@ -31,8 +39,7 @@ def _bilinear_taps(x, py, px):
             yi, xi = y0 + dy, x0 + dx
             inb = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
             idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))  # [B, T, P]
-            v = torch.gather(flat.expand(B, idx.shape[1], C, H * W), 3,
-                             idx[:, :, None, :].expand(-1, -1, C, -1))
+            v = gather_rows(table, base + idx).permute(0, 1, 3, 2)
             # the JAX order of the products: each rounds in x's dtype
             v = v * inb[:, :, None, :].to(x.dtype)
             out = out + v * w_y[:, :, None, :] * w_x[:, :, None, :]

@@ -83,6 +83,10 @@ def local_rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def rank(group=None) -> int:
+    return dist.get_rank(group) if dist.is_initialized() else 0
+
+
 def world_size(group=None) -> int:
     return dist.get_world_size(group) if dist.is_initialized() else 1
 

@@ -26,9 +26,16 @@ update. No DDP wrapper: its default broadcast_buffers copies rank 0's
 running statistics where JAX averages them, and its unused-parameter check
 raises on the parameters that get no gradient (the LiDAR stem's spconv
 weight); the explicit all-reduce after backward() is JAX's explicit pmean.
+
+The train step's sums run in a fixed order, so two steps from one state
+on the card are equal bit for bit (ROADMAP C8): the gathers' backward
+(ops/gather.py, also the DCN's corners, ops/dcn.py), K2's tap fold
+(ops/subm_conv.py), the resizes (ops/interpolate.py) and, under
+`cudnn_deterministic`, cuDNN's convolution backward.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import math
 from typing import Dict, List
@@ -97,6 +104,22 @@ def average_bn_statistics(model, group) -> int:
     return _mean_over_ranks_(stats, group) if stats else 0
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block (the flag is read
+    when each convolution and its backward run): the default fp32 dgrad
+    and wgrad algorithms of the dilated convs (cuDNN's ALGO_0) sum with
+    atomics, and a train step on the card did not repeat bit for bit
+    (coocc_tpu_torch/tools/train_repeat.py measures what the deterministic
+    ones cost)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def train_step(model, optimizer, batch, generator: torch.Generator,
                group=None) -> Dict[str, torch.Tensor]:
     """One update of `model` (a CoOccRay) on `batch`; `generator` lives on
@@ -122,12 +145,12 @@ def loss_and_grads(model, optimizer, batch, prio: torch.Tensor, group=None
     with `group`, the gradients, the loss terms and the BatchNorms' running
     statistics averaged over the ranks. -> {"loss_total", every loss term},
     detached."""
-    with bn_sync_group(group):
+    with bn_sync_group(group), cudnn_deterministic():
         outs = model(batch, fine_priorities=prio)
-    losses = compute_losses(outs, batch, model.cfg)
-    total = sum(v for k, v in losses.items() if k.startswith("loss"))
-    optimizer.zero_grad()
-    total.backward()
+        losses = compute_losses(outs, batch, model.cfg)
+        total = sum(v for k, v in losses.items() if k.startswith("loss"))
+        optimizer.zero_grad()
+        total.backward()
     metrics = {"loss_total": total.detach(),
                **{k: v.detach() for k, v in losses.items()}}
     if group is not None:

@@ -12,11 +12,17 @@ deterministic` alone and under `torch.use_deterministic_algorithms(True,
 warn_only=True)`, each with its device busy ms, the ops it warns of and
 the kernels whose device time it moves most against the default step
 (what it swaps in names the op that sums in another order each run);
-then the two repaired sums of training, ops/gather.py's backward and
-ops/subm_conv.py's tap fold, in their fixed orders against the
-`index_add_` they replace: the step's busy ms (fixed, index_add_,
-index_add_, fixed) and each site's ms on the step's own calls. Needs a
-CUDA card. chip_smoke.py imports the helpers.
+then the five repaired sites of training in their fixed orders against
+what they replace: ops/gather.py's backward and ops/subm_conv.py's tap
+fold against `index_add_`, ops/interpolate.py's resizes (the semantic
+FPN's, the occupancy head's and the renderer's) against F.interpolate,
+and the depth net's DCN gathering its corners through gather_rows
+against torch.gather, whose backwards sum with atomics, and the train
+step's cuDNN deterministic algorithms (parallel/train_step.py:
+cudnn_deterministic) against cuDNN's default ones: the step's busy
+ms (fixed, old, old, fixed) and each site's ms on the step's own calls (a
+resize's or a DCN sampling's forward and backward). Needs a CUDA card.
+chip_smoke.py imports the helpers.
 """
 from __future__ import annotations
 
@@ -29,15 +35,24 @@ import warnings
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..config import get_config
 from ..data.synthetic import synthetic_batch
 from ..entry import FLAGSHIP, Trainer
-from ..ops import gather, subm_conv
+from ..models import renderer
+from ..nn import fpn3d, occ_head
+from ..ops import dcn, gather, interpolate, subm_conv
 from ..ops._build import load_all_kernel_libraries
+from ..parallel import train_step as ts
 from ..parallel.train_step import train_step
 
 CONFIGS = (FLAGSHIP, "coocc_lidar")
+# the repaired sites, each with what it replaced
+SITES = {"gather_rows backward": "index_add_",
+         "K2 dW tap fold": "index_add_",
+         "resize (FPN, occ head, renderer)": "F.interpolate",
+         "DCN gather (depth net)": "torch.gather"}
 
 
 def snapshot(trainer):
@@ -143,19 +158,73 @@ def old_tap_fold(g, table, Ci, Co):
     return w3[:, :, :3].reshape(27, Ci, Co)
 
 
+def old_resize_zxy(x, size):
+    """The semantic FPN's and the occupancy head's resize as it was:
+    F.interpolate's trilinear (its backward sums with atomics)."""
+    return F.interpolate(x, size=tuple(size), mode="trilinear",
+                         align_corners=False)
+
+
+def old_resize_chlast(x, size):
+    """The renderer's x16 upsample as it was: F.interpolate's bilinear on
+    [B, N, H, W, c]."""
+    B, N, H, W = x.shape[:4]
+    y = F.interpolate(x.reshape(B * N, H, W, -1).permute(0, 3, 1, 2),
+                      size=tuple(size), mode="bilinear", align_corners=False)
+    return y.permute(0, 2, 3, 1).reshape(B, N, *size, -1)
+
+
+def old_bilinear_taps(x, py, px):
+    """ops/dcn.py:_bilinear_taps as it was: each corner's pixels by
+    torch.gather on the expanded [B, T, C, H*W] map, whose backward (a
+    scatter-add) sums with atomics."""
+    B, C, H, W = x.shape
+    flat = x.reshape(B, 1, C, H * W)
+    y0, x0 = torch.floor(py), torch.floor(px)
+    wy, wx = py - y0, px - x0
+    y0, x0 = y0.long(), x0.long()
+    out = 0
+    for dy, w_y in ((0, 1 - wy), (1, wy)):
+        for dx, w_x in ((0, 1 - wx), (1, wx)):
+            yi, xi = y0 + dy, x0 + dx
+            inb = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+            idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))
+            v = torch.gather(flat.expand(B, idx.shape[1], C, H * W), 3,
+                             idx[:, :, None, :].expand(-1, -1, C, -1))
+            v = v * inb[:, :, None, :].to(x.dtype)
+            out = out + v * w_y[:, :, None, :] * w_x[:, :, None, :]
+    return out.permute(0, 2, 1, 3)
+
+
+# the sites repaired by a function swap: the site, the modules that call
+# the function, the name they call it by, the new function and the old one
+SWAPPED = (("resize", (fpn3d, occ_head), "resize_trilinear_zxy",
+            interpolate.resize_trilinear_zxy, old_resize_zxy),
+           ("resize", (renderer,), "resize_bilinear_chlast",
+            interpolate.resize_bilinear_chlast, old_resize_chlast),
+           ("dcn", (dcn,), "_bilinear_taps", dcn._bilinear_taps,
+            old_bilinear_taps))
+
+
 class repaired_sites:
-    """Inside the block the two repaired sums run as `version` says: "new"
-    (the fixed orders) or "old" (index_add_); with `record`, each call's
-    inputs are appended to record["gather"] and record["taps"]."""
+    """Inside the block the repaired sites run as `version` says: "new"
+    (the fixed orders, ops/interpolate.py's resizes, the DCN's
+    gather_rows, the train step's cuDNN deterministic algorithms) or "old"
+    (index_add_, F.interpolate, torch.gather, cuDNN's default ones); with
+    `record`, each call's inputs are appended to record["gather"],
+    record["taps"], record["resize"] and record["dcn"]."""
 
     def __init__(self, version: str = "new", record=None):
         self.version, self.record = version, record
 
     def __enter__(self):
         self.saved = (gather._GatherRows.backward,
-                      subm_conv.gather_taps_transpose)
-        back, fold = self.saved if self.version == "new" else (
+                      subm_conv.gather_taps_transpose,
+                      ts.cudnn_deterministic)
+        back, fold = self.saved[:2] if self.version == "new" else (
             old_gather_backward, old_tap_fold)
+        if self.version != "new":
+            ts.cudnn_deterministic = contextlib.nullcontext
         rec = self.record
 
         def backward(ctx, g):
@@ -169,12 +238,34 @@ class repaired_sites:
             return fold(g, table, Ci, Co)
         gather._GatherRows.backward = staticmethod(backward)
         subm_conv.gather_taps_transpose = taps
+        for key, mods, name, new, old in SWAPPED:
+            fn = new if self.version == "new" else old
+
+            def swapped(x, *args, fn=fn, new=new, old=old, key=key):
+                if rec is not None and x.requires_grad:
+                    rec.setdefault(key, []).append(
+                        (x.detach(), args, new, old))
+                return fn(x, *args)
+            for m in mods:
+                setattr(m, name, swapped)
         return self
 
     def __exit__(self, *exc):
         gather._GatherRows.backward = staticmethod(self.saved[0])
         subm_conv.gather_taps_transpose = self.saved[1]
+        ts.cudnn_deterministic = self.saved[2]
+        for _, mods, name, new, _ in SWAPPED:
+            for m in mods:
+                setattr(m, name, new)
         return False
+
+
+def fwd_bwd(x, args, fn):
+    """One call's forward and backward with respect to x (a fixed
+    cotangent of ones)."""
+    x = x.detach().requires_grad_(True)
+    y = fn(x, *args)
+    return torch.autograd.grad(y, x, torch.ones_like(y))
 
 
 def gather_new(idx, g, rows):
@@ -211,16 +302,22 @@ def event_ms(fn, reps: int = 5) -> float:
 
 def site_times(record) -> Dict[str, Dict]:
     """Each repaired site's device ms over one step's calls, the fixed
-    order against index_add_ on the same inputs (old, new, old, new, each
-    pair averaged), and the gather's calls one by one. -> {site: {"calls",
-    "old_ms", "new_ms"}, "gather_calls": [(values, row shape, rows,
-    old ms, new ms)]}."""
+    order against what it replaces on the same inputs (old, new, old, new,
+    each pair averaged; a resize's forward and backward), and the gather's
+    calls one by one. -> {site: {"calls", "old_ms", "new_ms"},
+    "gather_calls": [(values, row shape, rows, old ms, new ms)]}."""
     out = {}
+    old_call = lambda x, args, n, o: fwd_bwd(x, args, o)  # noqa: E731
+    new_call = lambda x, args, n, o: fwd_bwd(x, args, n)  # noqa: E731
     for site, calls, old, new in (
             ("gather_rows backward", record["gather"], gather_old,
              gather_new),
             ("K2 dW tap fold", record["taps"], old_tap_fold,
-             subm_conv.gather_taps_transpose)):
+             subm_conv.gather_taps_transpose),
+            ("resize (FPN, occ head, renderer)", record.get("resize", []),
+             old_call, new_call),
+            ("DCN gather (depth net)", record.get("dcn", []), old_call,
+             new_call)):
         times = {"old_ms": [], "new_ms": []}
         for key, fn in (("old_ms", old), ("new_ms", new), ("old_ms", old),
                         ("new_ms", new)):
@@ -294,15 +391,15 @@ def check(name: str, log=print) -> Dict:
                 log(f"    {default.get(k, 0.0):9.3f} -> "
                     f"{kernels.get(k, 0.0):9.3f}  {k}")
         nums[label] = {"differing": counts, "busy_ms": busy}
-    record = {"gather": [], "taps": []}
+    record = {"gather": [], "taps": [], "resize": [], "dcn": []}
     restore(trainer, snap)
     with repaired_sites("new", record):
         trainer.step(batch)
     sites = site_times(record)
     del record
-    for site in ("gather_rows backward", "K2 dW tap fold"):
+    for site, was in SITES.items():
         t = sites[site]
-        log(f"{name}: {site}: {t['calls']} calls a step, index_add_ "
+        log(f"{name}: {site}: {t['calls']} calls a step, {was} "
             f"{t['old_ms']:.4f} ms, fixed order {t['new_ms']:.4f} ms")
     for n, row, rows, old, new in sites["gather_calls"]:
         log(f"  gather_rows backward, {n} values of {row} onto {rows} "
@@ -317,7 +414,7 @@ def check(name: str, log=print) -> Dict:
     nums["site_busy_ms"] = {k: statistics.mean(v) for k, v in busy.items()}
     log(f"{name}: step busy {nums['site_busy_ms']['new']:.3f} ms with the "
         f"fixed orders, {nums['site_busy_ms']['old']:.3f} ms with "
-        f"index_add_")
+        f"index_add_ and F.interpolate")
     return nums
 
 

@@ -42,6 +42,17 @@ from .observe import MetricsLogger, dump_run_metadata
 log = logging.getLogger("coocc_tpu_torch")
 
 
+def kernel_launches() -> Dict[str, int]:
+    """The port's kernels' launch counts (each wrapper's `launches`: its
+    kernel launched on the card; 0 on the CPU, where the wrappers take
+    their plain versions)."""
+    from ..ops.knn import knn2
+    from ..ops.subm_conv import subm_ext_conv, subm_ext_conv_dx
+    from ..ops.window_knn import window_knn
+    return {f.__name__: f.launches
+            for f in (window_knn, subm_ext_conv, subm_ext_conv_dx, knn2)}
+
+
 def sum_eval_hists(model, cfg: CoOccConfig, data_iter: Iterable,
                    max_steps: Optional[int] = None,
                    render_dir: Optional[str] = None,
@@ -156,6 +167,8 @@ def train(cfg: CoOccConfig, train_iter_fn: Callable[[], Iterable],
     epoch from its weights, BN statistics, AdamW moments and LR count. The
     generator of dropout and the cascade's priorities starts from `seed`
     on every start, resumed or not (JAX keeps no RNG in its checkpoint).
+    Each epoch logs its steps' data ms (the wait in next(), the copy onto
+    the device included) and step ms, and the kernels' launches in them.
     With `mesh` (its device in place of `device`) the run is data-parallel
     (the module note). -> the Trainer (model, optimizer, generator)."""
     trainer = Trainer(cfg, device, seed, steps_per_epoch=steps_per_epoch,
@@ -183,20 +196,38 @@ def train(cfg: CoOccConfig, train_iter_fn: Callable[[], Iterable],
     for epoch in range(start_epoch, cfg.optim.max_epochs):
         t0 = time.time()
         running: Dict[str, float] = {}
-        for i, batch in enumerate(train_iter_fn()):
-            if i >= steps_per_epoch:
+        batches = iter(train_iter_fn())
+        data_ms, step_ms = [], []
+        launched = kernel_launches()
+        i = -1
+        while True:
+            t_data = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None or i + 1 >= steps_per_epoch:
                 break
+            i += 1
+            t_step = time.perf_counter()
             metrics = trainer.step(batch)
             values = {k: float(v) for k, v in metrics.items()}
+            data_ms.append((t_step - t_data) * 1e3)
+            step_ms.append((time.perf_counter() - t_step) * 1e3)
             if (i + 1) % log_interval == 0 and main:
                 log.info("epoch %d iter %d: %s", epoch, i + 1,
                          {k: round(v, 4) for k, v in values.items()})
                 mlog.log("train", epoch=epoch, iter=i + 1, **values)
             running = {k: running.get(k, 0.0) + v for k, v in values.items()}
 
-        n_it = max(min(i + 1, steps_per_epoch), 1)
+        del batches
+        n_it = max(i + 1, 1)
         if main:
             log.info("epoch %d done in %.1fs", epoch, time.time() - t0)
+            log.info("epoch %d: data ms a step (the wait in next(), the copy "
+                     "onto the device included) %s, step ms %s", epoch,
+                     [round(t, 3) for t in data_ms],
+                     [round(t, 3) for t in step_ms])
+            log.info("epoch %d: kernel launches in its %d steps %s", epoch,
+                     len(step_ms), {k: v - launched[k] for k, v in
+                                    kernel_launches().items()})
             mlog.log("epoch", epoch=epoch, time_s=time.time() - t0,
                      **{k: v / n_it for k, v in running.items()})
 

@@ -50,10 +50,49 @@ def test_every_port_module_imports_without_jax():
               "evaluation.formatting", "evaluation.savers", "train.loop",
               "train.checkpoint", "train.observe", "test.__main__",
               "config.semantic_kitti", "evaluation.render_metrics",
-              "parallel.distributed", "parallel.mesh"):
+              "parallel.distributed", "parallel.mesh", "ops.interpolate",
+              "data.loader", "data.nuscenes_dataset",
+              "data.semantic_kitti_dataset", "data.pipelines.image_loading",
+              "data.pipelines.lidar2depth", "data.pipelines.load_occupancy",
+              "data.pipelines.loading_bevdet", "tools.nuscenes_tree"):
         assert f"coocc_tpu_torch.{m}" in mods
     _run_clean("\n".join(["import coocc_tpu_torch"]
                          + [f"import {m}" for m in mods]))
+
+
+def test_lidar_only_sample_imports_no_pil(tmp_path):
+    """Building and collating a coocc_lidar sample from a nuScenes tree
+    (camera-free geometry, sweeps, depth maps, ground truth, lidarseg)
+    imports no PIL, in a fresh interpreter; the camera path's entry raises
+    ImportError naming the image path where PIL is missing."""
+    code = f"""
+import sys
+import numpy as np
+from coocc_tpu_torch.config import get_config
+from coocc_tpu_torch.data.nuscenes_dataset import NuScenesOccDataset, collate
+from coocc_tpu_torch.data.pipelines import image_loading
+from coocc_tpu_torch.tools.nuscenes_tree import write_tree
+f = write_tree({str(tmp_path)!r}, points=2000, sweeps=2, occupied=1000)
+cfg = get_config("coocc_lidar")
+for train in (True, False):
+    ds = NuScenesOccDataset(cfg, f["data_root"], f["ann_file"],
+                            f["occ_path"], is_train=train)
+    b = collate([ds.get_sample(0, np.random.RandomState(0))], cfg)
+    assert b.imgs is None and b.gt_depths.shape == (1, 6, 896, 1600)
+assert "PIL" not in sys.modules and image_loading.pil_image.calls == 0
+sys.modules["PIL"] = None  # as where Pillow is not installed
+try:
+    image_loading.load_image("x.jpg")
+except ImportError as e:
+    assert "camera configs' image path" in str(e)
+else:
+    raise AssertionError("no ImportError without PIL")
+print("clean")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "clean"
 
 
 def test_chip_smoke_imports_without_jax():
