@@ -94,9 +94,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      with a visible mask; the fp32 and bf16 forwards against
      parity/openocc_real.npz; the test CLI (`python -m
      coocc_tpu_torch.test coocc_multi_r101_openoccupancy --synthetic
-     --max-steps 2`, its table and eval ms a batch) and the bench
-     (BENCH_CONFIG=coocc_multi_r101_openoccupancy), each in a process of
-     its own;
+     --max-steps 2`, its table and eval ms a batch) in a process of its
+     own and the bench (BENCH_CONFIG=coocc_multi_r101_openoccupancy, its
+     main() in this process);
  12. coocc_multi_r101_896x1600 and coocc_cam_r101_896x1600 at full width
      as served: 3 requests each (K1 2 and K2 13 a request, and none for
      the camera-only model), their outputs checked, times, device busy
@@ -123,8 +123,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      loop's wait for each batch against its step, the checkpoint, the eval
      hook's lidarseg metric) and the test CLI (`--max-steps 2
      --save-by-scene --pred-save`: the SC/SSC and lidarseg tables, one
-     prediction file per token) in processes of their own; the bench in a
-     process of its own.
+     prediction file per token) in processes of their own; the bench
+     (its main() in this process).
  14. coocc_multi_r50_256x704_stereo, the flagship with BEVStereo depth, at
      full width as served (bf16): the previous keyframe's 6 images through
      the shared R50's stage 0 and 12 plane-sweep warps of [6, 3, 64, 176,
@@ -133,8 +133,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      rounds (the plane sweep's share); K1 and K2 each on one call of the
      path against their plain versions; the fp32 and bf16 forwards against
      parity/stereo_real.npz (bf16 within 2x / 1.5x of JAX's own bf16
-     drift, `parity.check_drift`); the bench and the test CLI in processes
-     of their own.
+     drift, `parity.check_drift`); the bench (its main() in this process)
+     and the test CLI in a process of its own.
  15. coocc_kitti's img and pts prefixes at full width (one 384x1280 camera
      through R50 with the 30-d camera vector of KITTI's 3x4 intrinsics;
      350,000 points, 245,000 valid, on the 512x512x64 LiDAR grid), from
@@ -161,6 +161,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      first BatchNorm's real input against one process's BatchNorm on the
      concatenated batch; the 2-rank eval's hists against one process's of
      the same two samples.
+ 18. the LiDAR encoder's other routes (phase_lidar_routes), each model
+     built on the card from the served weights: the flagship with
+     pts.impl="gather" (the gather-GEMM SparseLiDAREnc8x, fp32 inside the
+     bf16 model) served (3 requests, K1 2 and K2 0 launches each, request
+     and busy ms, the pts stage's device time by kernel, peak memory, the
+     voxel cap's and each strided level's drops, the synchronizing calls
+     of a forward: tools/host_profile.py:sync_sites), its fp32 pts_voxel
+     against the dense and packed routes' on a request of its first
+     12,000 points (no cap binds), its bf16 train step (K1 2, K2 0 a
+     step, C8: two steps from one state equal bit for bit); the
+     flagship's train step on pts.impl="dense" (the masked BatchNorm over
+     each level's active cells); coocc_lidar with pts.impl="gather"
+     (SparseEncoderHD's rulebook form) served and trained (no K1 or K2);
+     SparseLiDAREnc4x as a module on the 800x800x64 grid at
+     max_voxels_test (its output 200x200x16: the model raises at the
+     fuser grid, as JAX's fuser fails).
 The real-shape parity phases' numpy weights are drawn and hashed in a
 background thread from phase 4 on (ParityWeights).
 Prints the card, the kernels' JSON line (the served bf16 path's launches
@@ -169,8 +185,9 @@ config, K2's mask-only forward in training by config ("train"), and K2's
 dX row, the flagship's with the other configs' under "configs"; the loop's
 launches; K1's and K2's numbers at OpenOccupancy's shapes, K2's at
 coocc_lidar's (with its data path's launches and one-call check) and
-coocc_kitti's, the stereo path's launches and one-call checks, and the
-render path's launches, under "configs"; each rank's
+coocc_kitti's, the stereo path's launches and one-call checks, the
+render path's launches and the LiDAR routes' ("routes"), under
+"configs"; each rank's
 launches in the data-parallel steps under "data_parallel") and, last, the
 result line.
 Needs a CUDA card and the repository around it; it imports nothing of
@@ -1242,8 +1259,10 @@ TRAIN_K2_CHECKED = ("coocc_multi_r50_256x704", "coocc_lidar",
 TRAIN_K2_ONE_CALL = ("coocc_multi_r50_256x704_stereo",)
 
 
-def phase_train(name, kernels):
-    """Config `name`'s train step at full width in its config's bf16
+def phase_train(name, kernels, cfg=None, want=None, c8=None, init=None):
+    """Config `name`'s train step (or, with `cfg`, that config's under the
+    label `name`, its launches `want` a step, C8 checked where `c8` and
+    the weights `init` gives) at full width in its config's bf16
     (entry.train_steps: seeded weights, AdamW, BN on batch statistics, the
     renderer, every loss): one warm-up step, then 3 steps on the synthetic
     batches of seeds 0, 1, 2 with the kernels' counts set to 0 before them
@@ -1257,12 +1276,13 @@ def phase_train(name, kernels):
     import torch
     from coocc_tpu_torch.config import get_config
     from coocc_tpu_torch.data.synthetic import synthetic_batch
-    from coocc_tpu_torch.entry import train_steps
+    from coocc_tpu_torch.entry import init_weights, train_steps
     lap = lap_timer(f"{name} train")
-    cfg = get_config(name)
-    want = PER_TRAIN_STEP_OF[name]
+    cfg = cfg or get_config(name)
+    want = want or PER_TRAIN_STEP_OF[name]
+    c8 = name in C8_CONFIGS if c8 is None else c8
     t0 = time.perf_counter()
-    trainer, [warm] = train_steps(cfg, 1, "cuda")
+    trainer, [warm] = train_steps(cfg, 1, "cuda", init=init or init_weights)
     sync()
     model = trainer.model
     if model.dtype != torch.bfloat16:
@@ -1325,7 +1345,7 @@ def phase_train(name, kernels):
     elif name in TRAIN_K2_ONE_CALL:
         nums["one_call"] = train_k2_one_call(trainer, batches[1])
         lap("K2's first forward and dX of a step")
-    if name in C8_CONFIGS:
+    if c8:
         nums["c8"], snap = c8_check(name, trainer, batches[0])
         if name == FLAGSHIP:
             nums["dp_world1"] = dp_world_one(
@@ -1802,26 +1822,50 @@ def phase_loop(kernels):
     return launches
 
 
-def phase_bench(config):
+def phase_bench(config, in_process=False):
     """`BENCH_CONFIG=config python -m coocc_tpu_torch.bench` once
-    (BENCH_ITERS=3, its default bf16), in a process of its own; its JSON
-    line is logged behind a prefix. -> frames/sec."""
+    (BENCH_ITERS=3, its default bf16), in a process of its own, or with
+    `in_process` its `main()` in this one (the process's start, torch's
+    import and the card's context cost some 8 s a bench); its JSON line is
+    logged behind a prefix. -> frames/sec."""
+    import contextlib
+    import io
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "coocc_tpu_torch.bench"], cwd=ROOT,
-        env={**os.environ, "BENCH_ITERS": "3", "BENCH_CONFIG": config},
-        capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"the bench failed: {proc.stderr[-2000:]}")
-    lines = proc.stdout.strip().splitlines()
+    env = {"BENCH_ITERS": "3", "BENCH_CONFIG": config}
+    if in_process:
+        from coocc_tpu_torch import bench
+        old = {k: os.environ.get(k) for k in env}
+        out = io.StringIO()
+        os.environ.update(env)
+        try:
+            with contextlib.redirect_stdout(out):
+                bench.main()
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        stdout = out.getvalue()
+    else:
+        proc = subprocess.run(
+            [sys.executable, "-m", "coocc_tpu_torch.bench"], cwd=ROOT,
+            env={**os.environ, **env}, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the bench failed: {proc.stderr[-2000:]}")
+        stdout = proc.stdout
+    lines = stdout.strip().splitlines()
     result = json.loads(lines[-1])
     if len(lines) != 1 or result["dtype"] != "bf16" or not (
             result["value"] > 0 and result["unit"] == "frames/sec"
             and "power_limit" in result["device"]
             and result["metric"].startswith(config)):
-        raise AssertionError(f"the bench printed {proc.stdout!r}")
+        raise AssertionError(f"the bench printed {stdout!r}")
+    where = "in this process" if in_process else "in a process of its own"
     log(f"bench (BENCH_CONFIG={config} python -m coocc_tpu_torch.bench, "
-        f"BENCH_ITERS=3, {time.perf_counter() - t0:.1f} s): {lines[-1]}")
+        f"BENCH_ITERS=3, {where}, {time.perf_counter() - t0:.1f} s): "
+        f"{lines[-1]}")
     return result["value"]
 
 
@@ -1875,8 +1919,8 @@ def phase_openocc(kernels, weights):
     plain version on its own bf16 inputs (res1 [1,10,512,512,128]), and
     K2's times and bound at those shapes; eval_step with a visible mask
     (SC/SSC hists at 512x512x40, the _visible pair); then the card's fp32
-    and bf16 forwards against openocc_real.npz, the test CLI and the bench
-    in processes of their own. -> (K1's row, K2's numbers, the config's
+    and bf16 forwards against openocc_real.npz, the test CLI in a process
+    of its own and the bench. -> (K1's row, K2's numbers, the config's
     numbers)."""
     import torch
     from coocc_tpu_torch.parallel.train_step import eval_step
@@ -1927,7 +1971,7 @@ def phase_openocc(kernels, weights):
 
     phase_real_shape_parity(OPENOCC, weights)
     nums["test_cli_eval_ms"] = phase_test_cli(OPENOCC)
-    nums["bench_fps"] = phase_bench(OPENOCC)
+    nums["bench_fps"] = phase_bench(OPENOCC, in_process=True)
     return k1, k2, nums
 
 
@@ -1993,8 +2037,8 @@ def phase_lidar(kernels, weights):
     at each of those levels in fp32 and bf16 and every epilogue mode, K2's
     times and bound at those shapes; the fp32 and bf16 forwards against
     parity/lidar_real.npz; the data path (data_path_in_process,
-    data_path_clis: the train and test CLIs on a nuScenes tree) and the
-    bench in processes of their own. -> (K2's numbers, the config's
+    data_path_clis: the train and test CLIs on a nuScenes tree, in
+    processes of their own) and the bench. -> (K2's numbers, the config's
     numbers)."""
     import torch
     lap = lap_timer(LIDAR)
@@ -2030,7 +2074,7 @@ def phase_lidar(kernels, weights):
     nums["data_path"].update(data_path_clis(tree))
     tree.close()
     lap("the train and test CLIs on the tree")
-    nums["bench_fps"] = phase_bench(LIDAR)
+    nums["bench_fps"] = phase_bench(LIDAR, in_process=True)
     k2["data_path"] = {k: nums["data_path"][k] for k in (
         "launches", "max_abs_err", "train_cli_launches")}
     return k2, nums
@@ -2248,8 +2292,8 @@ def phase_stereo(kernels, weights):
     its EM rounds (the plane sweep's share); K1 and K2 each on one call of
     the path against their plain versions (their times are the
     flagship's: same shapes); the fp32 and bf16 forwards against
-    parity/stereo_real.npz; the bench and the test CLI (its second batch
-    timed) in processes of their own. -> the config's numbers (K1's and
+    parity/stereo_real.npz; the bench, and the test CLI (its second batch
+    timed) in a process of its own. -> the config's numbers (K1's and
     K2's errors among them)."""
     import torch
     lap = lap_timer(STEREO)
@@ -2263,7 +2307,7 @@ def phase_stereo(kernels, weights):
     del model, requests
     torch.cuda.empty_cache()
     phase_real_shape_parity(STEREO, weights)
-    nums["bench_fps"] = phase_bench(STEREO)
+    nums["bench_fps"] = phase_bench(STEREO, in_process=True)
     nums["test_cli_eval_ms"] = phase_test_cli(STEREO)
     return nums
 
@@ -2571,6 +2615,241 @@ def phase_render(kernels):
         log(f"  {line}")
     torch.cuda.empty_cache()
     lap("the test CLI")
+    return nums
+
+
+# the LiDAR encoder's other routes (pts.impl 'gather' and 'dense'): K1 in
+# the fuser, 2 a forward and a step; K2 (the packed encoder's) never
+PER_ROUTE = {"window_knn": 2, "subm_ext_conv": 0, "subm_ext_conv_dx": 0,
+             "knn2": 0}
+NO_KERNELS = dict.fromkeys(PER_ROUTE, 0)
+# the request whose cap binds at no level of the gather encoder: its first
+# FEW_POINTS points (the voxel cap and every level's keep all their sites)
+FEW_POINTS = 12_000
+# gather against dense pts_voxel, fp32 both: the same sums in other orders
+# (a matmul of gathered rows against cuDNN's conv3d, TF32 off) through 20
+# layers, as fractions of max |dense|; a wiring fault moves them by O(1)
+GATHER_VS_DENSE_MAX = 1e-3
+GATHER_VS_DENSE_MEAN = 1e-4
+
+
+def with_impl(cfg, impl):
+    return dataclasses.replace(cfg, pts=dataclasses.replace(cfg.pts,
+                                                            impl=impl))
+
+
+def loaded(sd):
+    """An `init` for entry.build_model and train_steps: the weights of
+    state_dict `sd`, copied on the card (init_weights draws a flagship's
+    on the host in about 3.5 s)."""
+    def init(model, seed):
+        model.load_state_dict(sd)
+        return model
+    return init
+
+
+def cap_drops(model, requests):
+    """Each request's sites before the voxel cap and each strided level's
+    cap, and the drops (pts.max_voxels_test), from one pts stage of the
+    gather model each. -> [{"voxels": [occupied, kept], "levels":
+    [[sites, kept], ...]}]."""
+    import torch
+    from coocc_tpu_torch.ops.voxelize import voxelize_mask
+    cfg = model.cfg
+    cap = cfg.pts.max_voxels_test
+    out = []
+    for b in requests:
+        occupied = int(voxelize_mask(
+            b.points[0], b.points_mask[0], cfg.point_cloud_range,
+            cfg.pts.voxel_size, cfg.pts.sparse_shape_xyz).sum())
+        with torch.no_grad():
+            model._pts_voxels(b)
+        sites = [int(s.max()) for s in model.pts_middle_encoder.level_sites]
+        out.append({"voxels": [occupied, min(occupied, cap)],
+                    "levels": [[n, min(n, cap)] for n in sites]})
+    log(f"{cfg.name} gather caps ({cap} sites): " + "; ".join(
+        f"request {i}: voxels {r['voxels'][0]} -> {r['voxels'][1]}, levels "
+        + ", ".join(f"{n} -> {k}" for n, k in r["levels"])
+        for i, r in enumerate(out)))
+    return out
+
+
+def gather_serve(model, requests, kernels, per_request):
+    """serve_requests on a gather-route model, the device's busy time
+    (full forward and pts stage, by kernel), the caps' drops and the
+    synchronizing calls of one forward and of its pts stage, which has
+    none (coocc_tpu_torch/tools/host_profile.py:sync_sites). -> its
+    numbers."""
+    import torch
+    from coocc_tpu_torch.tools.host_profile import sync_sites
+    launches, req_ms, peak, _ = serve_requests(model, requests, kernels,
+                                               per_request, keep=False)
+    log(f"profile, {model.cfg.name} gather (device time by kernel):")
+    busy = device_breakdown(model, requests, 12)
+    log(f"profile, {model.cfg.name} gather pts stage (voxelize + "
+        "SparseLiDAREnc8x / SparseEncoderHD, device time by kernel):")
+    pts_busy = device_breakdown(pts_stage(model), requests, 12)
+    with torch.no_grad():
+        syncs = sync_sites(model, requests[0])
+        pts_syncs = sync_sites(pts_stage(model), requests[0])
+    log(f"synchronizing calls in one gather forward: {sum(syncs.values())} "
+        f"{dict(syncs)}; in its pts stage {sum(pts_syncs.values())}")
+    if pts_syncs:
+        raise AssertionError(f"the gather route synchronizes: {pts_syncs}")
+    share = (lambda a, b: None if a is None or b is None else a / b)
+    return {"request_ms": statistics.median(req_ms), "device_busy_ms": busy,
+            "busy_share": share(busy, statistics.median(req_ms)),
+            "pts_busy_ms": pts_busy, "pts_share": share(pts_busy, busy),
+            "peak_gib": peak / 2 ** 30, "launches": launches,
+            "syncs": sum(syncs.values()),
+            "pts_syncs": sum(pts_syncs.values()),
+            "caps": cap_drops(model, requests)}
+
+
+def gather_agreement(flag, request, init):
+    """The flagship's pts_voxel on the gather route against the dense and
+    packed routes from one state_dict (`init`), fp32, on `request` cut to
+    its first FEW_POINTS points (no cap binds): gather against dense within
+    GATHER_VS_DENSE_*, packed against gather within PACKED_VS_DENSE_*
+    (K2 rounds the packed encoder's SubM operands to bf16). -> the
+    relative errors."""
+    import torch
+    from coocc_tpu_torch.entry import build_model
+    small = request._replace(points_mask=request.points_mask & (
+        torch.arange(request.points_mask.shape[1], device="cuda")
+        < FEW_POINTS))
+    models = {impl: build_model(with_impl(flag, impl), "cuda", init=init)
+              for impl in ("gather", "dense", "packed")}
+    pv = {impl: m(small, stop_at="pts")["pts_voxel"]
+          for impl, m in models.items()}
+    cap = flag.pts.max_voxels_test
+    sites = [int(s.max()) for s in
+             models["gather"].pts_middle_encoder.level_sites]
+    if max(sites) > cap:
+        raise AssertionError(f"the small request's sites {sites} pass the "
+                             f"cap {cap}")
+    del models
+    out = {"sites": sites}
+    for a, b, bmax, bmean in (
+            ("gather", "dense", GATHER_VS_DENSE_MAX, GATHER_VS_DENSE_MEAN),
+            ("packed", "gather", PACKED_VS_DENSE_MAX, PACKED_VS_DENSE_MEAN)):
+        scale = float(pv[b].abs().max())
+        err = (pv[a] - pv[b]).abs()
+        rel = (float(err.max()) / scale, float(err.mean()) / scale)
+        log(f"{a} vs {b} pts_voxel (fp32, {FEW_POINTS} points, sites "
+            f"{sites}): max_abs_err {float(err.max()):.6g}, scale "
+            f"{scale:.6g}, max {rel[0]:.6g} and mean {rel[1]:.6g} of the "
+            f"scale (bounds {bmax}, {bmean})")
+        if not (scale > 0 and rel[0] <= bmax and rel[1] <= bmean):
+            raise AssertionError(f"{a} pts_voxel differs from {b}")
+        out[f"{a}_vs_{b}"] = rel
+    return out
+
+
+def phase_lidar_routes(kernels):
+    """The LiDAR encoder's other routes at full width, B=1, each model built
+    on the card from the served model's weights (entry.build_model, seed
+    0), none falling back to another route: the flagship with
+    pts.impl="gather" (the gather-GEMM SparseLiDAREnc8x) served in bf16 (3
+    requests, K1 2 and K2 0 launches each, device time of the forward and
+    the pts stage by kernel, peak memory, each level's cap drops, the
+    synchronizing calls), its pts_voxel against the dense and packed
+    routes' on a request of FEW_POINTS points, its bf16 train step (K1 2,
+    K2 0 a step; C8: two steps from one state equal bit for bit); the
+    flagship's dense train step; coocc_lidar with pts.impl="gather"
+    (SparseEncoderHD's rulebook form) served and trained (no K1 or K2);
+    SparseLiDAREnc4x as a module on the flagship's 800x800x64 grid at
+    max_voxels_test. -> the routes' numbers."""
+    import torch
+    from coocc_tpu_torch.config import get_config
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.entry import build_model, init_weights
+    from coocc_tpu_torch.nn.sparse_enc import (SparseLiDAREnc4x,
+                                               SparseLiDAREnc8x)
+    from coocc_tpu_torch.nn.sparse_encoder_hd import SparseEncoderHD
+    from coocc_tpu_torch.ops.sparse_conv import SparseTensor
+    from coocc_tpu_torch.ops.voxelize import voxelize
+    lap = lap_timer("LiDAR routes")
+    nums = {}
+    flag = get_config(FLAGSHIP)
+    requests = [synthetic_batch(flag, batch_size=1, seed=s).to("cuda")
+                for s in range(3)]
+    model = build_model(with_impl(flag, "gather"), "cuda", seed=0,
+                        dtype=torch.bfloat16)
+    if type(model.pts_middle_encoder) is not SparseLiDAREnc8x:
+        raise AssertionError("pts.impl='gather' did not give the gather "
+                             "encoder")
+    log(f"{FLAGSHIP} gather (bf16, as served):")
+    nums["flagship_gather"] = gather_serve(model, requests, kernels,
+                                           PER_ROUTE)
+    # the served weights, for every other model of the flagship's routes
+    init = loaded(model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    lap("flagship gather served")
+    nums["flagship_gather"]["agreement"] = gather_agreement(
+        flag, requests[0], init)
+    torch.cuda.empty_cache()
+    lap("gather against dense and packed")
+    nums["flagship_gather"]["train"] = phase_train(
+        "flagship gather", kernels, cfg=with_impl(flag, "gather"),
+        want=PER_ROUTE, c8=True, init=init)
+    lap("flagship gather train")
+    nums["flagship_dense_train"] = phase_train(
+        "flagship dense", kernels, cfg=with_impl(flag, "dense"),
+        want=PER_ROUTE, c8=False, init=init)
+    del init
+    lap("flagship dense train")
+
+    lid = with_impl(get_config(LIDAR), "gather")
+    lreq = [synthetic_batch(lid, batch_size=1, seed=s).to("cuda")
+            for s in range(3)]
+    model = build_model(lid, "cuda", seed=0, dtype=torch.bfloat16)
+    if type(model.pts_middle_encoder) is not SparseEncoderHD:
+        raise AssertionError("coocc_lidar on pts.impl='gather' did not give "
+                             "SparseEncoderHD")
+    log(f"{LIDAR} gather (bf16, as served):")
+    nums["lidar_gather"] = gather_serve(model, lreq, kernels, NO_KERNELS)
+    init = loaded(model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    lap("coocc_lidar gather served")
+    nums["lidar_gather"]["train"] = phase_train(
+        "coocc_lidar gather", kernels, cfg=lid, want=NO_KERNELS, c8=False,
+        init=init)
+    del init
+    lap("coocc_lidar gather train")
+
+    # SparseLiDAREnc4x as a module: its 200x200x16 output is not the
+    # flagship's fuser grid (the model raises there, as JAX's fuser fails)
+    enc = init_weights(SparseLiDAREnc4x(4, 16, 128, flag.pts.sparse_shape_xyz)
+                       .to("cuda"), 0).eval()
+    cap = flag.pts.max_voxels_test
+    sps = []
+    for b in requests:
+        v = voxelize(b.points[0], b.points_mask[0], flag.point_cloud_range,
+                     flag.pts.voxel_size, flag.pts.sparse_shape_xyz,
+                     max_voxels=cap,
+                     max_points_per_voxel=flag.pts.max_num_points,
+                     num_features=flag.pts.input_channel)
+        sps.append(SparseTensor(*(t[None] for t in v)))
+    with torch.no_grad():
+        out = enc(sps[0], cap)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda sp: enc(sp, cap), sps)
+    want = (1, 128) + tuple(s // 4 for s in flag.pts.sparse_shape_xyz)
+    if tuple(out.shape) != want or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"Enc4x output {tuple(out.shape)}, want {want}")
+    sites = [int(s.max()) for s in enc.level_sites]
+    nums["enc4x"] = {"forward_ms": ms, "sites": sites,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"SparseLiDAREnc4x on {flag.pts.sparse_shape_xyz} at {cap} voxels: "
+        f"{ms:.3f} ms a forward (median of 3), output {want}, level sites "
+        f"{sites} (cap {cap}), peak {nums['enc4x']['peak_gib']:.3f} GiB")
+    del enc, out, sps, requests, lreq
+    torch.cuda.empty_cache()
+    lap("Enc4x")
     return nums
 
 
@@ -3169,6 +3448,12 @@ def main():
     served["render"] = phase_render(kernels)
     log(f"{KITTI} and the render path took {time.perf_counter() - t_new:.1f}"
         " s")
+    t_routes = time.perf_counter()
+    log(f"[{t_routes - t0:.1f} s] the LiDAR encoder's other routes (gather "
+        "served and trained, the dense twin's step, Enc4x):")
+    routes = phase_lidar_routes(kernels)
+    log(f"the LiDAR routes took {time.perf_counter() - t_routes:.1f} s")
+    log("LiDAR routes: " + json.dumps(routes))
     log(f"served configs (request ms median, device busy ms per request, "
         f"peak GiB): {json.dumps(served)}")
     # the kernels at OpenOccupancy's shapes, beside the flagship's
@@ -3185,6 +3470,17 @@ def main():
         # the flagship's eval with rendering: launches over its 3 requests
         row["configs"]["render"] = {
             "launches": served["render"]["render"]["launches"][row["name"]]}
+        # the LiDAR routes: launches over 3 requests and 3 train steps
+        row["configs"]["routes"] = {
+            "flagship_gather": routes["flagship_gather"]["launches"][
+                row["name"]],
+            "flagship_gather_train": routes["flagship_gather"]["train"][
+                "launches"][row["name"]],
+            "flagship_dense_train": routes["flagship_dense_train"][
+                "launches"][row["name"]],
+            "lidar_gather": routes["lidar_gather"]["launches"][row["name"]],
+            "lidar_gather_train": routes["lidar_gather"]["train"][
+                "launches"][row["name"]]}
 
     log(f"[{time.perf_counter() - t0:.1f} s] card: {card_line()}")
     log(json.dumps({"kernels": rows}))

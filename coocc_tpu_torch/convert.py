@@ -139,6 +139,15 @@ class _Reader:
         self._set("params", f"{f}/weight",
                   self.sd[f"{t}.weight"].transpose(2, 3, 1, 0))
 
+    def gn(self, t, f):
+        self._set("params", f"{f}/scale", self.sd[f"{t}.weight"])
+        self._set("params", f"{f}/bias", self.sd[f"{t}.bias"])
+
+    def spconv(self, t, f, name="weight"):
+        w = self.sd[f"{t}.weight"]               # [O, kz, ky, kx, I]
+        self._set("params", f"{f}/{name}", w.transpose(3, 2, 1, 4, 0)
+                  .reshape(-1, w.shape[4], w.shape[0]))
+
 
 def _resnet(w: _Writer, t, f, depth):
     w.conv2d(f"{t}.conv1", f"{f}/conv1")
@@ -267,6 +276,39 @@ def _sparse_enc8x(w: _Writer, t, f):
     w.gn(f"{t}.conv_out.1", f"{f}/gn_out/gn")
 
 
+def _sparse_enc4x(w: _Writer, t, f):
+    """JAX's SparseLiDAREnc4x scopes <-> the port's names
+    (nn/sparse_enc.py): conv_input, gn_input, res1_{0,1} (conv1.{0,1}),
+    down{2,3} and res{2,3}_{0,1} (conv{2,3}), conv_out, gn_out."""
+    w.spconv(f"{t}.conv_input.0", f"{f}/conv_input")
+    w.gn(f"{t}.conv_input.1", f"{f}/gn_input/gn")
+    for lvl in (1, 2, 3):
+        tl = f"{t}.conv{lvl}"
+        if lvl > 1:
+            w.spconv(f"{tl}.0.0", f"{f}/down{lvl}")
+            w.bn(f"{tl}.0.1", f"{f}/down{lvl}/norm/bn")
+        for blk in (0, 1):
+            tb = f"{tl}.{blk + (lvl > 1)}.net"
+            fb = f"{f}/res{lvl}_{blk}"
+            w.spconv(f"{tb}.0", f"{fb}/conv1")
+            w.bn(f"{tb}.1", f"{fb}/norm1/bn")
+            w.spconv(f"{tb}.3", f"{fb}/conv2")
+            w.bn(f"{tb}.4", f"{fb}/norm2/bn")
+    w.spconv(f"{t}.conv_out.0", f"{f}/conv_out")
+    w.gn(f"{t}.conv_out.1", f"{f}/gn_out/gn")
+
+
+def sparse_enc4x_to_jax(sd: Dict[str, Any]) -> Dict[str, Dict]:
+    """A port SparseLiDAREnc4x's state_dict -> JAX's {"params",
+    "batch_stats"} trees of that module, nested dicts of numpy arrays: the
+    inverse of state_dict_from_jax for the encoder (JAX's
+    convert_coocc_ray sends Enc4x through its Enc8x names, which an Enc4x
+    tree does not have)."""
+    r = _Reader({f"enc.{k}": v for k, v in sd.items()})
+    _sparse_enc4x(r, "enc", "enc")
+    return {k: v["enc"] for k, v in r.tree.items()}
+
+
 def _sparse_encoder_hd(w: _Writer, t, f):
     """JAX's PackedEncoderHD scopes -> the reference SparseEncoderHD's
     names (convert_torch.py:254-285)."""
@@ -383,6 +425,8 @@ def state_dict_from_jax(variables_np: Dict[str, Any],
             _second3d(w, "pts_backbone", "pts_backbone", s3.layer_nums)
             _second3d_fpn(w, "pts_neck", "pts_neck", s3.fpn_upsample_strides,
                           s3.fpn_extra_num_conv)
+    elif cfg.use_lidar and cfg.pts.encoder == "SparseLiDAREnc4x":
+        _sparse_enc4x(w, "pts_middle_encoder", "pts_middle_encoder")
     elif cfg.use_lidar:
         _sparse_enc8x(w, "pts_middle_encoder", "pts_middle_encoder")
     if cfg.fuser is not None:

@@ -202,11 +202,12 @@ class Trainer:
                           self.group)
 
 
-def train_steps(cfg: CoOccConfig, steps: int, device="cuda", seed: int = 0):
+def train_steps(cfg: CoOccConfig, steps: int, device="cuda", seed: int = 0,
+                init=init_weights):
     """`steps` train steps, one epoch, of a new Trainer(cfg, device, seed,
-    steps) on the synthetic batches of seeds 0..steps-1 (B=1). -> (trainer,
-    [each step's metrics])."""
-    trainer = Trainer(cfg, device, seed, steps_per_epoch=steps)
+    steps, init=init) on the synthetic batches of seeds 0..steps-1 (B=1).
+    -> (trainer, [each step's metrics])."""
+    trainer = Trainer(cfg, device, seed, steps_per_epoch=steps, init=init)
     device = next(trainer.model.parameters()).device
     metrics = [trainer.step(synthetic_batch(cfg, batch_size=1, seed=i)
                             .to(device)) for i in range(steps)]

@@ -8,8 +8,11 @@ Counterpart of coocc_tpu/models/coocc_ray.py `CoOccRay.__call__`
                  the previous keyframe's stage-0 features)
   lidar branch   occupancy voxelize -> PackedLiDAREnc8x (pts.impl 'auto'
                  or 'packed'; 'dense' gives DenseLiDAREnc8x) -> pts_voxel;
+                 pts.impl 'gather' (and SparseLiDAREnc4x): voxel means ->
+                 the gather-GEMM SparseLiDAREnc8x / SparseLiDAREnc4x;
                  for SparseEncoderHD (the LiDAR-only coocc_lidar) voxel
-                 means -> PackedEncoderHD -> SECOND3D -> SECOND3DFPN
+                 means -> PackedEncoderHD (or, COOCC_HD_IMPL=gather, the
+                 rulebook SparseEncoderHD) -> SECOND3D -> SECOND3DFPN
   fusion         BiFuserN grid-space window-KNN fusion (a config without
                  the fuser feeds pts_voxel, or img_voxel, on)
   semantics      CustomResNet3D -> FPN3D -> OccHead (+ cascade)
@@ -44,6 +47,7 @@ coocc_kitti is one (its 512x512x64 LiDAR grid gives 64x64x8 against the
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -61,9 +65,11 @@ from ..nn.resnet2d import ResNet
 from ..nn.resnet3d import CustomResNet3D
 from ..nn.second3d import SECOND3D, SECOND3DFPN
 from ..nn.second_fpn import SECONDFPN
+from ..nn.sparse_enc import SparseLiDAREnc4x, SparseLiDAREnc8x
 from ..nn.sparse_enc_dense import DenseLiDAREnc8x
 from ..nn.sparse_enc_packed import PackedLiDAREnc8x
 from ..nn.sparse_enc_packed_hd import PackedEncoderHD
+from ..nn.sparse_encoder_hd import SparseEncoderHD
 from ..ops.sparse_conv import SparseTensor
 from ..ops.voxelize import voxelize, voxelize_mask
 from .renderer import render
@@ -106,36 +112,43 @@ class Batch(NamedTuple):
 
 def _lidar_encoder(pts, compute_dtype: torch.dtype) -> nn.Module:
     """The encoder `pts.impl` names, resolved as the JAX model resolves it
-    (coocc_tpu/models/coocc_ray.py:130-183): 'auto' is 'packed' for
-    SparseLiDAREnc8x (both impls have one set of parameters) and
-    'packed_hd' for SparseEncoderHD; 'dense' and 'packed' of
-    SparseEncoderHD raise ValueError, as JAX's do, and the gather-GEMM
-    encoders NotImplementedError."""
+    (coocc_tpu/models/coocc_ray.py:130-250): 'auto' is 'packed' for
+    SparseLiDAREnc8x (its packed, dense and gather forms have one set of
+    parameters), COOCC_HD_IMPL (default 'packed_hd') for SparseEncoderHD
+    and 'gather' for any other encoder; 'dense' and 'packed' exist for
+    SparseLiDAREnc8x alone and raise ValueError for another encoder, as
+    JAX's do; every other impl is the gather-GEMM form (SparseEncoderHD's
+    is its rulebook form unless it is 'packed_hd'). `pts.ztap_levels`
+    names a layout of the packed encoder's blocks on the TPU (JAX
+    `_ZTapBasicBlock`): the same function, which the port computes
+    through K2 whatever the levels."""
+    impl = pts.impl
+    if impl == "auto":
+        if pts.encoder == "SparseLiDAREnc8x":
+            impl = "packed"
+        elif pts.encoder == "SparseEncoderHD":
+            impl = os.environ.get("COOCC_HD_IMPL", "packed_hd")
+        else:
+            impl = "gather"
+    if impl in ("dense", "packed") and pts.encoder == "SparseLiDAREnc8x":
+        cls = PackedLiDAREnc8x if impl == "packed" else DenseLiDAREnc8x
+        return cls(pts.input_channel, pts.base_channel, pts.out_channel,
+                   compute_dtype)
+    if impl in ("dense", "packed"):
+        raise ValueError(
+            f"pts.impl='{impl}' has a dense/packed twin only for "
+            f"SparseLiDAREnc8x, not {pts.encoder}; use impl='gather'")
     if pts.encoder == "SparseEncoderHD":
-        impl = "packed_hd" if pts.impl == "auto" else pts.impl
-        if impl in ("dense", "packed"):
-            raise ValueError(
-                f"pts.impl='{impl}' has a dense/packed twin only for "
-                f"SparseLiDAREnc8x, not {pts.encoder}; use impl='gather'")
-        if impl != "packed_hd":
-            raise NotImplementedError(f"pts.impl={pts.impl!r} (the "
-                                      "gather-GEMM encoder) is not ported")
-        return PackedEncoderHD(pts.input_channel, pts.base_channel,
-                               pts.out_channel, pts.sparse_shape_xyz,
-                               compute_dtype=compute_dtype)
-    if pts.encoder != "SparseLiDAREnc8x":
-        raise NotImplementedError(
-            f"LiDAR encoder {pts.encoder} is not ported")
-    impl = "packed" if pts.impl == "auto" else pts.impl
-    if impl not in ("packed", "dense"):
-        raise NotImplementedError(f"pts.impl={pts.impl!r} is not ported")
-    if impl == "packed" and pts.ztap_levels:
-        raise NotImplementedError(
-            f"pts.ztap_levels={tuple(pts.ztap_levels)} (the z-batch tap "
-            "form) is not ported")
-    cls = PackedLiDAREnc8x if impl == "packed" else DenseLiDAREnc8x
-    return cls(pts.input_channel, pts.base_channel, pts.out_channel,
-               compute_dtype)
+        if impl == "packed_hd":
+            return PackedEncoderHD(pts.input_channel, pts.base_channel,
+                                   pts.out_channel, pts.sparse_shape_xyz,
+                                   compute_dtype=compute_dtype)
+        return SparseEncoderHD(pts.input_channel, pts.base_channel,
+                               pts.out_channel, pts.sparse_shape_xyz)
+    enc_cls = {"SparseLiDAREnc8x": SparseLiDAREnc8x,
+               "SparseLiDAREnc4x": SparseLiDAREnc4x}[pts.encoder]
+    return enc_cls(pts.input_channel, pts.base_channel, pts.out_channel,
+                   pts.sparse_shape_xyz)
 
 
 class CoOccRay(nn.Module):
@@ -167,7 +180,10 @@ class CoOccRay(nn.Module):
         if cfg.use_lidar:
             self.pts_middle_encoder = _lidar_encoder(cfg.pts, self.dtype)
             pts_ch = cfg.pts.out_channel
-            if not isinstance(self.pts_middle_encoder, PackedEncoderHD):
+            if isinstance(self.pts_middle_encoder, SparseLiDAREnc4x):
+                self.pts_grid = tuple(s // 4 for s in
+                                      cfg.pts.sparse_shape_xyz)
+            elif not isinstance(self.pts_middle_encoder, PackedEncoderHD):
                 self.pts_grid = tuple(s // 8 for s in
                                       cfg.pts.sparse_shape_xyz)
             elif cfg.second3d is not None:
@@ -268,8 +284,13 @@ class CoOccRay(nn.Module):
     def _pts_voxels(self, batch: Batch):
         cfg = self.cfg
         cap = cfg.pts.max_voxels if self.training else cfg.pts.max_voxels_test
-        if isinstance(self.pts_middle_encoder, PackedEncoderHD):
+        enc = self.pts_middle_encoder
+        if isinstance(enc, PackedEncoderHD):
             return self._pts_voxels_hd(batch, cap)
+        if isinstance(enc, (SparseLiDAREnc8x, SparseLiDAREnc4x)):
+            # the gather encoders compute in fp32 (JAX casts at the return,
+            # coocc_ray.py:250)
+            return enc(self._voxel_means(batch, cap), cap).to(self.dtype)
         occupancy = torch.stack([
             voxelize_mask(p, m, cfg.point_cloud_range, cfg.pts.voxel_size,
                           cfg.pts.sparse_shape_xyz, max_voxels=cap)
@@ -277,18 +298,27 @@ class CoOccRay(nn.Module):
         # the encoders return fp32 (JAX coocc_ray.py:178 casts back)
         return self.pts_middle_encoder(occupancy).to(self.dtype)
 
-    def _pts_voxels_hd(self, batch: Batch, cap: int):
-        """The HD path (JAX coocc_ray.py:180-237): the voxel means of each
-        sample, the HD encoder, then SECOND3D and its FPN on the (Z, Y, X)
-        conv axes, in the compute dtype."""
+    def _voxel_means(self, batch: Batch, cap: int) -> SparseTensor:
+        """Each sample's voxel means (`voxelize`: at most
+        pts.max_num_points a voxel, pts.input_channel features, `cap`
+        voxels), stacked into a SparseTensor."""
         pts = self.cfg.pts
         vox = [voxelize(p, m, self.cfg.point_cloud_range, pts.voxel_size,
                         pts.sparse_shape_xyz, max_voxels=cap,
                         max_points_per_voxel=pts.max_num_points,
                         num_features=pts.input_channel)
                for p, m in zip(batch.points, batch.points_mask)]
-        dense = self.pts_middle_encoder(SparseTensor(
-            *(torch.stack(t) for t in zip(*vox))))
+        return SparseTensor(*(torch.stack(t) for t in zip(*vox)))
+
+    def _pts_voxels_hd(self, batch: Batch, cap: int):
+        """The HD path (JAX coocc_ray.py:180-237): the voxel means of each
+        sample, the HD encoder, then SECOND3D and its FPN on the (Z, Y, X)
+        conv axes, in the compute dtype."""
+        sp = self._voxel_means(batch, cap)
+        if isinstance(self.pts_middle_encoder, SparseEncoderHD):
+            dense = self.pts_middle_encoder(sp, cap)
+        else:
+            dense = self.pts_middle_encoder(sp)
         if hasattr(self, "pts_backbone"):
             # [B, C, X, Y, Z] -> [B, C, Z, Y, X] and back
             zyx = dense.to(self.dtype).permute(0, 1, 4, 3, 2)

@@ -210,6 +210,94 @@ class BatchNorm(nn.Module):
                 f"momentum={1.0 - self.decay:g}")
 
 
+def _masked_sums(x: torch.Tensor, m: torch.Tensor, dims, group):
+    """The [C] sums of x * m over dims, all-reduced over `group`."""
+    s = (x * m).sum(dims)
+    if group is not None:
+        dist.all_reduce(s, group=group)
+    return s
+
+
+class _MaskedBNTrain(torch.autograd.Function):
+    """JAX `MaskedBatchNorm` in training on x [N, C, *S] and its row mask
+    m [N, 1, *S] (fp32 0/1): n = max(sum m, 1), summed over the group's
+    ranks; mean = sum(x m) / n, var = sum((x - mean)^2 m) / n, each sum
+    all-reduced before it is divided (JAX's psums); y = ((x - mean) /
+    sqrt(var + eps) * weight + bias) * m in fp32. -> (y, mean, var, n).
+    The backward keeps x in its dtype, m and the [C] statistics, and
+    computes in fp32: the gradient of the masked statistics over the
+    group's active rows (its three [C] sums all-reduced in one call), dx
+    rounded once to x's dtype; dweight and dbias stay this rank's sums,
+    as `_BatchNormTrain`'s."""
+
+    @staticmethod
+    def forward(ctx, x, m, weight, bias, eps, group):
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        n = m.sum().clamp(min=1.0)
+        if group is not None:
+            dist.all_reduce(n, group=group)
+        mean = _masked_sums(xf, m, dims, group) / n
+        xc = xf - mean.view(shape)
+        var = _masked_sums(xc * xc, m, dims, group) / n
+        rstd = 1.0 / torch.sqrt(var + eps)
+        y = (xc * rstd.view(shape) * weight.view(shape)
+             + bias.view(shape)) * m
+        ctx.save_for_backward(x, m, weight, mean, rstd, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var, n)
+        return y, mean, var, n
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar, _gn):
+        x, m, weight, mean, rstd, n = ctx.saved_tensors
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        g = gy.float() * m
+        xc = torch.sub(x, mean.view(shape))         # fp32
+        db = g.sum(dims)
+        dw = (g * xc).sum(dims) * rstd
+        # the statistics' gradient, over every rank's active rows
+        sums = torch.stack([db, dw, (xc * m).sum(dims)])
+        if ctx.group is not None:
+            dist.all_reduce(sums, group=ctx.group)
+        sdb, sdw, sxc = sums
+        dvar = -0.5 * sdw * weight * rstd * rstd
+        dmean = -sdb * weight * rstd - 2.0 * dvar * sxc / n
+        dx = xc.mul_((2.0 * dvar / n).view(shape)).add_(
+            (dmean / n).view(shape)).mul_(m).addcmul_(
+            g, (weight * rstd).view(shape))
+        return dx.to(x.dtype), None, dw, db, None, None
+
+
+def masked_batch_norm(bn: "BatchNorm", x: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """JAX `MaskedBatchNorm` (coocc_tpu/nn/layers.py:362-409) with `bn`'s
+    parameters, statistics, eps and momentum: x [N, C, *S] normalized over
+    the rows where mask [N, *S] is set, the output fp32 times the mask. In
+    eval with the running statistics; in training with the active rows'
+    (`_MaskedBNTrain`), synced over `bn_sync_group`'s group as JAX's
+    reads `_BN_SYNC_AXIS` (the packed encoders' BatchNorms are rank-local,
+    this one is not), moving the running mean towards the mean and the
+    running variance towards n / max(n - 1, 1) of the variance."""
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    m = mask.unsqueeze(1).float()
+    if not bn.training:
+        y = (x.float() - bn.running_mean.view(shape)) / torch.sqrt(
+            bn.running_var.view(shape) + bn.eps) * bn.weight.view(shape) \
+            + bn.bias.view(shape)
+        return y * m
+    y, mean, var, n = _MaskedBNTrain.apply(x, m, bn.weight, bn.bias, bn.eps,
+                                           _BN_SYNC_GROUP.get())
+    with torch.no_grad():
+        bn.running_mean.copy_(bn.decay * bn.running_mean
+                              + (1 - bn.decay) * mean)
+        bn.running_var.copy_(bn.decay * bn.running_var + (1 - bn.decay)
+                             * var * n / (n - 1).clamp(min=1.0))
+    return y
+
+
 class Dropout(nn.Module):
     """flax.linen.Dropout in training (identity in eval or at p = 0): keep
     each element with probability 1 - p, drawn from `generator` (set by the

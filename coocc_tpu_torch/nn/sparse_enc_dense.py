@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm
+from .layers import BatchNorm, masked_batch_norm
 
 
 class SpConvWeight(nn.Module):
@@ -60,6 +60,17 @@ def per_cell_group_norm(x, gn: nn.GroupNorm):
         + gn.bias[None, :, None, None, None]
 
 
+def grid_bn(bn: BatchNorm, y: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """BatchNorm of a [B, C, X, Y, Z] grid at its active cells (mask
+    [B, 1, X, Y, Z] float), zero elsewhere: in eval the running
+    statistics'; in training the active cells' statistics, as JAX's
+    `_DenseMaskedBN` (`layers.masked_batch_norm`)."""
+    if bn.training:
+        return masked_batch_norm(bn, y, mask[:, 0] > 0)
+    return bn(y) * mask
+
+
 class SparseBasicBlock(nn.Module):
     """net = (SubM, BN, ReLU, SubM, BN); residual add; ReLU (masked)."""
 
@@ -70,9 +81,9 @@ class SparseBasicBlock(nn.Module):
 
     def forward(self, x, mask):
         y = self.net[0](x) * mask
-        y = F.relu(self.net[1](y)) * mask
+        y = F.relu(grid_bn(self.net[1], y, mask)) * mask
         y = self.net[3](y) * mask
-        y = self.net[4](y) * mask
+        y = grid_bn(self.net[4], y, mask)
         return F.relu(y + x) * mask
 
 
@@ -81,7 +92,14 @@ class DenseLiDAREnc8x(nn.Module):
 
     compute_dtype is JAX's: the stem (the conv of the mask) runs in it and
     rounds once; every layer after it is fp32, as in JAX, whose masked
-    BatchNorm promotes a bf16 input to its fp32 statistics."""
+    BatchNorm promotes a bf16 input to its fp32 statistics.
+
+    Training (JAX `train=True`): every BatchNorm takes the statistics of
+    its level's active cells (`grid_bn`), the strided levels' the dilated
+    mask's; level 0 collapses as in eval (JAX takes the collapse in
+    training too: the stem conv has no gradient, the stem GroupNorm's bias
+    has). Where JAX's first BatchNorm reads a bf16 input its statistics
+    are bf16 sums; here they are fp32 ones of the same values."""
 
     def __init__(self, input_channel: int = 4, base_channel: int = 16,
                  out_channel: int = 128,
@@ -104,12 +122,6 @@ class DenseLiDAREnc8x(nn.Module):
             nn.ReLU()])
 
     def forward(self, occupancy: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            # its BatchNorms would take statistics over every cell, where
-            # JAX's masked ones take the active cells only
-            raise NotImplementedError("the dense LiDAR encoder's training "
-                                      "path is not ported (pts.impl='dense'"
-                                      "); train the packed one")
         cd = self.compute_dtype
         mask = occupancy[:, None].to(cd)
         # Level 0 collapses. The stem is SubM -> GroupNorm(16, 16) -> ReLU;
@@ -130,7 +142,7 @@ class DenseLiDAREnc8x(nn.Module):
                 y = down[0](y, stride=2)
             mask = dilate_mask(mask)
             y = y * mask
-            y = F.relu(down[1](y) * mask) * mask
+            y = F.relu(grid_bn(down[1], y, mask)) * mask
             y = blocks[1](y, mask)
             y = blocks[2](y, mask)
         y = self.conv_out[0](y) * mask

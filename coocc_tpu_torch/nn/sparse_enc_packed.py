@@ -47,9 +47,13 @@ gradient), BN, ReLU, K2 (mask), BN, + x, ReLU, mask (JAX :441-449), and the
 downsamples' BN follows the same rule. K2's fused BN epilogues read running
 statistics and run in eval only.
 
-Not ported: the z-batch tap forms (`ztap_levels`, `zb_down`) and the
-COOCC_STRIDED_MODE=lm|packed variants, among them the lane-major strided
-downsample taken when p != 2*p_out; the model raises for them.
+JAX's other layouts of this function - the z-batch tap blocks
+(`ztap_levels`, `_ZTapBasicBlock`), the z-batch stem and downsamples
+(`zb_down`) and COOCC_STRIDED_MODE=lm|packed - were chosen for the TPU's
+MXU and compute the same outputs (tests/test_torch_gather_encoders.py
+holds each against this encoder): the port takes `pts.ztap_levels` and
+runs this form. The lane-major strided downsample that JAX takes where
+p != 2*p_out (at no shipped config) raises here.
 """
 from __future__ import annotations
 

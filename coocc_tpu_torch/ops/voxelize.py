@@ -6,11 +6,12 @@ stem GroupNorm erases the voxel features) and `voxelize`, the hard
 voxelizer with per-voxel means that the HD encoder of the LiDAR-only model
 reads (coocc_lidar).
 
-`voxelize` is JAX's sorted segment-mean, fast path: the points are sorted
-by linear voxel id (stably, so each voxel keeps its points in their
-order), at most `max_points_per_voxel` of each voxel's first points enter
-its mean, and when more than `max_voxels` voxels are occupied the largest
-ids are dropped. The sums are by segment over the sorted points
+`voxelize` is JAX's sorted segment-mean: the points are sorted by linear
+voxel id (stably, so each voxel keeps its points in their order), at most
+`max_points_per_voxel` of each voxel's first points enter its mean, and
+when more than `max_voxels` voxels are occupied the largest ids are
+dropped (the fast path) or, with `exact_overflow`, the voxels that arrive
+last in the cloud. The sums are by segment over the sorted points
 (`torch.segment_reduce`, as the lift-splat sums, ops/lift_splat.py), never
 by atomics: each voxel sums its points in the same order on every run and
 every device, the order JAX's sorted segment_sum takes.
@@ -23,6 +24,9 @@ import numpy as np
 import torch
 
 from .constants import device_constant
+
+# the most points a segment of voxelize's unread remainder holds
+_PIECE = 1024
 
 
 class VoxelizedPoints(NamedTuple):
@@ -67,11 +71,17 @@ def _voxel_ids(points, points_mask, point_cloud_range, voxel_size,
 def voxelize(points: torch.Tensor, points_mask: torch.Tensor,
              point_cloud_range, voxel_size, grid_size: Tuple[int, int, int],
              max_voxels: int, max_points_per_voxel: int = 10,
-             num_features: int | None = None) -> VoxelizedPoints:
-    """points [P, F] padded (x, y, z, ...), points_mask [P] bool -> the
-    first `max_voxels` occupied voxels in id order with the mean of their
+             num_features: int | None = None,
+             exact_overflow: bool = False) -> VoxelizedPoints:
+    """points [P, F] padded (x, y, z, ...), points_mask [P] bool -> at
+    most `max_voxels` occupied voxels in id order with the mean of their
     first `num_features` columns over at most `max_points_per_voxel`
-    points each (JAX `voxelize(..., exact_overflow=False)`)."""
+    points each. Past `max_voxels` occupied voxels the fast path (the
+    default) drops the largest ids; `exact_overflow` drops the latest to
+    arrive (the voxels whose first point comes last in the cloud), the
+    reference's rule, at the cost of two more sorts (JAX
+    coocc_tpu/ops/voxelize.py:124-178). The two agree where nothing
+    overflows."""
     P, F = points.shape
     nf = F if num_features is None else num_features
     num_cells = int(np.prod([int(g) for g in grid_size]))
@@ -88,30 +98,55 @@ def voxelize(points: torch.Tensor, points_mask: torch.Tensor,
     # each point's run starts at the last head at or before it (the valid
     # points sort first, the padding after them)
     start = torch.cummax(torch.where(is_first, pos, 0), 0).values
-    kept = valid_s & (run < max_voxels)
+    # the runs summed: the first max_voxels (the fast path keeps those), or
+    # every run, which the exact rule then picks from by arrival
+    n_runs = P if exact_overflow else max_voxels
+    kept = valid_s & (run < n_runs)
     take = kept & (pos - start < max_points_per_voxel)
-    # slots ascend along the sorted points: voxel r's points are the rows
+    # slots ascend along the sorted points: run r's points are the rows
     # ends[r]:ends[r + 1]; the dropped ones go to the overflow slot
-    slot = torch.where(kept, run, max_voxels)
-    ends = torch.searchsorted(slot, torch.arange(max_voxels + 2,
-                                                 device=dev))
-    lengths = ends.diff()
+    slot = torch.where(kept, run, n_runs)
+    ends = torch.searchsorted(slot, torch.arange(n_runs + 1, device=dev))
+    # the points past the kept runs (the padding, the dropped voxels') are
+    # summed in pieces of at most _PIECE, whose sums are not read:
+    # segment_reduce walks a segment in one thread per channel, and one
+    # segment of 230,000 such points took 10 ms on an H100
+    rest = P - ends[n_runs]
+    pieces = (rest - _PIECE * torch.arange(-(-P // _PIECE), device=dev)
+              ).clamp(0, _PIECE)
+    lengths = torch.cat([ends.diff(), pieces])
 
     def segment_sum(v):
         # the lengths sum to P by construction: unsafe skips the check,
         # which would wait for the card
         return torch.segment_reduce(v, "sum", lengths=lengths,
-                                    unsafe=True)[:max_voxels]
+                                    unsafe=True)[:n_runs]
     feat_sum = segment_sum(torch.where(take[:, None], feats_s, 0.0))
     count = segment_sum(take.to(points.dtype))
+    run_ids = ids_s[ends[:n_runs].clamp(max=P - 1)]
     n_voxels = is_first.sum()
+    mean = feat_sum / torch.clamp(count[:, None], min=1.0)
+    if exact_overflow:
+        # rank the runs by their head's place in the cloud; keep the first
+        # max_voxels to arrive, in id (run) order
+        r = torch.arange(P, device=dev)
+        head = torch.where(r < n_voxels, order[ends[:P].clamp(max=P - 1)],
+                           P)
+        rank = torch.argsort(torch.argsort(head, stable=True), stable=True)
+        keep = (r < n_voxels) & (rank < max_voxels)
+        dest = torch.where(keep, torch.cumsum(keep, 0) - 1, max_voxels)
+        out_ids = torch.full((max_voxels + 1,), num_cells, dtype=ids.dtype,
+                             device=dev).index_copy(0, dest, run_ids)
+        mean = mean.new_zeros((max_voxels + 1, nf)).index_copy(0, dest, mean)
+        seg_valid = torch.arange(max_voxels, device=dev) < keep.sum()
+        return VoxelizedPoints(
+            torch.where(seg_valid, out_ids[:max_voxels], num_cells),
+            torch.where(seg_valid[:, None], mean[:max_voxels], 0.0),
+            seg_valid)
     seg_valid = torch.arange(max_voxels, device=dev) < torch.clamp(
         n_voxels, max=max_voxels)
-    mean = feat_sum / torch.clamp(count[:, None], min=1.0)
     mean = torch.where(seg_valid[:, None], mean, 0.0)
-    out_ids = torch.where(seg_valid,
-                          ids_s[ends[:max_voxels].clamp(max=P - 1)],
-                          num_cells)
+    out_ids = torch.where(seg_valid, run_ids, num_cells)
     return VoxelizedPoints(out_ids, mean, seg_valid)
 
 

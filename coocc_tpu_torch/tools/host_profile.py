@@ -1,10 +1,11 @@
 """Where a served model's host time goes, on the card:
 
-    python -m coocc_tpu_torch.tools.host_profile [config]
+    python -m coocc_tpu_torch.tools.host_profile [config] [--impl IMPL]
 
 Builds the config (the flagship by default) as `python -m coocc_tpu_torch`
-serves it (its config's compute dtype, seeded random weights), warms it
-up, then prints for one request each:
+serves it (its config's compute dtype, seeded random weights; `--impl`
+sets pts.impl, the LiDAR encoder's route: gather, dense, packed,
+packed_hd), warms it up, then prints for one request each:
   * the synchronizing calls (file:line in the port), from
     torch.cuda.set_sync_debug_mode: each stalls the host until the device
     has caught up;
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import time
 import warnings
 
@@ -33,33 +35,49 @@ LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
             "cuLaunchKernelEx")
 
 
+def sync_sites(model, batch) -> collections.Counter:
+    """The synchronizing calls of one forward of `model` on `batch` (each
+    stalls the host until the device has caught up), by file:line in the
+    port (torch.cuda.set_sync_debug_mode)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return collections.Counter(
+        f"{w.filename.split('coocc_tpu_torch/')[-1]}:{w.lineno}"
+        for w in caught if "synchronizing" in str(w.message))
+
+
 def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
     ap = argparse.ArgumentParser(
         prog="python -m coocc_tpu_torch.tools.host_profile")
     ap.add_argument("config", nargs="?", default=FLAGSHIP,
                     choices=list_configs())
+    ap.add_argument("--impl", default=None,
+                    help="pts.impl, the LiDAR encoder's route")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     load_all_kernel_libraries()
     cfg = get_config(args.config)
+    if args.impl:
+        cfg = dataclasses.replace(cfg, pts=dataclasses.replace(
+            cfg.pts, impl=args.impl))
     model = served_model(cfg, "cuda")
     requests = [synthetic_batch(cfg, batch_size=1, seed=s).to("cuda")
                 for s in range(3)]
+    enc = type(model.pts_middle_encoder).__name__ if cfg.use_lidar \
+        else None
     print(f"{torch.cuda.get_device_name()}: {args.config}, compute dtype "
-          f"{str(model.dtype)[6:]}")
+          f"{str(model.dtype)[6:]}, LiDAR encoder {enc}")
     with torch.no_grad():
         model(requests[0])
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            model(requests[1])
-        torch.cuda.set_sync_debug_mode(0)
-        where = collections.Counter(
-            f"{w.filename.split('coocc_tpu_torch/')[-1]}:{w.lineno}"
-            for w in caught if "synchronizing" in str(w.message))
+        where = sync_sites(model, requests[1])
         print(f"synchronizing calls in one forward: {sum(where.values())}")
         for loc, n in sorted(where.items()):
             print(f"  {n} x coocc_tpu_torch/{loc}")

@@ -15,7 +15,14 @@
    tiny stereo model round-trips through convert_coocc_ray composed with
    the port's stereo_depth_net_to_jax, and that gives every variable path
    and shape JAX's init creates.
+5. The LiDAR encoder's routes: the variables JAX's model creates on one
+   route (gather, dense, packed_hd) load strict into the port's model on
+   every route of that encoder and convert back to the same paths; the
+   Enc4x scopes round-trip through state_dict_from_jax and
+   sparse_enc4x_to_jax; JAX's own converter cannot fill an Enc4x tree
+   (ROADMAP C12).
 """
+import dataclasses
 import math
 
 import pytest
@@ -165,3 +172,99 @@ def test_stereo_names_are_the_flax_scopes(monkeypatch):
              for col in ("params", "batch_stats")}
     CoOccRay(cfg).load_state_dict(state_dict_from_jax(zeros, cfg),
                                   strict=True)
+
+
+# ---------------------------------------------------------------------------
+# 5. The LiDAR encoder's routes: one JAX tree loads into each form
+# ---------------------------------------------------------------------------
+
+def _route(cfg, impl):
+    return dataclasses.replace(cfg, pts=dataclasses.replace(cfg.pts,
+                                                            impl=impl))
+
+
+def _jax_shapes(jcfg):
+    batch = jax.tree.map(lambda x: None if x is None else jnp.asarray(x),
+                         jax_synthetic_batch(jcfg, batch_size=1, seed=0),
+                         is_leaf=lambda x: x is None)
+    key = jax.random.PRNGKey(0)
+    return jax.eval_shape(lambda b: JaxCoOccRay(cfg=jcfg).init(
+        {"params": key, "dropout": key}, b, train=True, fine_rng=key), batch)
+
+
+@pytest.mark.parametrize("family,jax_impl,port_impls", [
+    ("flagship", "gather", ("gather", "dense", "packed")),
+    ("flagship", "dense", ("gather", "dense", "packed")),
+    ("lidar", "gather", ("gather", "packed_hd")),
+    ("lidar", "packed_hd", ("gather", "packed_hd"))])
+def test_one_jax_tree_loads_into_every_route(family, jax_impl, port_impls):
+    """JAX's CoOccRay on one LiDAR route creates the variables (every path
+    and shape of its init, traced with eval_shape) that load strict into
+    the port's model on each route of the same encoder, and the port's
+    state_dict converts back to exactly those paths and shapes."""
+    from test_torch_configs import lidar_configs
+    jcfg, cfg = (jax_tiny_config(), tiny_config()) if family == "flagship" \
+        else lidar_configs()
+    shapes = _jax_shapes(_route(jcfg, jax_impl))
+    rs = np.random.RandomState(0)
+    tree = {col: jax.tree.map(lambda s: rs.rand(*s.shape).astype(s.dtype),
+                              dict(shapes[col]))
+            for col in ("params", "batch_stats")}
+    for impl in port_impls:
+        sd = state_dict_from_jax(tree, _route(cfg, impl))
+        model = CoOccRay(_route(cfg, impl))
+        model.load_state_dict(sd, strict=True)
+        ours = convert_coocc_ray({k: v.numpy() for k, v in
+                                  model.state_dict().items()},
+                                 _route(jcfg, jax_impl))
+        for col in ("params", "batch_stats"):
+            assert _paths(ours[col]) == _paths(dict(shapes[col])), (impl,
+                                                                    col)
+
+
+def test_enc4x_names_round_trip_jax_scopes():
+    """SparseLiDAREnc4x: JAX's init tree (conv_input, gn_input, res1_*,
+    down2, res2_*, down3, res3_*, conv_out, gn_out) comes across through
+    state_dict_from_jax and loads strict; the port's sparse_enc4x_to_jax
+    gives back every path, shape and value."""
+    from coocc_tpu.nn.sparse_enc import SparseLiDAREnc4x as JaxEnc4x
+    from coocc_tpu.ops.sparse_conv import SparseTensor as JaxSparseTensor
+    from coocc_tpu_torch.convert import (_sparse_enc4x, _Writer,
+                                         sparse_enc4x_to_jax)
+    grid, A = (16, 16, 8), 64
+    sp = JaxSparseTensor(jnp.full((1, A), 16 * 16 * 8, jnp.int32),
+                         jnp.zeros((1, A, 4)), jnp.zeros((1, A), bool))
+    variables = jax.tree.map(np.asarray, dict(JaxEnc4x(
+        sparse_shape_xyz=grid, capacity=A).init(jax.random.PRNGKey(1), sp)))
+    # state_dict_from_jax's writer for the encoder's subtree
+    w = _Writer({c: {"enc": variables[c]}
+                 for c in ("params", "batch_stats")})
+    _sparse_enc4x(w, "enc", "enc")
+    enc = CoOccRay(dataclasses.replace(tiny_config(), pts=dataclasses.replace(
+        tiny_config().pts, encoder="SparseLiDAREnc4x"))).pts_middle_encoder
+    enc.load_state_dict({k[len("enc."):]: v for k, v in w.sd.items()},
+                        strict=True)
+    back = sparse_enc4x_to_jax(enc.state_dict())
+    for col in ("params", "batch_stats"):
+        assert _paths(back[col]) == _paths(variables[col]), col
+    for (p1, a), (p2, b) in zip(
+            jax.tree_util.tree_flatten_with_path(back)[0],
+            jax.tree_util.tree_flatten_with_path(
+                {c: variables[c] for c in ("params", "batch_stats")})[0]):
+        assert p1 == p2
+        np.testing.assert_array_equal(a, b, err_msg=str(p1))
+
+
+def test_jax_converter_cannot_fill_an_enc4x_tree():
+    """ROADMAP C12: JAX's convert_coocc_ray sends SparseLiDAREnc4x through
+    convert_sparse_enc8x (coocc_tpu/train/convert_torch.py:497-499), which
+    reads an 8x encoder's conv1.0.0 strided block: an Enc4x checkpoint has
+    none at conv1 (its level 0 is two basic blocks), and the KeyError
+    stops it; its names are the 8x tree's, not Enc4x's scopes."""
+    cfg = dataclasses.replace(tiny_config(), pts=dataclasses.replace(
+        tiny_config().pts, encoder="SparseLiDAREnc4x"))
+    jcfg = dataclasses.replace(jax_tiny_config(), pts=dataclasses.replace(
+        jax_tiny_config().pts, encoder="SparseLiDAREnc4x"))
+    sd = build_model(cfg, "cpu", seed=11).state_dict()
+    with pytest.raises(KeyError, match="conv1.0.0"):
+        convert_coocc_ray({k: v.numpy() for k, v in sd.items()}, jcfg)

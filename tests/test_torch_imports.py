@@ -54,7 +54,9 @@ def test_every_port_module_imports_without_jax():
               "data.loader", "data.nuscenes_dataset",
               "data.semantic_kitti_dataset", "data.pipelines.image_loading",
               "data.pipelines.lidar2depth", "data.pipelines.load_occupancy",
-              "data.pipelines.loading_bevdet", "tools.nuscenes_tree"):
+              "data.pipelines.loading_bevdet", "tools.nuscenes_tree",
+              "ops.sparse_conv", "ops.fps", "nn.sparse_enc",
+              "nn.sparse_encoder_hd"):
         assert f"coocc_tpu_torch.{m}" in mods
     _run_clean("\n".join(["import coocc_tpu_torch"]
                          + [f"import {m}" for m in mods]))

@@ -350,22 +350,20 @@ def test_packed_default_full_outputs_match_jax(packed):
 
 @pytest.mark.parametrize("impl,encoder", [
     ("auto", "PackedLiDAREnc8x"), ("packed", "PackedLiDAREnc8x"),
-    ("dense", "DenseLiDAREnc8x"), ("gather", None), ("packed_ztap", None)])
+    ("dense", "DenseLiDAREnc8x"), ("gather", "SparseLiDAREnc8x"),
+    ("packed_ztap", "PackedLiDAREnc8x")])
 def test_pts_impl_resolves_like_jax(impl, encoder):
     """'auto' is 'packed' for SparseLiDAREnc8x (JAX coocc_ray.py:130-133);
-    what is not ported raises."""
+    'gather' is the gather-GEMM encoder; ztap_levels is a layout of the
+    packed encoder's blocks, which runs the same function."""
     cfg = tiny_config()
     if impl == "packed_ztap":
         cfg = dataclasses.replace(cfg, pts=dataclasses.replace(
             cfg.pts, impl="packed", ztap_levels=(1,)))
     else:
         cfg = _with_impl(cfg, impl)
-    if encoder is None:
-        with pytest.raises(NotImplementedError):
-            CoOccRay(cfg)
-    else:
-        model = CoOccRay(cfg)
-        assert type(model.pts_middle_encoder).__name__ == encoder
+    model = CoOccRay(cfg)
+    assert type(model.pts_middle_encoder).__name__ == encoder
 
 
 def test_kitti_config_builds_at_full_width():
@@ -433,18 +431,19 @@ def test_lidar_config_builds_the_lidar_only_family():
 
 
 @pytest.mark.parametrize("impl,error", [
-    ("auto", None), ("packed_hd", None), ("gather", NotImplementedError),
+    ("auto", None), ("packed_hd", None), ("gather", None),
     ("dense", ValueError), ("packed", ValueError)])
 def test_hd_impl_resolves_like_jax(impl, error):
-    """SparseEncoderHD: 'auto' is 'packed_hd' (JAX coocc_ray.py:134-142);
-    'dense' and 'packed' raise ValueError, as JAX's do (:180-183); the
-    gather-GEMM encoder is not ported."""
+    """SparseEncoderHD: 'auto' is 'packed_hd' (JAX coocc_ray.py:134-142),
+    'gather' its rulebook form; 'dense' and 'packed' raise ValueError, as
+    JAX's do (:180-183)."""
     cfg = get_config("coocc_lidar")
     cfg = _with_impl(cfg, impl)
     if error is None:
         with torch.device("meta"):
             model = CoOccRay(cfg)
-        assert type(model.pts_middle_encoder).__name__ == "PackedEncoderHD"
+        want = "SparseEncoderHD" if impl == "gather" else "PackedEncoderHD"
+        assert type(model.pts_middle_encoder).__name__ == want
     else:
         with torch.device("meta"), pytest.raises(error):
             CoOccRay(cfg)
