@@ -177,6 +177,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      SparseLiDAREnc4x as a module on the 800x800x64 grid at
      max_voxels_test (its output 200x200x16: the model raises at the
      fuser grid, as JAX's fuser fails).
+ 19. the Swin route (phase_swin): the flagship with img_backbone
+     SwinTransformer (Swin-T: embed 96, depths (2, 2, 6, 2), heads (3, 6,
+     12, 24), window 7; every stage pads its tokens at 256x704), built by
+     dataclasses.replace as JAX's tests/test_swin_model.py builds it,
+     served in bf16 (3 requests, K1 2 and K2 13 launches each, request and
+     busy ms, the img prefix's busy ms, peak memory), K1 and K2 on one
+     call each against their plain versions, 3 bf16 train steps (K1 2, K2
+     13, K2's dX 13 a step) and C8 (two steps from one state equal bit for
+     bit);
+ 20. the card's fp32 Swin-T on one 256x704 camera against JAX's
+     fingerprint (coocc_tpu_torch/parity/swin_real.npz), its digests
+     first;
+ 21. the envelope's other modules (phase_modules), each once on the card
+     against the same module on the host's CPU in fp32 (within 1e-4 of
+     the scale), with its device time: EfficientNet-b0 on 6x3x256x704,
+     SECONDFPN2, GeneralizedLSSFPN and FPNRender on the R50 pyramid of a
+     6x256x704 request, AddFuser, AttnFuser, TemporalBEVConcat and
+     OccupancyEncoder on [1, 128, 100, 100, 8], MoE on 80,000 tokens of
+     128, FLoSP of a 128x16x44 feature into the 200x200x16 grid.
 The real-shape parity phases' numpy weights are drawn and hashed in a
 background thread from phase 4 on (ParityWeights).
 Prints the card, the kernels' JSON line (the served bf16 path's launches
@@ -186,8 +205,8 @@ dX row, the flagship's with the other configs' under "configs"; the loop's
 launches; K1's and K2's numbers at OpenOccupancy's shapes, K2's at
 coocc_lidar's (with its data path's launches and one-call check) and
 coocc_kitti's, the stereo path's launches and one-call checks, the
-render path's launches and the LiDAR routes' ("routes"), under
-"configs"; each rank's
+render path's launches, the LiDAR routes' ("routes") and the Swin
+route's ("swin"), under "configs"; each rank's
 launches in the data-parallel steps under "data_parallel") and, last, the
 result line.
 Needs a CUDA card and the repository around it; it imports nothing of
@@ -2302,7 +2321,7 @@ def phase_stereo(kernels, weights):
     lap("build and serve")
     nums.update(stereo_em_share(model, requests, nums["device_busy_ms"]))
     lap("the stereo depth net's profiles")
-    nums.update(stereo_one_call_checks(model, requests[0]))
+    nums.update(one_call_checks(STEREO, model, requests[0]))
     lap("K1 and K2 on one call each")
     del model, requests
     torch.cuda.empty_cache()
@@ -2350,8 +2369,8 @@ def stereo_em_share(model, requests, busy_ms):
     return {"stereo_net_busy_ms": full, "em_busy_ms": full - bare}
 
 
-def stereo_one_call_checks(model, batch):
-    """K1 on the stereo path's first fuser call (the image window on the
+def one_call_checks(name, model, batch):
+    """K1 on config `name`'s first fuser call (the image window on the
     model's own mask; exact) and K2 on its first SubM call of a pts prefix
     (k2_check), each against its plain version."""
     import torch
@@ -2362,10 +2381,10 @@ def stereo_one_call_checks(model, batch):
     offs = model.occ_fuser.offsets_img
     k1_err = int((window_knn(mask, offs).long()
                   - window_knn_plain(mask, offs).long()).abs().max())
-    log(f"{STEREO} window_knn vs plain [the image window on the model's "
+    log(f"{name} window_knn vs plain [the image window on the model's "
         f"mask, {int(mask.sum())} active cells]: max_abs_err {k1_err}")
     if k1_err != 0:
-        raise AssertionError(f"{STEREO}: window_knn differs from plain")
+        raise AssertionError(f"{name}: window_knn differs from plain")
     inner, kept = sparse_enc_packed.subm_ext_conv, []
 
     def keep(x_pb, w27, p, mcell, bn=None, identity=None):
@@ -2379,11 +2398,11 @@ def stereo_one_call_checks(model, batch):
         sparse_enc_packed.subm_ext_conv = inner
     x, w27, p, mcell, bn, idn = kept[0]
     err, scale, _, ok = k2_check(x, w27, p, mcell, bn, idn)
-    log(f"{STEREO} subm_ext_conv vs plain [the pts prefix's first call, "
+    log(f"{name} subm_ext_conv vs plain [the pts prefix's first call, "
         f"{tuple(x.shape)} p={p} {str(x.dtype)[6:]} {k2_mode(bn, idn)}]: "
         f"max_abs_err {err:.6g}, scale {scale:.6g}")
     if not ok:
-        raise AssertionError(f"{STEREO}: subm_ext_conv differs from its "
+        raise AssertionError(f"{name}: subm_ext_conv differs from its "
                              "plain version")
     errs = [err]
     del pts, mask
@@ -3317,6 +3336,224 @@ def train_rows(trained, k1_row, k2_row):
                          for n, t in trained.items() if "one_call" in t}}
 
 
+# The Swin route: the flagship with its image backbone set to Swin-T, as
+# JAX's tests/test_swin_model.py builds it (no config registers it, in JAX
+# or here)
+SWIN_LABEL = f"{FLAGSHIP} + Swin-T"
+
+
+def swin_flagship_config():
+    """The flagship with img_backbone SwinTransformer (the config's Swin-T
+    defaults: embed 96, depths (2, 2, 6, 2), heads (3, 6, 12, 24), window
+    7) and its stage widths (96, 192, 384, 768) into the neck."""
+    from coocc_tpu_torch.config import get_config
+    from coocc_tpu_torch.config.base import ImageBackboneConfig
+    cfg = get_config(FLAGSHIP)
+    return dataclasses.replace(
+        cfg, img_backbone=ImageBackboneConfig(type="SwinTransformer"),
+        img_neck=dataclasses.replace(cfg.img_neck,
+                                     in_channels=(96, 192, 384, 768)))
+
+
+def phase_swin(kernels):
+    """The Swin route at full width, B=1: served as the flagship is (bf16,
+    entry.served_model, seeded weights) for 3 requests with the counts set
+    to 0 before them and read after them (K1 2, K2 13 a request), request
+    ms, device busy per request of the forward and of its img prefix (the
+    backbone's stage: Swin-T, SECONDFPN, the depth net and the splat),
+    peak memory; K1 and K2 on one call each against their plain versions;
+    then phase_train's 3 bf16 train steps (K1 2, K2 13, K2's dX 13 a step,
+    finite losses, moved parameters and BN statistics, a profiled step)
+    and C8 (two steps from one state equal bit for bit). -> the numbers."""
+    import torch
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.entry import served_model
+    from coocc_tpu_torch.nn.swin import SwinTransformer
+    lap = lap_timer("Swin route")
+    cfg = swin_flagship_config()
+    model = served_model(cfg, "cuda")
+    if type(model.img_backbone) is not SwinTransformer \
+            or model.dtype != torch.bfloat16:
+        raise AssertionError(f"{SWIN_LABEL}: {type(model.img_backbone)} in "
+                             f"{model.dtype}")
+    requests = [synthetic_batch(cfg, batch_size=1, seed=s).to("cuda")
+                for s in range(3)]
+    log(f"{SWIN_LABEL} (bf16, as served):")
+    launches, req_ms, peak, _ = serve_requests(model, requests, kernels,
+                                               PER_REQUEST, keep=False)
+    log(f"profile, {SWIN_LABEL} (device time by kernel):")
+    busy = device_breakdown(model, requests, 12)
+    log(f"profile, {SWIN_LABEL} img prefix (device time by kernel):")
+    img_busy = device_breakdown(lambda b: model(b, stop_at="img"),
+                                requests, 8)
+    nums = {"launches": launches, "request_ms": statistics.median(req_ms),
+            "device_busy_ms": busy, "img_busy_ms": img_busy,
+            "peak_gib": peak / 2 ** 30}
+    lap("build, serve and profiles")
+    nums.update(one_call_checks(SWIN_LABEL, model, requests[0]))
+    lap("K1 and K2 on one call each")
+    del model, requests
+    torch.cuda.empty_cache()
+    nums["train"] = phase_train(SWIN_LABEL, kernels, cfg=cfg,
+                                want=PER_TRAIN_STEP, c8=True)
+    lap("train steps and C8")
+    return nums
+
+
+def phase_swin_fingerprint():
+    """The card's fp32 Swin-T (TF32 off) on one 256x704 camera against
+    JAX's (coocc_tpu_torch/parity/swin_real.npz, written on a CPU by
+    tests/test_torch_swin.py): the weights' and the image's digests, then
+    each stage's output within 2x (max) and 1.5x (mean) of the CPU port's
+    own distance to JAX (`parity.check`, its floors 1e-3 and 1e-4 of the
+    scale). Every stage pads its tokens at this shape. -> check's rows."""
+    import torch
+    from coocc_tpu_torch import parity
+    t0 = time.perf_counter()
+    fp = parity.load(parity.SWIN)
+    model, x = parity.swin_inputs("cuda")
+    if parity.state_digest(model) != str(fp["state_digest"]) or \
+            parity.digest({"x": x.cpu().numpy()}) != str(fp["input_digest"]):
+        raise AssertionError("the Swin fingerprint's digests differ")
+    res = parity.check(fp, "fp32", parity.swin_outputs(model, x), 1)
+    for key, (dmax, dmean), (pmax, pmean), ok in res:
+        log(f"real-shape parity Swin-T fp32 {key}: card max {dmax:.6g} "
+            f"mean {dmean:.6g}; cpu port max {pmax:.6g} mean {pmean:.6g} "
+            f"({'ok' if ok else 'FAIL'})")
+    del model, x
+    torch.cuda.empty_cache()
+    if not all(r[3] for r in res):
+        raise AssertionError(f"Swin-T differs from JAX's fingerprint: {res}")
+    log(f"real-shape parity Swin-T: digests equal, within the bounds "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return res
+
+
+# the envelope's other modules, card against host: max |card - host| at
+# most this share of max |host| (fp32, TF32 off on both)
+MODULE_REL = 1e-4
+
+
+def module_cases():
+    """[(name, module or function, host inputs)] at realistic shapes, the
+    modules with seeded weights (entry.init_weights) in eval mode:
+    EfficientNet-b0 on 6x3x256x704; SECONDFPN2, GeneralizedLSSFPN and
+    FPNRender on the R50 pyramid of a 6x256x704 request (256/512/1024/2048
+    channels at strides 4/8/16/32); AddFuser, AttnFuser,
+    TemporalBEVConcat (a rotated, translated ego motion) and
+    OccupancyEncoder (its default widths) on [1, 128, 100, 100, 8], the
+    flagship's fuser grid; MoE on 80,000 tokens of 128; FLoSP of one
+    camera's 128x16x44 feature into the 200x200x16 grid."""
+    import torch
+    from coocc_tpu_torch.entry import init_weights
+    from coocc_tpu_torch.models.temporal import TemporalBEVConcat
+    from coocc_tpu_torch.nn.alt_fusers import AddFuser, AttnFuser
+    from coocc_tpu_torch.nn.alt_necks import (FPNRender, GeneralizedLSSFPN,
+                                              SECONDFPN2)
+    from coocc_tpu_torch.nn.efficientnet import EfficientNet
+    from coocc_tpu_torch.nn.flosp import flosp
+    from coocc_tpu_torch.nn.moe import MoE
+    from coocc_tpu_torch.nn.occnet import OccupancyEncoder
+    g = torch.Generator().manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    def mod(m, seed):
+        return init_weights(m, seed).eval()
+    r50 = (256, 512, 1024, 2048)
+    pyramid = [randn(6, c, 256 // s, 704 // s)
+               for c, s in zip(r50, (4, 8, 16, 32))]
+    img, pts = randn(1, 128, 100, 100, 8), randn(1, 128, 100, 100, 8)
+    a = 0.05
+    rot = torch.tensor([[math.cos(a), -math.sin(a), 0.0],
+                        [math.sin(a), math.cos(a), 0.0], [0.0, 0.0, 1.0]])
+    poses = (torch.eye(3).expand(1, 6, 3, 3), torch.zeros(1, 6, 3),
+             rot.expand(1, 6, 3, 3), torch.tensor([1.7, -0.6, 0.1]).expand(
+                 1, 6, 3))
+    V = 200 * 200 * 16
+    pix = torch.stack([torch.randint(-4, 48, (V,), generator=g),
+                       torch.randint(-4, 20, (V,), generator=g)], 1)
+    fov = torch.rand(V, generator=g) < 0.7
+    return [
+        ("EfficientNet-b0", mod(EfficientNet("b0"), 1),
+         (randn(6, 3, 256, 704),)),
+        ("SECONDFPN2", mod(SECONDFPN2(r50, (128,) * 4,
+                                      (0.25, 0.5, 1, 2)), 2), (pyramid,)),
+        ("GeneralizedLSSFPN", mod(GeneralizedLSSFPN(r50, 256), 3),
+         (pyramid,)),
+        ("FPNRender", mod(FPNRender(r50, 256), 4), (pyramid,)),
+        ("AddFuser", mod(AddFuser(128, 128), 5), (img, pts)),
+        ("AttnFuser", mod(AttnFuser(128, 128, 4), 6), (img, pts)),
+        ("OccupancyEncoder", mod(OccupancyEncoder(128), 7), (img,)),
+        ("MoE", mod(MoE(128), 8), (randn(80_000, 128),)),
+        ("TemporalBEVConcat", TemporalBEVConcat(),
+         (img, pts, *poses, (1.024, 1.024), (-50.688, -50.688))),
+        ("FLoSP", flosp, (randn(128, 16, 44), pix, fov, (200, 200, 16))),
+    ]
+
+
+def _on(x, device):
+    """Tensors (in lists and tuples too) moved to `device`."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, (list, tuple)) and any(
+            isinstance(v, torch.Tensor) for v in x):
+        return type(x)(_on(v, device) for v in x)
+    return x
+
+
+def _flat(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def _shapes(args):
+    """The shapes of the tensors in args (lists and tuples opened)."""
+    out = []
+    for a in args:
+        if isinstance(a, (list, tuple)):
+            out += _shapes(a)
+        elif hasattr(a, "shape"):
+            out.append(tuple(a.shape))
+    return out
+
+
+def phase_modules():
+    """Each module of module_cases once on the card against the same
+    module (the same weights) on the host's CPU, the route the tests hold
+    against JAX (tests/test_torch_alt_modules.py): every output within
+    MODULE_REL of its scale; the card's time of one call (CUDA events,
+    median of 3). -> {name: {"ms", "rel_err"}}."""
+    import copy
+    import torch
+    t0 = time.perf_counter()
+    res = {}
+    for name, fn, args in module_cases():
+        with torch.no_grad():
+            host = _flat(fn(*args))
+            card_fn = copy.deepcopy(fn).to("cuda") \
+                if isinstance(fn, torch.nn.Module) else fn
+            card_args = [_on(a, "cuda") for a in args]
+            card = _flat(card_fn(*card_args))
+            rel = max(float((c.cpu() - h).abs().max() / h.abs().max())
+                      for c, h in zip(card, host))
+            ms = timed_ms(lambda: card_fn(*card_args), 3)
+        log(f"module {name} on {_shapes(args)} -> {_shapes(host)}: card "
+            f"against host max |diff| / max |host| {rel:.3g} (bound "
+            f"{MODULE_REL}), card {ms:.3f} ms a call")
+        if not rel <= MODULE_REL or not all(
+                bool(torch.isfinite(c).all()) for c in card):
+            raise AssertionError(f"module {name}: the card departs from the "
+                                 f"host by {rel:.3g} of the scale")
+        res[name] = {"ms": ms, "rel_err": rel}
+        del card_fn, card_args, card, host
+        torch.cuda.empty_cache()
+    log(f"modules card against host took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3454,6 +3691,17 @@ def main():
     routes = phase_lidar_routes(kernels)
     log(f"the LiDAR routes took {time.perf_counter() - t_routes:.1f} s")
     log("LiDAR routes: " + json.dumps(routes))
+    t_swin = time.perf_counter()
+    log(f"[{t_swin - t0:.1f} s] the Swin route ({SWIN_LABEL}, bf16: served, "
+        "trained, C8), its real-shape fingerprint, the envelope's modules "
+        "card against host:")
+    served["swin"] = phase_swin(kernels)
+    served["swin"]["fingerprint"] = phase_swin_fingerprint()
+    modules = phase_modules()
+    log(f"the Swin route, its fingerprint and the modules took "
+        f"{time.perf_counter() - t_swin:.1f} s")
+    log("modules (card ms a call, max |card - host| / max |host|): "
+        + json.dumps(modules))
     log(f"served configs (request ms median, device busy ms per request, "
         f"peak GiB): {json.dumps(served)}")
     # the kernels at OpenOccupancy's shapes, beside the flagship's
@@ -3481,6 +3729,15 @@ def main():
             "lidar_gather": routes["lidar_gather"]["launches"][row["name"]],
             "lidar_gather_train": routes["lidar_gather"]["train"][
                 "launches"][row["name"]]}
+        # the Swin route: launches over its 3 requests and 3 train steps,
+        # and one call of the path against the plain version
+        row["configs"]["swin"] = {
+            "launches": served["swin"]["launches"][row["name"]],
+            "train_launches": served["swin"]["train"]["launches"][
+                row["name"]],
+            "max_abs_err": served["swin"][key]}
+    dx_row["configs"]["swin"] = {
+        "launches": served["swin"]["train"]["launches"]["subm_ext_conv_dx"]}
 
     log(f"[{time.perf_counter() - t0:.1f} s] card: {card_line()}")
     log(json.dumps({"kernels": rows}))

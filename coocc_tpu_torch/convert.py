@@ -14,7 +14,9 @@ Layouts (JAX -> torch):
   spconv                   [k^3 taps (kx, ky, kz), I, O] -> [O, kz, ky, kx, I]
   BN                       scale/bias + batch_stats mean/var
                            -> weight/bias/running_mean/running_var
-  GN                       scale/bias -> weight/bias
+  GN, LN                   scale/bias -> weight/bias
+  Swin PatchMerging        position-major 4C (JAX) -> channel-major 4C
+                           (the reference's Unfold order), `_swin`
 The renderer's heads (renderer/sigma_head, renderer/rgb_head, which JAX
 creates in training) become sigma_head / rgb_head, the names
 convert_coocc_ray reads (convert_torch.py:518-521). The stereo depth net
@@ -23,6 +25,7 @@ convert_coocc_ray reads (convert_torch.py:518-521). The stereo depth net
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import numpy as np
@@ -31,6 +34,7 @@ import torch
 from .config.base import CoOccConfig
 from .nn.resnet2d import RESNET_LAYERS
 from .nn.sparse_enc_packed_hd import ENCODER_CHANNELS
+from .nn.swin import _rel_pos_index
 
 
 def _get(tree, path: str):
@@ -68,10 +72,12 @@ class _Writer:
         if _has(self.params, f"{f}/bias"):
             self.put(f"{t}.bias", _get(self.params, f"{f}/bias"))
 
-    def conv3d(self, t, f, inner="conv"):
+    def conv3d(self, t, f, inner="conv", bias=False):
         f = f"{f}/{inner}" if inner else f
         self.put(f"{t}.weight", _get(self.params, f"{f}/kernel")
                  .transpose(4, 3, 0, 1, 2))
+        if bias:
+            self.put(f"{t}.bias", _get(self.params, f"{f}/bias"))
 
     def dense(self, t, f, conv1x1=False):
         w = _get(self.params, f"{f}/kernel").T
@@ -87,6 +93,15 @@ class _Writer:
     def gn(self, t, f):
         self.put(f"{t}.weight", _get(self.params, f"{f}/scale"))
         self.put(f"{t}.bias", _get(self.params, f"{f}/bias"))
+
+    def ln(self, t, f, perm=None):
+        """A LayerNorm; `perm` reorders its features (PatchMerging's)."""
+        for tn, fn in (("weight", "scale"), ("bias", "bias")):
+            v = _get(self.params, f"{f}/{fn}")
+            self.put(f"{t}.{tn}", v if perm is None else v[perm])
+
+    def raw(self, t, f):
+        self.put(t, _get(self.params, f))
 
     def spconv(self, t, f, name="weight"):
         w = _get(self.params, f"{f}/{name}")  # [k^3, I, O], kx-major taps
@@ -143,6 +158,14 @@ class _Reader:
         self._set("params", f"{f}/scale", self.sd[f"{t}.weight"])
         self._set("params", f"{f}/bias", self.sd[f"{t}.bias"])
 
+    def ln(self, t, f, perm=None):
+        for tn, fn in (("weight", "scale"), ("bias", "bias")):
+            v = self.sd[f"{t}.{tn}"]
+            self._set("params", f"{f}/{fn}", v if perm is None else v[perm])
+
+    def raw(self, t, f):
+        self._set("params", f, self.sd[t])
+
     def spconv(self, t, f, name="weight"):
         w = self.sd[f"{t}.weight"]               # [O, kz, ky, kx, I]
         self._set("params", f"{f}/{name}", w.transpose(3, 2, 1, 4, 0)
@@ -162,6 +185,187 @@ def _resnet(w: _Writer, t, f, depth):
             if _has(w.params, f"{fb}/downsample_conv"):
                 w.conv2d(f"{tb}.downsample.0", f"{fb}/downsample_conv")
                 w.bn(f"{tb}.downsample.1", f"{fb}/downsample_bn/bn")
+
+
+def _merge_perm(c4: int, to_port: bool) -> np.ndarray:
+    """PatchMerging's 4C features: JAX's position-major q = pos * C + c
+    against the reference's channel-major r = c * 4 + pos (JAX's
+    convert_swin reads feature r(q) = (q % C) * 4 + q // C into q). With
+    `to_port` the inverse permutation (port feature r <- JAX's q)."""
+    q = np.arange(c4)
+    r = (q % (c4 // 4)) * 4 + q // (c4 // 4)
+    return np.argsort(r) if to_port else r
+
+
+def _swin_block(w, t, f, to_port):
+    """A SwinBlock: the reference's names (attn.w_msa.*, ffn.layers.*)
+    <-> JAX's scopes (attn/*, ffn_fc1, ffn_fc2)."""
+    w.ln(f"{t}.norm1", f"{f}/norm1")
+    w.raw(f"{t}.attn.w_msa.relative_position_bias_table",
+          f"{f}/attn/relative_position_bias_table")
+    w.dense(f"{t}.attn.w_msa.qkv", f"{f}/attn/qkv")
+    w.dense(f"{t}.attn.w_msa.proj", f"{f}/attn/proj")
+    w.ln(f"{t}.norm2", f"{f}/norm2")
+    w.dense(f"{t}.ffn.layers.0.0", f"{f}/ffn_fc1")
+    w.dense(f"{t}.ffn.layers.1", f"{f}/ffn_fc2")
+    if to_port:
+        # the reference's checkpoint carries the index as a buffer
+        ws = round((1 + math.sqrt(_get(
+            w.params, f"{f}/attn/relative_position_bias_table")
+            .shape[0])) / 2)
+        w.put(f"{t}.attn.w_msa.relative_position_index",
+              _rel_pos_index(ws, ws))
+
+
+def _swin(w, t, f, depths, out_indices, to_port):
+    """The Swin backbone's reference names <-> JAX's scopes
+    (convert_torch.py:287-326)."""
+    w.conv2d(f"{t}.patch_embed.projection", f"{f}/patch_embed", None)
+    w.ln(f"{t}.patch_embed.norm", f"{f}/patch_norm")
+    for i, d in enumerate(depths):
+        for j in range(d):
+            _swin_block(w, f"{t}.stages.{i}.blocks.{j}",
+                        f"{f}/stage{i}_block{j}", to_port)
+        if i < len(depths) - 1:
+            td, fd = f"{t}.stages.{i}.downsample", f"{f}/downsample{i}"
+            if to_port:
+                k = _get(w.params, f"{fd}/reduction/kernel")   # [4C, out]
+                perm = _merge_perm(k.shape[0], True)
+                w.put(f"{td}.reduction.weight", k.T[:, perm])
+            else:
+                k = w.sd[f"{td}.reduction.weight"]           # [out, 4C]
+                perm = _merge_perm(k.shape[1], False)
+                w._set("params", f"{fd}/reduction/kernel", k[:, perm].T)
+            w.ln(f"{td}.norm", f"{fd}/norm", perm)
+    for i in out_indices:
+        w.ln(f"{t}.norm{i}", f"{f}/out_norm{i}")
+
+
+def swin_to_jax(sd: Dict[str, Any], depths=(2, 2, 6, 2),
+                out_indices=(0, 1, 2, 3),
+                prefix: str = "img_backbone") -> Dict[str, Dict]:
+    """The Swin backbone's entries of a port state_dict (under `prefix`)
+    -> JAX's {"params": ...} subtree of a SwinTransformer scope, nested
+    dicts of numpy arrays: JAX's convert_swin on the port's names (the
+    PatchMerging permutation as it applies it), the inverse of
+    state_dict_from_jax for the backbone."""
+    r = _Reader(sd)
+    _swin(r, prefix, "swin", depths, out_indices, False)
+    return {"params": r.tree["params"]["swin"]}
+
+
+def _efficientnet(w: _Writer, t, f, arch, out_indices):
+    """EfficientNet: JAX's scopes -> the reference's names, the inverse of
+    JAX's convert_efficientnet (convert_torch.py:329-370)."""
+    from .nn.efficientnet import scaled_layers
+    for si, stage in enumerate(scaled_layers(arch)):
+        if si > max(out_indices):
+            break
+        for bi, (_, _, se, _, e, bt) in enumerate(stage):
+            fb = f"{f}/stage{si}_block{bi}"
+            if bt == -1:
+                w.conv2d(f"{t}.layers.{si}.conv", fb)
+                w.bn(f"{t}.layers.{si}.bn", f"{fb}/bn/bn")
+                continue
+            parts = [("conv1", "expand"), ("conv2", "project")] if bt == 1 \
+                else [("expand_conv", "expand")] * (e != 1) + [
+                    ("depthwise_conv", "dw"), ("linear_conv", "project")]
+            tb = f"{t}.layers.{si}.{bi}"
+            for tn, fn in parts:
+                w.conv2d(f"{tb}.{tn}.conv", f"{fb}/{fn}")
+                w.bn(f"{tb}.{tn}.bn", f"{fb}/{fn}/bn/bn")
+            if bt == 0 and se > 0:
+                for k in (1, 2):
+                    w.conv2d(f"{tb}.se.conv{k}.conv", f"{fb}/se/fc{k}")
+
+
+def _bottleneck_aspp(w: _Writer, t, f):
+    for name in ("input", "output"):
+        w.conv2d(f"{t}.{name}_conv", f"{f}/{name}_conv")
+        w.gn(f"{t}.{name}_gn", f"{f}/{name}_gn/gn")
+    _aspp(w, f"{t}.aspp", f"{f}/aspp")
+
+
+def _dualpath(w: _Writer, t, f, m):
+    w.conv3d(f"{t}.input_conv", f"{f}/input_conv")
+    w.bn(f"{t}.input_bn", f"{f}/input_bn/bn")
+    _swin_block(w, f"{t}.bev_encoder", f"{f}/bev_encoder", True)
+    _bottleneck_aspp(w, f"{t}.aspp", f"{f}/aspp")
+    w.conv3d(f"{t}.combine_coeff", f"{f}/combine_coeff", bias=True)
+    if hasattr(m, "downsample_conv"):
+        w.conv3d(f"{t}.downsample_conv", f"{f}/downsample_conv")
+        w.bn(f"{t}.downsample_bn", f"{f}/downsample_bn/bn")
+
+
+def _module(w: _Writer, m) -> None:
+    """The walker of port module `m` (its names "m.*", JAX's scope "m")."""
+    from .nn import alt_fusers, alt_necks, efficientnet, moe, occnet, swin
+    t = f = "m"
+    if isinstance(m, swin.SwinTransformer):
+        _swin(w, t, f, [len(s.blocks) for s in m.stages], m.out_indices,
+              True)
+    elif isinstance(m, efficientnet.EfficientNet):
+        _efficientnet(w, t, f, m.arch, m.out_indices)
+    elif isinstance(m, occnet.OccupancyEncoder):
+        for stage in m.names:
+            for name in stage:
+                _dualpath(w, f"{t}.{name}", f"{f}/{name}",
+                          getattr(m, name))
+    elif isinstance(m, occnet.DualpathTransformerBlock):
+        _dualpath(w, t, f, m)
+    elif isinstance(m, occnet.BottleNeckASPP):
+        _bottleneck_aspp(w, t, f)
+    elif isinstance(m, alt_necks.SECONDFPN2):
+        for i, s in enumerate(m.upsample_strides):
+            _second_fpn(w, f"{t}.deblock{i}", f"{f}/deblock{i}", [s])
+    elif isinstance(m, alt_necks.GeneralizedLSSFPN):
+        for i in range(m.n):
+            for name in (f"lateral{i}", f"fpn{i}"):
+                w.conv2d(f"{t}.{name}.conv", f"{f}/{name}/conv")
+                w.bn(f"{t}.{name}.bn", f"{f}/{name}/bn/bn")
+    elif isinstance(m, alt_necks.FPNRender):
+        for i in range(m.n):
+            for name in (f"lateral{i}", f"fpn{i}"):
+                w.conv2d(f"{t}.{name}", f"{f}/{name}")
+    elif isinstance(m, alt_fusers.AddFuser):
+        w.conv3d(f"{t}.gate_conv", f"{f}/gate_conv", bias=True)
+        w.conv3d(f"{t}.out_conv", f"{f}/out_conv")
+        w.bn(f"{t}.out_bn", f"{f}/out_bn/bn")
+    elif isinstance(m, alt_fusers.AttnFuser):
+        C = m.out_conv.in_channels // 2
+        for name in ("query", "key", "value", "out"):
+            k = _get(w.params, f"{f}/cross_attn/{name}/kernel")
+            b = _get(w.params, f"{f}/cross_attn/{name}/bias")
+            w.put(f"{t}.cross_attn.{name}.weight", k.reshape(C, C).T)
+            w.put(f"{t}.cross_attn.{name}.bias", b.reshape(C))
+        w.conv3d(f"{t}.out_conv", f"{f}/out_conv")
+        w.bn(f"{t}.out_bn", f"{f}/out_bn/bn")
+    elif isinstance(m, moe.MoE):
+        for name in ("w_gate", "w_noise"):
+            if getattr(m, name) is not None:
+                w.put(f"{t}.{name}.weight",
+                      _get(w.params, f"{f}/{name}/kernel").T)
+        for fc in ("fc1", "fc2"):
+            w.put(f"{t}.experts.{fc}.weight", _get(
+                w.params, f"{f}/experts/{fc}/kernel").transpose(0, 2, 1))
+            w.raw(f"{t}.experts.{fc}.bias", f"{f}/experts/{fc}/bias")
+    else:
+        raise TypeError(f"no JAX counterpart known for {type(m).__name__}")
+
+
+def module_state_dict_from_jax(module: torch.nn.Module,
+                               variables: Dict[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX {"params", "batch_stats"} trees of one module -> the state_dict
+    of the port's counterpart `module` (its structure read from it):
+    SwinTransformer (the reference's names, the PatchMerging permutation),
+    EfficientNet (the reference's names: the inverse of JAX's
+    convert_efficientnet), OccupancyEncoder, DualpathTransformerBlock,
+    BottleNeckASPP, SECONDFPN2, GeneralizedLSSFPN, FPNRender, AddFuser,
+    AttnFuser and MoE (the flax scopes' names)."""
+    w = _Writer({k: {"m": v} for k, v in variables.items()})
+    _module(w, module)
+    return {k[2:]: v for k, v in w.sd.items()}
 
 
 def _second_fpn(w: _Writer, t, f, strides):
@@ -412,8 +616,13 @@ def state_dict_from_jax(variables_np: Dict[str, Any],
     CoOccRay -> state_dict for coocc_tpu_torch.models.CoOccRay(cfg)."""
     from .nn.resnet3d import RESNET3D_LAYERS
     w = _Writer(variables_np)
-    if cfg.use_camera:
+    if cfg.use_camera and cfg.img_backbone.type == "SwinTransformer":
+        _swin(w, "img_backbone", "img_backbone",
+              cfg.img_backbone.swin_depths, cfg.img_backbone.out_indices,
+              True)
+    elif cfg.use_camera:
         _resnet(w, "img_backbone", "img_backbone", cfg.img_backbone.depth)
+    if cfg.use_camera:
         _second_fpn(w, "img_neck", "img_neck", cfg.img_neck.upsample_strides)
         (_depthnet_stereo if cfg.lss.stereo else _depthnet)(
             w, "img_view_transformer.depth_net",

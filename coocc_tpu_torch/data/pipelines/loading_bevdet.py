@@ -150,6 +150,11 @@ def photometric_distortion(img,
     The reference runs cv2's BGR<->HSV on what is actually an RGB array;
     numerically that just relabels which channels play the B/R roles, and
     the final channel-permutation op erases any fixed naming anyway.
+
+    Divergence from the reference, copied from JAX's
+    (coocc_tpu/data/pipelines/loading_bevdet.py:170): the result is
+    clipped to [0, 255] before its uint8 cast; the reference casts
+    without clipping, so its out-of-range values wrap modulo 256.
     """
     rng = rng or np.random
     arr = np.asarray(img, np.float32)
@@ -340,6 +345,13 @@ def load_multi_view_images_bevdet(
     (channel-swapped, see mmlab_normalize), rots/trans (sensor->lidar),
     intrins, post_rots/post_trans [N, 3, 3]/[N, 3], gt_depths [N, H, W],
     sensor2sensors [N, 4, 4], canvas [N, H, W, 3] uint8 (pre-normalize).
+
+    Divergence from the reference, copied from JAX's
+    (coocc_tpu/data/pipelines/loading_bevdet.py:355): each camera samples
+    its own train-time flip. The reference rebinds `flip` from each
+    camera's augmentation and passes it into the next camera's
+    sample_augmentation, so one camera's flip carries into the next;
+    eval (no flip) is the same either way.
     """
     rng = rng or np.random
     names = choose_cams(data_cfg, is_train, n_cams, rng)

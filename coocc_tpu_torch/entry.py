@@ -61,7 +61,8 @@ def init_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         return torch.randn(shape, generator=g) * std + mean
 
     for m in model.modules():
-        if isinstance(m, (BatchNorm, torch.nn.GroupNorm)):
+        if isinstance(m, (BatchNorm, torch.nn.GroupNorm,
+                          torch.nn.LayerNorm)):
             C = m.weight.shape[0]
             m.weight.copy_(torch.rand(C, generator=g) + 0.5)
             m.bias.copy_(normal(C, 0.1))
@@ -111,8 +112,10 @@ def init_flax(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     truncated at 2 sigma with variance 1 / fan_in), the spconv weights
     (SpConvWeight) a plain normal of variance 2 / fan_in (JAX's `_kaiming`)
     and the DCN weight a truncated one of variance 2 / fan_in (flax's
-    `kaiming_normal`); biases 0, BatchNorm and GroupNorm scales 1 and
-    biases 0, BatchNorm running means 0 and variances 1. fan_in is the
+    `kaiming_normal`), Swin's relative position bias tables a normal
+    truncated at 2 sigma of std 0.02 (flax's `truncated_normal(0.02)`);
+    biases 0, BatchNorm, GroupNorm and LayerNorm scales 1 and biases 0,
+    BatchNorm running means 0 and variances 1. fan_in is the
     kernel's size over one output channel in flax's layout: the input
     channels (per group) times the taps (for the HD encoder's 1x1x1
     conv_out the input channels, as JAX's `_kaiming`), for a
@@ -123,7 +126,8 @@ def init_flax(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     from .nn.sparse_enc_dense import SpConvWeight
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, (BatchNorm, torch.nn.GroupNorm)):
+        if isinstance(m, (BatchNorm, torch.nn.GroupNorm,
+                          torch.nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
             if isinstance(m, BatchNorm):
@@ -133,6 +137,10 @@ def init_flax(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         for name, p in m.named_parameters(recurse=False):
             if name == "bias":
                 p.zero_()
+                continue
+            if name == "relative_position_bias_table":
+                # Swin's table: flax's truncated_normal(0.02)
+                p.copy_(_truncated_normal(p.shape, g) * 0.02)
                 continue
             std = math.sqrt((2.0 if isinstance(m, (DCN, SpConvWeight))
                              else 1.0) / p[0].numel())

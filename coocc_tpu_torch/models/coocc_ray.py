@@ -3,7 +3,8 @@
 Counterpart of coocc_tpu/models/coocc_ray.py `CoOccRay.__call__`
 (reference detectors/coocc_ray.py:31-723):
 
-  image branch   ResNet -> SECONDFPN -> DepthNet/LSS splat -> img_voxel
+  image branch   ResNet (or SwinTransformer, img_backbone.type) ->
+                 SECONDFPN -> DepthNet/LSS splat -> img_voxel
                  (with lss.stereo the BEVStereo depth net, which also reads
                  the previous keyframe's stage-0 features)
   lidar branch   occupancy voxelize -> PackedLiDAREnc8x (pts.impl 'auto'
@@ -70,6 +71,7 @@ from ..nn.sparse_enc_dense import DenseLiDAREnc8x
 from ..nn.sparse_enc_packed import PackedLiDAREnc8x
 from ..nn.sparse_enc_packed_hd import PackedEncoderHD
 from ..nn.sparse_encoder_hd import SparseEncoderHD
+from ..nn.swin import SwinTransformer
 from ..ops.sparse_conv import SparseTensor
 from ..ops.voxelize import voxelize, voxelize_mask
 from .renderer import render
@@ -151,6 +153,27 @@ def _lidar_encoder(pts, compute_dtype: torch.dtype) -> nn.Module:
                    pts.sparse_shape_xyz)
 
 
+def _image_backbone(cfg: CoOccConfig) -> nn.Module:
+    """The backbone `img_backbone.type` names (JAX coocc_ray.py:75-87):
+    ResNet, or SwinTransformer with the config's Swin knobs. Stereo LSS
+    reads the ResNet's stage 0 and refuses Swin, as JAX's does
+    (coocc_ray.py:96)."""
+    bb = cfg.img_backbone
+    if bb.type not in ("ResNet", "SwinTransformer"):
+        raise NotImplementedError(f"image backbone {bb.type} is not ported")
+    if cfg.lss.stereo and (bb.type != "ResNet" or 0 not in bb.out_indices):
+        raise ValueError("stereo LSS reads the ResNet's stage 0 (the "
+                         f"backbone is {bb.type}, out_indices "
+                         f"{bb.out_indices})")
+    if bb.type == "SwinTransformer":
+        return SwinTransformer(embed_dims=bb.embed_dims,
+                               window_size=bb.window_size,
+                               depths=bb.swin_depths,
+                               num_heads=bb.swin_num_heads,
+                               out_indices=bb.out_indices)
+    return ResNet(bb.depth, bb.out_indices)
+
+
 class CoOccRay(nn.Module):
     """dtype is the JAX model's: None computes in fp32, torch.bfloat16 in
     bf16 (coocc_tpu/models/coocc_ray.py:69). The parameters and BN
@@ -163,14 +186,7 @@ class CoOccRay(nn.Module):
         self.cfg = cfg
         self.dtype = dtype or torch.float32
         if cfg.use_camera:
-            if cfg.img_backbone.type != "ResNet":
-                raise NotImplementedError(
-                    f"image backbone {cfg.img_backbone.type} is not ported")
-            if cfg.lss.stereo and 0 not in cfg.img_backbone.out_indices:
-                raise ValueError("stereo LSS reads the ResNet's stage 0 "
-                                 "(img_backbone.out_indices without 0)")
-            self.img_backbone = ResNet(cfg.img_backbone.depth,
-                                       cfg.img_backbone.out_indices)
+            self.img_backbone = _image_backbone(cfg)
             self.img_neck = SECONDFPN(self.img_backbone.out_channels,
                                       cfg.img_neck.out_channels,
                                       cfg.img_neck.upsample_strides)

@@ -57,11 +57,12 @@ class _ASPPModule(nn.Module):
 
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling (dilations 1/6/12/18 + global pool),
-    then dropout (p = 0.5, training only; JAX nn/depthnet.py:92-93). In
-    training the pooled branch's BatchNorm takes its statistics over the
-    B*N pooled maps, as JAX's gap_bn does."""
+    then dropout (p = `dropout`, training only; JAX nn/depthnet.py:92-93:
+    0.5 in the depth net, 0.1 in OccNet's BottleNeckASPP). In training the
+    pooled branch's BatchNorm takes its statistics over the B*N pooled
+    maps, as JAX's gap_bn does."""
 
-    def __init__(self, inplanes: int, mid: int):
+    def __init__(self, inplanes: int, mid: int, dropout: float = 0.5):
         super().__init__()
         self.aspp1 = _ASPPModule(inplanes, mid, 1, 0, 1)
         self.aspp2 = _ASPPModule(inplanes, mid, 3, 6, 6)
@@ -73,7 +74,7 @@ class ASPP(nn.Module):
             nn.ReLU())
         self.conv1 = Conv2d(mid * 5, mid, 1, bias=False)
         self.bn1 = BatchNorm(mid)
-        self.dropout = Dropout(0.5)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x):
         x4 = self.aspp4(x)

@@ -32,8 +32,10 @@ and every layer here follows the dtype of the activation it is given:
     gradient of that mean). It keeps no
     `num_batches_tracked` counter (a counter the JAX variables cannot carry,
     so `convert.state_dict_from_jax` round-trips exactly).
+  * `LayerNorm`, `GroupNorm`: flax's arithmetic (`flax_norm`).
   * `Dropout`: flax's, its keep mask drawn from the module's `generator`.
-  * `softmax`: jax.nn.softmax's roundings.
+  * `softmax`: jax.nn.softmax's roundings; `weak`: a Python constant as a
+    JAX op of a narrow dtype takes it.
 
 Parameters and BN statistics stay fp32 whatever the compute dtype: the model
 is never cast as a whole.
@@ -234,6 +236,14 @@ class _MaskedBNTrain(torch.autograd.Function):
     def forward(ctx, x, m, weight, bias, eps, group):
         dims = [0] + list(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
+        if x.dtype != torch.float32:
+            y, mean, var, n, rstd = _masked_bn_narrow(x, m, weight, bias,
+                                                      eps, group)
+            ctx.save_for_backward(x, m, weight, mean.float(), rstd,
+                                  n.float())
+            ctx.group = group
+            ctx.mark_non_differentiable(mean, var, n)
+            return y, mean, var, n
         xf = x.float()
         n = m.sum().clamp(min=1.0)
         if group is not None:
@@ -271,6 +281,35 @@ class _MaskedBNTrain(torch.autograd.Function):
         return dx.to(x.dtype), None, dw, db, None, None
 
 
+def _masked_bn_narrow(x, m, weight, bias, eps, group):
+    """JAX `MaskedBatchNorm` in training on a narrow (bf16) x, rounded as
+    JAX rounds it (coocc_tpu/nn/layers.py:390-402): the mask, n, the masked
+    sums, the mean, the variance and the normalized value in x's dtype,
+    each sum taken in fp32 and rounded once (jnp.sum upcasts a narrow
+    dtype), eps rounded to x's dtype first; the scale and bias promote
+    the result to fp32. Over a group the ranks' fp32 sums are added
+    before that one rounding (JAX's psum adds each rank's rounded sum).
+    -> (y, mean, var, n, rstd fp32 for the backward)."""
+    dt = x.dtype
+    dims = [0] + list(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mt = m.to(dt)
+
+    def total(t, over):
+        s = t.sum(over, dtype=torch.float32)
+        if group is not None:
+            dist.all_reduce(s, group=group)
+        return s.to(dt)
+    n = total(mt, list(range(mt.dim()))).clamp(min=1.0)
+    mean = total(x * mt, dims) / n
+    xc = x - mean.view(shape)
+    var = total(xc * xc * mt, dims) / n
+    s = torch.sqrt(var + weak(eps, dt))
+    y = ((xc / s.view(shape)).float() * weight.view(shape)
+         + bias.view(shape)) * m
+    return y, mean, var, n, 1.0 / s.float()
+
+
 def masked_batch_norm(bn: "BatchNorm", x: torch.Tensor,
                       mask: torch.Tensor) -> torch.Tensor:
     """JAX `MaskedBatchNorm` (coocc_tpu/nn/layers.py:362-409) with `bn`'s
@@ -280,7 +319,10 @@ def masked_batch_norm(bn: "BatchNorm", x: torch.Tensor,
     (`_MaskedBNTrain`), synced over `bn_sync_group`'s group as JAX's
     reads `_BN_SYNC_AXIS` (the packed encoders' BatchNorms are rank-local,
     this one is not), moving the running mean towards the mean and the
-    running variance towards n / max(n - 1, 1) of the variance."""
+    running variance towards n / max(n - 1, 1) of the variance. A bf16 x
+    takes its statistics in bf16, as JAX's does (`_masked_bn_narrow`):
+    the running statistics then move by bf16 terms (the momentum rounded
+    to bf16 first), added to their fp32 values in fp32."""
     shape = (1, -1) + (1,) * (x.dim() - 2)
     m = mask.unsqueeze(1).float()
     if not bn.training:
@@ -290,11 +332,11 @@ def masked_batch_norm(bn: "BatchNorm", x: torch.Tensor,
         return y * m
     y, mean, var, n = _MaskedBNTrain.apply(x, m, bn.weight, bn.bias, bn.eps,
                                            _BN_SYNC_GROUP.get())
+    momentum = weak(1 - bn.decay, mean.dtype)
     with torch.no_grad():
-        bn.running_mean.copy_(bn.decay * bn.running_mean
-                              + (1 - bn.decay) * mean)
-        bn.running_var.copy_(bn.decay * bn.running_var + (1 - bn.decay)
-                             * var * n / (n - 1).clamp(min=1.0))
+        bn.running_mean.copy_(bn.decay * bn.running_mean + momentum * mean)
+        bn.running_var.copy_(bn.decay * bn.running_var + momentum * var * n
+                             / (n - 1).clamp(min=1.0))
     return y
 
 
@@ -320,6 +362,57 @@ class Dropout(nn.Module):
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+def flax_norm(x: torch.Tensor, groups: int, weight: torch.Tensor,
+              bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """flax's LayerNorm / GroupNorm over the last axis of x [..., C] in
+    `groups` groups, in fp32 (flax's statistics): mean and E[x^2] - mean^2
+    (clipped at 0) of each group, y = (x - mean) * (rsqrt(var + eps) *
+    scale) + bias. Returns fp32; torch's fused layer_norm and group_norm
+    round x * rstd in another order (at eps 1e-5 and one channel a group
+    they leave 1e-4 of noise where flax gives the bias exactly)."""
+    C = x.shape[-1]
+    g = x.float().reshape(*x.shape[:-1], groups, C // groups)
+    mean = g.mean(-1, keepdim=True)
+    var = ((g * g).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
+    mul = torch.rsqrt(var + eps) * weight.view(groups, C // groups)
+    return ((g - mean) * mul).reshape(x.shape) + bias
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax.linen.LayerNorm with `dtype` the input's (`flax_norm`, one
+    rounding to x's dtype) on the last axis; the reference's names
+    (weight, bias)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return flax_norm(x, 1, self.weight, self.bias, self.eps).to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax.linen.GroupNorm with `dtype` None on [N, C, ...]: each sample's
+    group statistics over its channels and every spatial position, in
+    fp32 as `flax_norm` takes them; its fp32 parameters promote the result
+    to fp32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        N, C = x.shape[:2]
+        G = self.num_groups
+        xf = x.float()
+        g = xf.reshape(N, G, -1)
+        mean = g.mean(-1)
+        var = ((g * g).mean(-1) - mean * mean).clamp(min=0.0)
+        shape = (N, C) + (1,) * (x.dim() - 2)
+        mean = mean.repeat_interleave(C // G, 1).view(shape)
+        rstd = torch.rsqrt(var + self.eps).repeat_interleave(C // G, 1)
+        mul = rstd.view(shape) * self.weight.view((1, C) + shape[2:])
+        return (xf - mean) * mul + self.bias.view((1, C) + shape[2:])
+
+
+def weak(value: float, dtype: torch.dtype) -> float:
+    """A Python constant as a JAX op of `dtype` takes it (a weak type,
+    rounded to the op's dtype first); torch would apply it unrounded."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:

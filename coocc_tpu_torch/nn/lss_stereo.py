@@ -36,7 +36,7 @@ Precision. In bf16 the port casts where JAX casts: the sampled depths
 volume and the EM means are fp32, sigma and the scores bf16; the similarity
 net, the downsampling convs and the mask net take the compute dtype at
 their first layer (flax's promote_dtype); a Python constant in a bf16 op is
-rounded to bf16 first (JAX's weak types: `_weak`).
+rounded to bf16 first (JAX's weak types: `weak`).
 """
 from __future__ import annotations
 
@@ -50,7 +50,8 @@ import torch.nn.functional as F
 
 from ..ops.grid_sample import grid_sample_2d
 from .depthnet import ASPP, DCN, BasicBlock2D, Mlp, SELayer
-from .layers import BatchNorm, Conv2d, ConvTranspose2d, Linear, softmax
+from .layers import (BatchNorm, Conv2d, ConvTranspose2d, Linear, softmax,
+                     weak)
 
 
 def depth_sampling_k_list(sampling_range: int = 3,
@@ -76,12 +77,6 @@ def depth_sampling_k_list(sampling_range: int = 3,
 
     k = np.array([ndtri_host(float(q)) for q in p])
     return ((k[1:] + k[:-1]) / 2).astype(np.float32)
-
-
-def _weak(value: float, dtype: torch.dtype) -> float:
-    """A Python constant as a JAX op of `dtype` takes it (a weak type,
-    rounded to the op's dtype first); torch would apply it unrounded."""
-    return float(torch.tensor(value, dtype=dtype))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -265,9 +260,9 @@ class LSSBEVStereo(nn.Module):
                                    dtype=torch.float32,
                                    device=key_feat.device)
         for r, (lo, hi) in enumerate(self.range_list):
-            mu = torch.sigmoid(mu_all[:, r]) * _weak(hi - lo, cd) \
-                + _weak(lo, cd)
-            sigma = sigma_all[:, r] + _weak(0.1, cd)
+            mu = torch.sigmoid(mu_all[:, r]) * weak(hi - lo, cd) \
+                + weak(lo, cd)
+            sigma = sigma_all[:, r] + weak(0.1, cd)
             mu, sigma = mu[:, :sH, :sW], sigma[:, :sH, :sW]
             for _ in range(self.em_iteration):
                 # k_list is fp32: the samples, and all that reads them, too
@@ -280,7 +275,7 @@ class LSSBEVStereo(nn.Module):
                         ).mean(-1)  # [BN, S, sH, sW, G]
                 score = softmax(self.similarity(cost.to(cd)), dim=1)
                 center = score[:, S // 2]
-                scale = torch.clamp(0.5 / (_weak(1e-4, cd) + center),
+                scale = torch.clamp(0.5 / (weak(1e-4, cd) + center),
                                     0.1, 10.0)
                 sigma = torch.clamp(sigma * scale, 0.1, 10.0)
                 mu = (samples * score).sum(1)
@@ -290,8 +285,8 @@ class LSSBEVStereo(nn.Module):
             bins = self.d_coords[b_lo:b_lo + n_bins]
             g = torch.exp(-0.5 * ((bins[None, :, None, None] - mu[:, None])
                                   / torch.sqrt(sigma)[:, None]) ** 2)
-            g = g / (sigma[:, None] * _weak(math.sqrt(2 * math.pi), cd)
-                     + _weak(1e-6, cd))
+            g = g / (sigma[:, None] * weak(math.sqrt(2 * math.pi), cd)
+                     + weak(1e-6, cd))
             g = g * range_score[:, r:r + 1, :sH, :sW]
             stereo_depth[:, b_lo:b_lo + n_bins] += g
 

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from ..ops.sparse_conv import (SparseTensor, apply_conv,
                                build_strided_rulebook, build_subm_rulebook,
                                downsample_sites, to_dense)
-from .layers import BatchNorm, masked_batch_norm
+from .layers import BatchNorm, flax_norm, masked_batch_norm
 from .sparse_enc_dense import (DenseLiDAREnc8x, SparseBasicBlock,
                                SpConvWeight)
 
@@ -85,17 +85,9 @@ def row_bn(bn: BatchNorm, f: torch.Tensor, mask: torch.Tensor):
 def row_gn_relu(gn: nn.GroupNorm, sp: SparseTensor) -> SparseTensor:
     """GroupNorm per row (each voxel over its own channel groups, as
     torch's GroupNorm on [N_active, C]), ReLU, masked. Computed as flax's
-    GroupNorm computes it: var = E[x^2] - E[x]^2, y = (x - mean) *
-    (rsqrt(var + eps) * scale) + bias; with one channel a group x - mean
-    is 0 and y the bias exactly (torch's fused form rounds x * rstd, which
-    is large at eps 1e-5, and leaves 1e-4 of noise there)."""
-    B, A, C = sp.features.shape
-    G = gn.num_groups
-    g = sp.features.reshape(B, A, G, C // G)
-    mean = g.mean(-1, keepdim=True)
-    var = ((g * g).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
-    mul = torch.rsqrt(var + gn.eps) * gn.weight.view(G, C // G)
-    f = ((g - mean) * mul).reshape(B, A, C) + gn.bias
+    GroupNorm computes it (`layers.flax_norm`): with one channel a group
+    x - mean is 0 and y the bias exactly."""
+    f = flax_norm(sp.features, gn.num_groups, gn.weight, gn.bias, gn.eps)
     return sp._replace(features=F.relu(f) * sp.mask[..., None])
 
 

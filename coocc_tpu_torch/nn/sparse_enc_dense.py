@@ -65,10 +65,12 @@ def grid_bn(bn: BatchNorm, y: torch.Tensor,
     """BatchNorm of a [B, C, X, Y, Z] grid at its active cells (mask
     [B, 1, X, Y, Z] float), zero elsewhere: in eval the running
     statistics'; in training the active cells' statistics, as JAX's
-    `_DenseMaskedBN` (`layers.masked_batch_norm`)."""
+    `_DenseMaskedBN` (`layers.masked_batch_norm`). Returns fp32: JAX's
+    masked BatchNorm promotes a bf16 y to its fp32 parameters (in eval
+    its fp32 running statistics)."""
     if bn.training:
         return masked_batch_norm(bn, y, mask[:, 0] > 0)
-    return bn(y) * mask
+    return bn(y.float()) * mask
 
 
 class SparseBasicBlock(nn.Module):
@@ -91,15 +93,18 @@ class DenseLiDAREnc8x(nn.Module):
     """[B, X, Y, Z] bool occupancy -> [B, out_channel, X/8, Y/8, Z/8] fp32.
 
     compute_dtype is JAX's: the stem (the conv of the mask) runs in it and
-    rounds once; every layer after it is fp32, as in JAX, whose masked
-    BatchNorm promotes a bf16 input to its fp32 statistics.
+    rounds once, and the first BatchNorm reads it in that dtype; every
+    layer after that BatchNorm is fp32, as in JAX, whose masked BatchNorm
+    promotes a bf16 input to fp32 through its parameters.
 
     Training (JAX `train=True`): every BatchNorm takes the statistics of
     its level's active cells (`grid_bn`), the strided levels' the dilated
     mask's; level 0 collapses as in eval (JAX takes the collapse in
     training too: the stem conv has no gradient, the stem GroupNorm's bias
-    has). Where JAX's first BatchNorm reads a bf16 input its statistics
-    are bf16 sums; here they are fp32 ones of the same values."""
+    has). With a bf16 compute_dtype the first BatchNorm's statistics are
+    bf16 sums, means and variances, as JAX's are
+    (`layers._masked_bn_narrow`); its gradient is computed in fp32 and
+    rounded once."""
 
     def __init__(self, input_channel: int = 4, base_channel: int = 16,
                  out_channel: int = 128,
@@ -134,14 +139,14 @@ class DenseLiDAREnc8x(nn.Module):
         down = self.conv1[0]
         w_eff = torch.einsum("oixyz,i->oxyz", down[0].conv_weight(), stem)
         y = F.conv3d(mask, w_eff[:, None].to(cd), stride=2, padding=1)
-        y, mask = y.float(), mask.float()
+        mask = mask.float()
         for lvl in (1, 2, 3):
             blocks = getattr(self, f"conv{lvl}")
             down = blocks[0]
             if lvl > 1:
                 y = down[0](y, stride=2)
             mask = dilate_mask(mask)
-            y = y * mask
+            y = y * mask.to(y.dtype)
             y = F.relu(grid_bn(down[1], y, mask)) * mask
             y = blocks[1](y, mask)
             y = blocks[2](y, mask)

@@ -30,6 +30,11 @@ card's) to within 2x (max) and 1.5x (mean) of the CPU port's distance,
 with floors of 1e-3 and 1e-4 of the scale where the CPU's distance is fp32
 rounding alone, and after the LiDAR encoder a floor on the max set by K2's
 rounding (`check`).
+
+`swin_real.npz` (SWIN) holds the same samples of JAX's Swin-T backbone
+alone (coocc_tpu/nn/swin.py) on camera 0 of that batch, fp32, from
+`swin_inputs`' weights: every stage pads its tokens at 256 x 704, which
+no tiny twin shows at every stage (tests/test_torch_swin.py writes it).
 """
 from __future__ import annotations
 
@@ -41,11 +46,14 @@ from typing import Dict
 import numpy as np
 import torch
 
+# the Swin-T backbone's fingerprint: its four stage outputs (SWIN_OUTPUTS)
+SWIN = "swin_t_256x704"
 FINGERPRINTS = {"coocc_multi_r50_256x704": "flagship_real.npz",
                 "coocc_multi_r101_openoccupancy": "openocc_real.npz",
                 "coocc_lidar": "lidar_real.npz",
                 "coocc_multi_r50_256x704_stereo": "stereo_real.npz",
-                "coocc_kitti": "kitti_real.npz"}
+                "coocc_kitti": "kitti_real.npz",
+                SWIN: "swin_real.npz"}
 # configs whose fingerprint holds a stop_at prefix only: coocc_kitti's
 # forward cannot go past its pts prefix, in JAX (its fuser fails) nor in
 # the port (models/coocc_ray.py raises there)
@@ -55,6 +63,7 @@ N_ARGMAX = 4096        # sampled coarse cells for the argmax
 N_FINE_ROWS = 4096     # sampled fine rows: the children of sampled cells
 OUTPUTS = ("img_voxel", "pts_voxel", "voxel_feats", "semantic0",
            "semantic1", "semantic2", "semantic3", "occ")
+SWIN_OUTPUTS = ("swin0", "swin1", "swin2", "swin3")
 FLOOR_MAX, FLOOR_MEAN = 1e-3, 1e-4
 # configs whose card run is held in bf16 by `check_drift` (JAX's own
 # bf16-vs-fp32 drift) instead of `check` (the CPU port's distance); see
@@ -75,7 +84,8 @@ def numpy_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         t.copy_(torch.from_numpy(np.asarray(a, np.float32).reshape(t.shape)))
 
     for m in model.modules():
-        if isinstance(m, (BatchNorm, torch.nn.GroupNorm)):
+        if isinstance(m, (BatchNorm, torch.nn.GroupNorm,
+                          torch.nn.LayerNorm)):
             C = m.weight.shape[0]
             put(m.weight, rs.rand(C) + 0.5)
             put(m.bias, rs.standard_normal(C) * 0.1)
@@ -123,8 +133,30 @@ def batch_digest(batch) -> str:
 
 
 def outputs_of(out) -> tuple:
-    """The OUTPUTS a run (or JAX's) has."""
-    return tuple(k for k in OUTPUTS if k in out)
+    """The OUTPUTS (or SWIN_OUTPUTS) a run (or JAX's) has."""
+    return tuple(k for k in OUTPUTS + SWIN_OUTPUTS if k in out)
+
+
+def swin_inputs(device):
+    """The Swin fingerprint's model and input: the port's Swin-T
+    (nn/swin.py defaults) with `numpy_weights(seed=0)`, in eval mode on
+    `device`, and camera 0 of the flagship's synthetic_batch(seed=0) as
+    [1, 3, 256, 704] fp32 on `device`."""
+    from ..config import get_config
+    from ..data.synthetic import synthetic_batch
+    from ..nn.swin import SwinTransformer
+    imgs = synthetic_batch(get_config("coocc_multi_r50_256x704"),
+                           batch_size=1, seed=0).imgs
+    x = torch.from_numpy(np.asarray(imgs[0, :1])).permute(0, 3, 1, 2)
+    model = numpy_weights(SwinTransformer(), seed=0).eval().to(device)
+    return model, x.float().contiguous().to(device)
+
+
+@torch.no_grad()
+def swin_outputs(model, x) -> Dict[str, np.ndarray]:
+    """The backbone's four outputs, channels-last fp32 numpy."""
+    return {f"swin{i}": o.permute(0, 2, 3, 1).float().cpu().numpy()
+            for i, o in enumerate(model(x))}
 
 
 @torch.no_grad()
@@ -246,7 +278,7 @@ def distances(fp, prefix: str, out, ratio: int) -> Dict[str, tuple]:
     argmax (share disagreeing, 0), the refined cells (share of JAX's not
     refined, 0) and the fine logits on the sampled cells both refine."""
     d = {}
-    for k in OUTPUTS:
+    for k in OUTPUTS + SWIN_OUTPUTS:
         if f"{prefix}/{k}/idx" not in fp:
             continue
         scale = float(fp[f"{prefix}/{k}/scale"])
@@ -297,7 +329,8 @@ def check(fp, prefix: str, out, ratio: int):
     the mean 1.06x); the mean bound still holds every output to the CPU's
     distance."""
     res = []
-    k2_noise = 2.0 * float(fp[f"{prefix}/pts_voxel/port"][0])
+    k2_noise = 2.0 * float(fp[f"{prefix}/pts_voxel/port"][0]) \
+        if f"{prefix}/pts_voxel/port" in fp else 0.0
     for key, (dmax, dmean) in distances(fp, prefix, out, ratio).items():
         pmax, pmean = (float(v) for v in fp[f"{prefix}/{key}/port"])
         if key in ("argmax", "cells"):

@@ -56,7 +56,9 @@ def test_every_port_module_imports_without_jax():
               "data.pipelines.lidar2depth", "data.pipelines.load_occupancy",
               "data.pipelines.loading_bevdet", "tools.nuscenes_tree",
               "ops.sparse_conv", "ops.fps", "nn.sparse_enc",
-              "nn.sparse_encoder_hd"):
+              "nn.sparse_encoder_hd", "nn.swin", "nn.occnet",
+              "nn.efficientnet", "nn.alt_necks", "nn.alt_fusers", "nn.moe",
+              "nn.flosp", "models.temporal"):
         assert f"coocc_tpu_torch.{m}" in mods
     _run_clean("\n".join(["import coocc_tpu_torch"]
                          + [f"import {m}" for m in mods]))
