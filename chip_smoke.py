@@ -195,7 +195,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      SECONDFPN2, GeneralizedLSSFPN and FPNRender on the R50 pyramid of a
      6x256x704 request, AddFuser, AttnFuser, TemporalBEVConcat and
      OccupancyEncoder on [1, 128, 100, 100, 8], MoE on 80,000 tokens of
-     128, FLoSP of a 128x16x44 feature into the 200x200x16 grid.
+     128, FLoSP of a 128x16x44 feature into the 200x200x16 grid;
+ 22. the rest of the envelope (phase_envelope), fp32, card against host
+     within 1e-4 of the scale, device ms a call: MSDeformAttn3D on
+     80,000 queries over the flagship's 100x100x8 fuser grid and two
+     coarser levels; Image2BEVTransformer (3 layers timed, 1 layer held
+     against the host) on six cameras' 256-channel maps at strides 8-64
+     of 256x704 and the synthetic request's calibration; two backward
+     passes of each bit-equal, peak memory; Mask2FormerOccHead on the
+     200x200x16 pyramid, every stage, and forward_lidarseg of 245,000
+     points; render_rays of 4,224 rays (112 + 32 samples); torch.profiler
+     by kernel of the transformer and the head; the native host library
+     against its numpy versions on the request's cloud.
 The real-shape parity phases' numpy weights are drawn and hashed in a
 background thread from phase 4 on (ParityWeights).
 Prints the card, the kernels' JSON line (the served bf16 path's launches
@@ -3553,6 +3564,386 @@ def phase_modules():
     return res
 
 
+# the rest of the capability envelope (ops/ms_deform_attn.py,
+# nn/image2bev.py, nn/mask2former_occ.py, models/render_ray.py,
+# utils/native.py): card against host within MODULE_REL of the scale, fp32
+# with TF32 off, seeded weights (entry.init_weights), B = 1
+ENVELOPE_REPS = 3
+
+
+def flagship_lidar2img(batch):
+    """[1, N, 4, 4] lidar2img of a request's calibration: K [R^T | -R^T t]
+    (R, t camera -> ego; the synthetic request's LiDAR frame is the ego
+    frame), numpy."""
+    import numpy as np
+    R, t, K = (np.asarray(a[0], np.float64) for a in (
+        batch.rots, batch.trans, batch.intrins))
+    N = R.shape[0]
+    ext = np.tile(np.eye(4), (N, 1, 1))
+    ext[:, :3, :3] = R.transpose(0, 2, 1)
+    ext[:, :3, 3] = -np.einsum("nji,nj->ni", R, t)
+    k4 = np.tile(np.eye(4), (N, 1, 1))
+    k4[:, :3, :3] = K
+    return (k4 @ ext)[None].astype(np.float32)
+
+
+def _rel(card, host):
+    """max over the outputs of max |card - host| / max |host|."""
+    return max(float((c.cpu() - h).abs().max() / h.abs().max())
+               for c, h in zip(card, host))
+
+
+def _check(name, rel, card):
+    import torch
+    if not rel <= MODULE_REL or not all(bool(torch.isfinite(c).all())
+                                        for c in card):
+        raise AssertionError(f"envelope {name}: the card departs from the "
+                             f"host by {rel:.3g} of the scale")
+
+
+def _card_host(name, module, args, flat, keep=lambda t: t):
+    """module(*args) on the host's CPU and a copy on the card, `flat` of
+    each output, compared on keep(output) -> SimpleNamespace(card, host
+    (the outputs), rel, ms (the card's a call), module, args (the card's),
+    peak (GiB of one card call))."""
+    import copy
+    import types
+    import torch
+    with torch.no_grad():
+        host = flat(module(*args))
+        card_m = copy.deepcopy(module).to("cuda")
+        card_args = [_on(a, "cuda") for a in args]
+        torch.cuda.reset_peak_memory_stats()
+        card = flat(card_m(*card_args))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rel = _rel([keep(c) for c in card], [keep(h) for h in host])
+        ms = timed_ms(lambda: card_m(*card_args), ENVELOPE_REPS)
+    _check(name, rel, card)
+    return types.SimpleNamespace(card=card, host=host, rel=rel, ms=ms,
+                                 module=card_m, args=card_args, peak=peak)
+
+
+def _grad_repeat(name, fn, leaves):
+    """Two backward passes of sum(fn() * a fixed cotangent) on the card:
+    every gradient leaf (inputs and parameters) bit-equal, else the run
+    fails. -> (leaves compared, peak GiB of one pass)."""
+    import torch
+    grads = []
+    cot = None
+    for _ in range(2):
+        for p in leaves:
+            p.grad = None
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        if cot is None:
+            g = torch.Generator(device="cuda").manual_seed(7)
+            cot = torch.randn(out.shape, generator=g, device="cuda")
+        (out * cot).sum().backward()
+        sync()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        grads.append([p.grad.clone() for p in leaves])
+        del out
+    differ = sum(not torch.equal(a, b) for a, b in zip(*grads))
+    log(f"envelope {name} backward twice: {differ} of {len(leaves)} "
+        f"gradient leaves differ, peak {peak:.3f} GiB a pass")
+    if differ:
+        raise AssertionError(f"envelope {name}: two backward passes differ "
+                             f"in {differ} leaves")
+    for p in leaves:
+        p.grad = None
+    return len(leaves), peak
+
+
+def phase_envelope():
+    """The rest of the capability envelope at real shapes, B = 1, fp32,
+    each on the card against the same weights on the host's CPU (within
+    MODULE_REL of the scale) and timed on the card (CUDA events, median of
+    ENVELOPE_REPS):
+      * MSDeformAttn3D (128 wide, 4 heads, 3 levels, 4 points): 80,000
+        queries at the cell centres of the flagship's 100x100x8 fuser grid
+        over levels of 100x100x8, 50x50x4 and 25x25x2;
+      * Image2BEVTransformer (256 wide, 8 heads, 4 levels, 6 cameras, a
+        128x128 BEV grid over nuScenes' range) on 256-channel maps of six
+        cameras at 32x88, 16x44, 8x22 and 4x11 (strides 8-64 of 256x704),
+        lidar2img from the synthetic flagship request's calibration: 3
+        layers timed on the card, the card held against the host at 1
+        layer (the host's 3-layer forward takes about 25 s);
+      * Mask2FormerOccHead (128 wide, 100 queries, 9 decoder layers, 3
+        levels) on 200x200x16, 100x100x8, 50x50x4, 25x25x2: every stage's
+        classes and masks and occ, then forward_lidarseg of the request's
+        245,000 points;
+      * render_rays: 4,224 rays, 112 stratified and 32 importance samples,
+        deterministic, features grid_sample_3d of a [200, 200, 16, 32]
+        volume, a fixed linear head;
+      * two backward passes of MSDeformAttn3D and of the 1-layer
+        transformer, bit-equal;
+      * torch.profiler of the 3-layer transformer's and the head's forward
+        by kernel name;
+      * the native host library (g++ on this machine) against its numpy
+        versions on the flagship request's cloud.
+    -> {name: numbers}."""
+    import numpy as np
+    import torch
+    from coocc_tpu_torch.config import get_config
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.entry import FLAGSHIP, init_weights
+    from coocc_tpu_torch.models import render_ray
+    from coocc_tpu_torch.nn.image2bev import (Image2BEVTransformer,
+                                              get_reference_points_3d,
+                                              point_sampling)
+    from coocc_tpu_torch.nn.mask2former_occ import (Mask2FormerOccHead,
+                                                    _maxpool_to,
+                                                    forward_lidarseg)
+    from coocc_tpu_torch.ops.grid_sample import grid_sample_3d
+    from coocc_tpu_torch.ops.ms_deform_attn import MSDeformAttn3D
+    from coocc_tpu_torch.utils import native
+    t0 = time.perf_counter()
+    res = {}
+    g = torch.Generator().manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    # --- MSDeformAttn3D ---------------------------------------------------
+    X, Y, Z = 100, 100, 8
+    cx, cy, cz = torch.meshgrid(
+        (torch.arange(X) + 0.5) / X, (torch.arange(Y) + 0.5) / Y,
+        (torch.arange(Z) + 0.5) / Z, indexing="ij")
+    refs = torch.stack([cx, cy, cz], -1).reshape(1, -1, 3)
+    levels = [randn(1, 128, X // s, Y // s, Z // s) for s in (1, 2, 4)]
+    q = randn(1, X * Y * Z, 128)
+    msda = init_weights(MSDeformAttn3D(), 21).eval()
+    args = (q, levels, refs)
+    r = _card_host("MSDeformAttn3D", msda, args, _flat)
+    log(f"envelope MSDeformAttn3D on {_shapes(args)}: card against host "
+        f"{r.rel:.3g} (bound {MODULE_REL}), card {r.ms:.3f} ms a call, "
+        f"peak {r.peak:.3f} GiB")
+    qg = r.args[0].clone().requires_grad_()
+    lg = [v.clone().requires_grad_() for v in r.args[1]]
+    n, gpeak = _grad_repeat(
+        "MSDeformAttn3D", lambda: r.module(qg, lg, r.args[2]),
+        [qg, *lg, *r.module.parameters()])
+    res["MSDeformAttn3D"] = {"ms": r.ms, "rel_err": r.rel, "peak_gib": r.peak,
+                             "grad_leaves": n, "grad_peak_gib": gpeak}
+    del r, qg, lg, msda, levels, q
+    torch.cuda.empty_cache()
+
+    # --- Image2BEVTransformer ---------------------------------------------
+    cfg = get_config(FLAGSHIP)
+    request = synthetic_batch(cfg, batch_size=1, seed=0)
+    l2i = torch.from_numpy(flagship_lidar2img(request))
+    feats = [randn(1, 6, 256, h, w) for h, w in ((32, 88), (16, 44),
+                                                  (8, 22), (4, 11))]
+    img = tuple(cfg.data.input_size)
+    i2b3 = init_weights(Image2BEVTransformer(), 22).eval().to("cuda")
+    ref3d = torch.from_numpy(get_reference_points_3d(128, 128, 8.0, 4))
+    pc_range = i2b3.encoder.pc_range
+    _, bev_mask = point_sampling(ref3d, pc_range, l2i, img)
+    _, card_mask = point_sampling(ref3d.cuda(), pc_range, l2i.cuda(), img)
+    hits = bev_mask.any(-1)                            # [1, N, Q]
+    hit_share = float(hits.any(1).float().mean())
+    cams_a_pillar = float(hits.sum(1).float().mean())
+    # a projection on an image's edge may fall in on one device and out on
+    # the other: such a pillar's query reads other cameras there, so the
+    # 1-layer comparison (where a query's output depends on its own
+    # pillar's hits alone) leaves it out
+    agree = (card_mask.cpu() == bev_mask).all(-1).all(1)[0]   # [Q]
+    feats_c, l2i_c = [f.cuda() for f in feats], l2i.cuda()
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        out3 = i2b3(feats_c, l2i_c, img)
+        peak3 = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not bool(torch.isfinite(out3).all()):
+            raise AssertionError("envelope Image2BEVTransformer: a "
+                                 "non-finite output")
+        ms3 = timed_ms(lambda: i2b3(feats_c, l2i_c, img), ENVELOPE_REPS)
+    log(f"envelope Image2BEVTransformer (3 layers) on {_shapes(feats)}: "
+        f"{100 * hit_share:.1f}% of the {hits.shape[-1]:,} pillars hit a "
+        f"camera ({cams_a_pillar:.2f} cameras a pillar; the card's hit mask "
+        f"differs from the host's at {int((~agree).sum())} pillars), card "
+        f"{ms3:.3f} ms a call, peak {peak3:.3f} GiB")
+    log("  profile of its forward (device time by kernel):")
+    with torch.no_grad():
+        busy3 = device_breakdown(lambda _: i2b3(feats_c, l2i_c, img),
+                                 [None], 12)
+    del out3, i2b3
+    torch.cuda.empty_cache()
+    i2b1 = init_weights(Image2BEVTransformer(num_layers=1), 23).eval()
+    args = (feats, l2i, img)
+    r = _card_host("Image2BEVTransformer", i2b1, args, _flat,
+                   keep=lambda t: t.cpu()[:, agree])
+    log(f"envelope Image2BEVTransformer (1 layer) card against host "
+        f"{r.rel:.3g} over {int(agree.sum()):,} queries (bound "
+        f"{MODULE_REL}), card {r.ms:.3f} ms a call")
+    fg = [f.clone().requires_grad_() for f in r.args[0]]
+    n, gpeak = _grad_repeat(
+        "Image2BEVTransformer (1 layer)",
+        lambda: r.module(fg, r.args[1], img),
+        [*fg, *r.module.parameters()])
+    res["Image2BEVTransformer"] = {
+        "ms": ms3, "busy_ms": busy3, "peak_gib": peak3, "ms_1_layer": r.ms,
+        "rel_err_1_layer": r.rel, "hit_share": hit_share,
+        "cameras_a_pillar": cams_a_pillar,
+        "hit_mask_differs": int((~agree).sum()), "grad_leaves": n,
+        "grad_peak_gib": gpeak}
+    del r, fg, i2b1, feats, feats_c
+    torch.cuda.empty_cache()
+
+    # --- Mask2FormerOccHead -----------------------------------------------
+    pyramid = [randn(1, 128, 200 // s, 200 // s, 16 // s)
+               for s in (1, 2, 4, 8)]
+    head = init_weights(Mask2FormerOccHead(), 24).eval()
+
+    def head_flat(out):
+        return [*out["cls_preds"], *out["mask_preds"], out["occ"]]
+    r = _card_host("Mask2FormerOccHead", head, (pyramid,), head_flat)
+    # the attention masks each stage hands the next (sigmoid of the
+    # max-pooled mask < 0.5), card against host: a flip moves every later
+    # stage
+    sizes = [tuple(p.shape[2:]) for p in pyramid[1:][::-1]]
+    flips = [int(((torch.sigmoid(_maxpool_to(c.cpu(), sz)) < 0.5)
+                  != (torch.sigmoid(_maxpool_to(h, sz)) < 0.5)).sum())
+             for i, (c, h) in enumerate(zip(r.card[10:19], r.host[10:19]))
+             for sz in [sizes[i % 3]]]
+    log(f"envelope Mask2FormerOccHead on {_shapes([pyramid])}: "
+        f"{len(r.card) - 1} class and mask stages and occ "
+        f"{tuple(r.card[-1].shape)}, card against host {r.rel:.3g} (bound "
+        f"{MODULE_REL}), card {r.ms:.3f} ms a call, peak {r.peak:.3f} GiB; "
+        f"attention-mask entries that differ, stage by stage: {flips}")
+    log("  profile of its forward (device time by kernel):")
+    with torch.no_grad():
+        busy = device_breakdown(lambda _: r.module(r.args[0]), [None], 12)
+    pts = torch.from_numpy(request.points[0][request.points_mask[0]])
+    pts_c = pts.cuda()
+    cls_c, mask_c = r.card[9], r.card[19]
+    with torch.no_grad():
+        seg_h = forward_lidarseg(cls_c.cpu(), mask_c.cpu(), [pts],
+                                 pc_range=cfg.point_cloud_range)
+        seg_c = forward_lidarseg(cls_c, mask_c, [pts_c],
+                                 pc_range=cfg.point_cloud_range)
+        seg_rel = _rel([seg_c], [seg_h])
+        seg_ms = timed_ms(lambda: forward_lidarseg(
+            cls_c, mask_c, [pts_c], pc_range=cfg.point_cloud_range),
+            ENVELOPE_REPS)
+    _check("forward_lidarseg", seg_rel, [seg_c])
+    log(f"envelope forward_lidarseg of {pts.shape[0]:,} points: card "
+        f"against host {seg_rel:.3g}, card {seg_ms:.3f} ms a call")
+    res["Mask2FormerOccHead"] = {
+        "ms": r.ms, "busy_ms": busy, "rel_err": r.rel, "peak_gib": r.peak,
+        "mask_flips": flips, "lidarseg_ms": seg_ms,
+        "lidarseg_rel_err": seg_rel}
+    del r, head, pyramid, seg_c, cls_c, mask_c
+    torch.cuda.empty_cache()
+
+    # --- render_rays --------------------------------------------------------
+    rays = 4224
+    cams = torch.from_numpy(np.asarray(request.trans[0]))
+    ray_o = cams.repeat_interleave(rays // cams.shape[0], 0)
+    ray_d = randn(rays, 3)
+    ray_d[:, 2] *= 0.1
+    ray_d = ray_d / ray_d.norm(dim=-1, keepdim=True)
+    vol = randn(1, 200, 200, 16, 32)
+    head_w = randn(32, 4) * 0.2
+    lo = torch.tensor(cfg.point_cloud_range[:3])
+    hi = torch.tensor(cfg.point_cloud_range[3:])
+
+    class RayField(torch.nn.Module):
+        """render_rays over a feature volume: grid_sample_3d of vol (its
+        [X, Y, Z, C] read as [D, H, W, C]: the grid is (z, y, x)) and a
+        linear head, rgb sigmoid and sigma a tenth of softplus: a
+        translucent medium, where every bin keeps a share of the weight
+        (an importance sample in a bin of nearly none moves by ulp(cdf)
+        over its share)."""
+
+        def __init__(self):
+            super().__init__()
+            for name, t in (("vol", vol), ("w", head_w), ("lo", lo),
+                            ("hi", hi)):
+                self.register_buffer(name, t)
+
+        def feature_fn(self, p):
+            R, S, _ = p.shape
+            grid = ((p - self.lo) / (self.hi - self.lo) * 2 - 1).flip(-1)
+            return grid_sample_3d(self.vol, grid.reshape(1, R * S, 3))[
+                0].reshape(R, S, -1)
+
+        def rgb_sigma_fn(self, f):
+            o = f @ self.w
+            return torch.sigmoid(o[..., :3]), \
+                torch.nn.functional.softplus(o[..., 3]) * 0.1
+
+        def forward(self, o, d):
+            return render_ray.render_rays(o, d, self.feature_fn,
+                                          self.rgb_sigma_fn, 0.5, 50.0,
+                                          n_samples=112, n_importance=32)
+    keys = ("rgb", "depth", "rgb_fine", "depth_fine")
+    r = _card_host("render_rays", RayField(), (ray_o, ray_d),
+                   lambda out: [out[k] for k in keys])
+    log(f"envelope render_rays: {rays:,} rays x (112 + 32) samples: card "
+        f"against host {r.rel:.3g}, card {r.ms:.3f} ms a call")
+    res["render_rays"] = {"ms": r.ms, "rel_err": r.rel}
+    del r, vol
+    torch.cuda.empty_cache()
+
+    # --- the native host library -------------------------------------------
+    tb = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - tb
+    cloud = np.ascontiguousarray(request.points[0][request.points_mask[0]])
+    R0, tr0, K0 = (np.asarray(a[0, 0]) for a in (
+        request.rots, request.trans, request.intrins))
+    cam = (cloud[:, :3] - tr0) @ R0                     # ego -> camera 0
+    uvd = np.concatenate([cam[:, :2] / np.maximum(cam[:, 2:3], 1e-5)
+                          @ K0[:2, :2].T + K0[:2, 2], cam[:, 2:3]],
+                         1).astype(np.float32)
+    H, W = cfg.data.input_size
+    occ_range, occ_grid = cfg.point_cloud_range, (200, 200, 16)
+    coords = np.floor((cloud[:, :3] - np.asarray(occ_range[:3])) / (
+        (np.asarray(occ_range[3:]) - occ_range[:3]) / occ_grid)).astype(
+            np.int64)
+    coords = coords[((coords >= 0) & (coords < occ_grid)).all(1)]
+    labels = np.random.RandomState(5).randint(0, 17, len(coords))
+    vox = (cloud, cfg.point_cloud_range, cfg.pts.voxel_size,
+           cfg.pts.sparse_shape_xyz)
+    calls = {
+        "zbuffer_depth": lambda impl: native.zbuffer_depth(uvd, H, W,
+                                                           impl=impl),
+        "majority_vote": lambda impl: native.majority_vote(
+            coords, labels, occ_grid, impl=impl),
+        "voxelize_mean": lambda impl: native.voxelize_mean(
+            *vox, 10, cfg.pts.max_voxels_test, impl=impl)}
+    nres = {"build_s": build_s}
+    for name, call in calls.items():
+        ts = {}
+        outs = {}
+        for impl in ("native", "numpy"):
+            tc = time.perf_counter()
+            outs[impl] = call(impl)
+            ts[impl] = (time.perf_counter() - tc) * 1e3
+        a, b = outs["native"], outs["numpy"]
+        if name == "voxelize_mean":
+            n = a[2]
+            order = np.argsort(a[0][:n])
+            ok = (n == b[2] and np.array_equal(a[0][:n][order], b[0][:n])
+                  and np.allclose(a[1][:n][order], b[1][:n], rtol=1e-5,
+                                  atol=1e-5))
+            what = f"{n:,} voxels"
+        else:
+            ok = np.array_equal(a, b)
+            what = f"{int((a != 0).sum()):,} non-zero cells"
+        log(f"envelope native {name} on {len(cloud):,} points: {what}, "
+            f"native {ts['native']:.2f} ms, numpy {ts['numpy']:.2f} ms, "
+            f"{'equal' if ok else 'DIFFER'}")
+        if not ok:
+            raise AssertionError(f"native {name} differs from its numpy "
+                                 "version")
+        nres[name] = {"native_ms": ts["native"], "numpy_ms": ts["numpy"]}
+    res["native"] = nres
+    log(f"envelope took {time.perf_counter() - t0:.1f} s (native build "
+        f"{build_s:.2f} s)")
+    return res
+
+
 
 def main():
     import torch
@@ -3702,6 +4093,12 @@ def main():
         f"{time.perf_counter() - t_swin:.1f} s")
     log("modules (card ms a call, max |card - host| / max |host|): "
         + json.dumps(modules))
+    t_env = time.perf_counter()
+    log(f"[{t_env - t0:.1f} s] the rest of the envelope (deformable "
+        "attention, Image2BEV, Mask2Former, the ray library, the native "
+        "host library) card against host:")
+    envelope = phase_envelope()
+    log("envelope: " + json.dumps(envelope))
     log(f"served configs (request ms median, device busy ms per request, "
         f"peak GiB): {json.dumps(served)}")
     # the kernels at OpenOccupancy's shapes, beside the flagship's

@@ -297,11 +297,42 @@ def _dualpath(w: _Writer, t, f, m):
         w.bn(f"{t}.downsample_bn", f"{f}/downsample_bn/bn")
 
 
+def _flax_scoped(w: _Writer, t, f, m) -> None:
+    """A module whose attributes' names are its flax scopes
+    (`_flax_scoped_types`): each Linear's kernel transposed, each
+    LayerNorm's scale and bias, each raw parameter as it is."""
+    for name, _ in m.named_parameters():
+        path, _, leaf = name.rpartition(".")
+        sub = m.get_submodule(path)
+        scope = "/".join([f] + (path.split(".") if path else []))
+        if isinstance(sub, torch.nn.Linear):
+            v = _get(w.params, f"{scope}/kernel").T if leaf == "weight" \
+                else _get(w.params, f"{scope}/bias")
+        elif isinstance(sub, torch.nn.LayerNorm):
+            v = _get(w.params, f"{scope}/"
+                     f"{'scale' if leaf == 'weight' else 'bias'}")
+        else:
+            v = _get(w.params, f"{scope}/{leaf}")
+        w.put(f"{t}.{name}", v)
+
+
+def _flax_scoped_types():
+    from .nn import image2bev, mask2former_occ
+    from .ops import ms_deform_attn
+    return (ms_deform_attn.MSDeformAttn3D, image2bev.MSDeformableAttention2D,
+            image2bev.DeformSelfAttention, image2bev.DeformCrossAttention,
+            image2bev.VoxFormerLayer, image2bev.VoxFormerEncoder,
+            image2bev.Image2BEVTransformer,
+            mask2former_occ.Mask2FormerOccHead)
+
+
 def _module(w: _Writer, m) -> None:
     """The walker of port module `m` (its names "m.*", JAX's scope "m")."""
     from .nn import alt_fusers, alt_necks, efficientnet, moe, occnet, swin
     t = f = "m"
-    if isinstance(m, swin.SwinTransformer):
+    if isinstance(m, _flax_scoped_types()):
+        _flax_scoped(w, t, f, m)
+    elif isinstance(m, swin.SwinTransformer):
         _swin(w, t, f, [len(s.blocks) for s in m.stages], m.out_indices,
               True)
     elif isinstance(m, efficientnet.EfficientNet):
@@ -362,7 +393,12 @@ def module_state_dict_from_jax(module: torch.nn.Module,
     EfficientNet (the reference's names: the inverse of JAX's
     convert_efficientnet), OccupancyEncoder, DualpathTransformerBlock,
     BottleNeckASPP, SECONDFPN2, GeneralizedLSSFPN, FPNRender, AddFuser,
-    AttnFuser and MoE (the flax scopes' names)."""
+    AttnFuser and MoE (the flax scopes' names); MSDeformAttn3D,
+    MSDeformableAttention2D, DeformSelfAttention, DeformCrossAttention,
+    VoxFormerLayer, VoxFormerEncoder, Image2BEVTransformer and
+    Mask2FormerOccHead (their attributes the flax scopes, `_flax_scoped`:
+    Dense kernels [in, out] -> Linear weights [out, in], the raw
+    parameters as they are)."""
     w = _Writer({k: {"m": v} for k, v in variables.items()})
     _module(w, module)
     return {k[2:]: v for k, v in w.sd.items()}

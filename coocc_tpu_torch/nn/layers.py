@@ -35,7 +35,8 @@ and every layer here follows the dtype of the activation it is given:
   * `LayerNorm`, `GroupNorm`: flax's arithmetic (`flax_norm`).
   * `Dropout`: flax's, its keep mask drawn from the module's `generator`.
   * `softmax`: jax.nn.softmax's roundings; `weak`: a Python constant as a
-    JAX op of a narrow dtype takes it.
+    JAX op of a narrow dtype takes it; `flax_apply`: a layer called as a
+    flax layer with a `dtype` attribute casts its input.
 
 Parameters and BN statistics stay fp32 whatever the compute dtype: the model
 is never cast as a whole.
@@ -413,6 +414,13 @@ def weak(value: float, dtype: torch.dtype) -> float:
     """A Python constant as a JAX op of `dtype` takes it (a weak type,
     rounded to the op's dtype first); torch would apply it unrounded."""
     return float(torch.tensor(value, dtype=dtype))
+
+
+def flax_apply(layer: nn.Module, x: torch.Tensor, dtype) -> torch.Tensor:
+    """layer(x) as the flax layer with `dtype` computes it: x cast to dtype,
+    or with dtype None to the promotion of x's dtype and the fp32
+    parameters (`Linear` and `LayerNorm` then follow x's dtype)."""
+    return layer(x.to(dtype or torch.promote_types(x.dtype, torch.float32)))
 
 
 def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Bilinear and trilinear samplers, with the JAX package's roundings.
 
-Counterpart of coocc_tpu/ops/grid_sample.py `grid_sample_2d` (with
-align_corners=True and zeros padding: the plane-sweep warp of the stereo
-depth net) and the cascade's
+Counterpart of coocc_tpu/ops/grid_sample.py: `grid_sample_2d` and
+`grid_sample_3d` with torch's F.grid_sample conventions (both
+align_corners settings, zeros or border padding; the plane-sweep warp of
+the stereo depth net takes align_corners=True and zeros), and the cascade's
 `cascade_sample_3d` and `multicam_bilinear_gemm` (align_corners=True). The
 cascade's JAX functions take a compute dtype: they form the interpolation
 weights, round them to it, sum weight x table products in fp32 and round
@@ -19,37 +20,99 @@ import torch
 from .gather import gather_rows
 
 
-def grid_sample_2d(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+def _unnormalize(coord, size, align_corners):
+    if align_corners:
+        return (coord + 1.0) / 2.0 * (size - 1)
+    return ((coord + 1.0) * size - 1.0) / 2.0
+
+
+def _pixel_coords(grid, sizes, align_corners, padding_mode):
+    """grid [..., n] in [-1, 1], its last axis (x, y[, z]) over the sizes
+    (W, H[, D]) -> the unnormalized coordinates, clipped into the map under
+    border padding (JAX's order of operations)."""
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"padding_mode {padding_mode!r}: zeros or border")
+    out = []
+    for a, n in enumerate(sizes):
+        c = _unnormalize(grid[..., a], n, align_corners)
+        if padding_mode == "border":
+            # jnp.clip's min(max(.)): a coordinate on the edge passes half
+            # its gradient, as JAX's does
+            c = torch.minimum(torch.maximum(c, c.new_zeros(())),
+                              c.new_full((), n - 1))
+        out.append(c)
+    return out
+
+
+def grid_sample_2d(img: torch.Tensor, grid: torch.Tensor, *,
+                   align_corners: bool = True,
+                   padding_mode: str = "zeros") -> torch.Tensor:
     """Bilinear samples of channels-last maps, as JAX's `grid_sample_2d`
-    computes them with align_corners=True and zeros padding (torch's
-    F.grid_sample conventions), one map per leading index: img [B, H, W,
-    C]; grid [B, ..., 2] (x, y) in [-1, 1] -> [B, ..., C]. Each corner's
-    row is gathered in img's dtype and zeroed outside the map, then
-    weighted by (1 - wx or wx) and (1 - wy or wy) in the grid's dtype, and
-    the four products summed in JAX's order: a bf16 map under an fp32 grid
-    gives fp32 samples. The gather is `img[idx]`: this is for maps that
-    take no gradient (the stereo sweep's features are under stop-gradient);
-    the grid's does flow, through the weights."""
+    computes them (torch's F.grid_sample conventions), one map per leading
+    index: img [B, H, W, C]; grid [B, ..., 2] (x, y) in [-1, 1] ->
+    [B, ..., C]. Each corner's row is gathered in img's dtype and, under
+    zeros padding, zeroed outside the map, then weighted by (1 - wx or wx)
+    and (1 - wy or wy) in the grid's dtype, and the four products summed
+    in JAX's order: a bf16 map under an fp32 grid gives fp32 samples. The
+    rows come through `_corner_rows`: where the map takes a gradient, one
+    fixed-order gather of all four corners (ops/gather.py); the grid's
+    gradient flows through the weights."""
     B, H, W, C = img.shape
     lead = grid.shape[1:-1]
-    ix = (grid[..., 0] + 1.0) / 2.0 * (W - 1)
-    iy = (grid[..., 1] + 1.0) / 2.0 * (H - 1)
+    ix, iy = _pixel_coords(grid, (W, H), align_corners, padding_mode)
     x0, y0 = torch.floor(ix), torch.floor(iy)
     wx, wy = (ix - x0)[..., None], (iy - y0)[..., None]
     x0, y0 = x0.long(), y0.long()
     table = img.reshape(B * H * W, C)
     base = (torch.arange(B, device=img.device) * (H * W)).reshape(
         (B,) + (1,) * len(lead))
+    both = [(x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1)]
+    rows = _corner_rows(table, (
+        base + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        for xi, yi in both))
+    c00, c01, c10, c11 = (
+        v * ((xi >= 0) & (xi < W) & (yi >= 0) & (yi < H))[..., None].to(
+            v.dtype) if padding_mode == "zeros" else v
+        for v, (xi, yi) in zip(rows, both))
+    return (c00 * (1 - wx) * (1 - wy) + c01 * wx * (1 - wy)
+            + c10 * (1 - wx) * wy + c11 * wx * wy)
 
-    def corner(xi, yi):
-        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-        v = table[base + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)]
-        return v * inb[..., None].to(v.dtype)
 
-    return (corner(x0, y0) * (1 - wx) * (1 - wy)
-            + corner(x0 + 1, y0) * wx * (1 - wy)
-            + corner(x0, y0 + 1) * (1 - wx) * wy
-            + corner(x0 + 1, y0 + 1) * wx * wy)
+def grid_sample_3d(vol: torch.Tensor, grid: torch.Tensor, *,
+                   align_corners: bool = False,
+                   padding_mode: str = "zeros") -> torch.Tensor:
+    """Trilinear samples of channels-last volumes, as JAX's
+    `grid_sample_3d` computes them: vol [B, D, H, W, C]; grid [B, ..., 3]
+    (x, y, z) in [-1, 1], x indexing W (innermost), y H, z D, torch's 5-D
+    convention -> [B, ..., C]. The eight corners summed in JAX's order (z,
+    then y, then x slowest to fastest), each row times wx * wy * wz in
+    that order; zeros padding zeroes a row outside the volume, border
+    padding clips the coordinates first. Rows through `_corner_rows`."""
+    B, D, H, W, C = vol.shape
+    lead = grid.shape[1:-1]
+    ix, iy, iz = _pixel_coords(grid, (W, H, D), align_corners, padding_mode)
+    x0, y0, z0 = (torch.floor(c) for c in (ix, iy, iz))
+    wx, wy, wz = ((c - c0)[..., None] for c, c0 in ((ix, x0), (iy, y0),
+                                                       (iz, z0)))
+    x0, y0, z0 = x0.long(), y0.long(), z0.long()
+    table = vol.reshape(B * D * H * W, C)
+    base = (torch.arange(B, device=vol.device) * (D * H * W)).reshape(
+        (B,) + (1,) * len(lead))
+    taps = [((z0 + dz, wz_), (y0 + dy, wy_), (x0 + dx, wx_))
+            for dz, wz_ in ((0, 1 - wz), (1, wz))
+            for dy, wy_ in ((0, 1 - wy), (1, wy))
+            for dx, wx_ in ((0, 1 - wx), (1, wx))]
+    rows = _corner_rows(table, (
+        base + (zi.clamp(0, D - 1) * H + yi.clamp(0, H - 1)) * W
+        + xi.clamp(0, W - 1) for (zi, _), (yi, _), (xi, _) in taps))
+    out = 0.0
+    for v, ((zi, w_z), (yi, w_y), (xi, w_x)) in zip(rows, taps):
+        if padding_mode == "zeros":
+            inb = ((xi >= 0) & (xi < W) & (yi >= 0) & (yi < H) & (zi >= 0)
+                   & (zi < D))
+            v = v * inb[..., None].to(v.dtype)
+        out = out + v * w_x * w_y * w_z
+    return out
 
 
 def _corner_rows(table: torch.Tensor, idxs):

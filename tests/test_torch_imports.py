@@ -58,7 +58,10 @@ def test_every_port_module_imports_without_jax():
               "ops.sparse_conv", "ops.fps", "nn.sparse_enc",
               "nn.sparse_encoder_hd", "nn.swin", "nn.occnet",
               "nn.efficientnet", "nn.alt_necks", "nn.alt_fusers", "nn.moe",
-              "nn.flosp", "models.temporal"):
+              "nn.flosp", "models.temporal", "ops.ms_deform_attn",
+              "nn.image2bev", "nn.mask2former_occ", "models.render_ray",
+              "evaluation.panoptic", "evaluation.visualize",
+              "evaluation.video", "utils.profiling", "utils.native"):
         assert f"coocc_tpu_torch.{m}" in mods
     _run_clean("\n".join(["import coocc_tpu_torch"]
                          + [f"import {m}" for m in mods]))
