@@ -41,9 +41,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      fp32, packed in bf16.
   8. real-shape parity: the flagship at its own shapes against JAX's
      committed fingerprint (coocc_tpu_torch/parity/flagship_real.npz): the
-     weights' and batch's digests, then the card's fp32 and bf16 outputs at
-     every prefix within 2x (max) and 1.5x (mean) of the CPU port's own
-     distance to JAX;
+     weights' and batch's digests, then the card's fp32 outputs at every
+     prefix within 2x (max) and 1.5x (mean) of the CPU port's own distance
+     to JAX (`parity.check`) and its bf16 ones within 2x / 1.5x of JAX's
+     own bf16-vs-fp32 drift (`parity.check_drift`, the C9 rule of every
+     fingerprint; the CPU port's yardstick logged beside); the flagship on
+     pts.impl="gather" against parity/flagship_gather_real.npz the same
+     way, its pts prefix with the eval cap binding (120,000 sites at level
+     1) and the sites each strided level kept equal to JAX's; one train
+     step of the flagship at full width (dropout off, the cascade on the
+     fingerprint's priorities) in fp32 and bf16 against
+     parity/flagship_train_real.npz (phase_train_fingerprint: the loss
+     terms, outputs and refined cells row by row, the moved statistics,
+     gradient leaves and sums pooled, `parity.train.check`);
   9. train path: the train step of every shipped config the port trains
      (TRAIN_CONFIGS: the flagship, coocc_lidar, OpenOccupancy,
      coocc_multi_r101_896x1600, coocc_cam_r101_896x1600, the stereo
@@ -132,8 +142,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      memory, the stereo depth net's device time with and without its EM
      rounds (the plane sweep's share); K1 and K2 each on one call of the
      path against their plain versions; the fp32 and bf16 forwards against
-     parity/stereo_real.npz (bf16 within 2x / 1.5x of JAX's own bf16
-     drift, `parity.check_drift`); the bench (its main() in this process)
+     parity/stereo_real.npz; the bench (its main() in this process)
      and the test CLI in a process of its own.
  15. coocc_kitti's img and pts prefixes at full width (one 384x1280 camera
      through R50 with the 30-d camera vector of KITTI's 3x4 intrinsics;
@@ -207,6 +216,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      points; render_rays of 4,224 rays (112 + 32 samples); torch.profiler
      by kernel of the transformer and the head; the native host library
      against its numpy versions on the request's cloud.
+ 23. the lane-major route (phase_lane_major): the flagship's
+     PackedLiDAREnc8x alone at 800x800x36 (the synthetic request's points
+     with 36 voxels in z), whose res1 (p = 3, 96 lanes) and res2 (p = 1,
+     64 lanes) take the narrow SubM route (`subm_conv_narrow`, cuDNN) and
+     whose down2 and down3 take the lane-major stride-2 conv: fp32 and
+     bf16 served (K2 5 and the narrow route 8 launches a forward, ms a
+     forward), the fp32 output against the dense twin's on the sites below
+     level-0 z slice 25 (PACKED_VS_DENSE_MAX / _MEAN), the bf16 output's
+     distance to fp32 logged, two bf16 train steps of the encoder from one
+     state equal bit for bit (K2 5, its dX 5, the narrow route 8 a step);
+     every K2 call of a forward in each dtype and of a third step (its dX
+     calls too) against its plain version on the call's own inputs.
 The real-shape parity phases' numpy weights are drawn and hashed in a
 background thread from phase 4 on (ParityWeights).
 Prints the card, the kernels' JSON line (the served bf16 path's launches
@@ -1130,8 +1151,8 @@ def _parity_weights(name):
     """Config `name`'s fingerprint weights (parity.fingerprint_model, drawn
     with numpy on the host) and their digest (parity.state_digest's)."""
     from coocc_tpu_torch import parity
-    from coocc_tpu_torch.config import get_config
-    weights = parity.fingerprint_model(get_config(name), "cpu").state_dict()
+    weights = parity.fingerprint_model(parity.fingerprint_config(name),
+                                       "cpu").state_dict()
     return weights, parity.digest({k: v.numpy() for k, v in weights.items()})
 
 
@@ -1177,24 +1198,24 @@ def phase_real_shape_parity(name, weights, each=None):
     (coocc_tpu_torch/parity/, written on a CPU by
     tests/test_torch_real_shapes.py): the weights' (from `weights`, a
     ParityWeights) and the batch's digests first, then the card's fp32
-    (TF32 off) and bf16 forwards, every prefix within 2x (max) and 1.5x
-    (mean) of the CPU port's own distance to JAX (`parity.check`), or in
-    bf16 for the configs in parity.BF16_DRIFT_RULE of JAX's own bf16 drift
-    (`parity.check_drift`, the CPU port's readings logged beside); both
-    dtypes are read before a failure is raised. The weights are drawn once
-    (numpy), hashed once, and loaded into both models (load_state_dict
-    copies them exactly). A config
-    of parity.PREFIX_ONLY is held at that prefix. each(dtype name, model,
-    batch), where given, runs on each dtype's model before its capture.
-    -> {dtype: [(name, card, cpu port, ok)]}."""
+    (TF32 off) and bf16 forwards: fp32 every prefix within 2x (max) and
+    1.5x (mean) of the CPU port's own distance to JAX (`parity.check`),
+    bf16 within 2x and 1.5x of JAX's own bf16-vs-fp32 drift
+    (`parity.check_drift`, the rule of C9: the CPU port's yardstick is
+    logged beside it); both dtypes are read before a failure is raised.
+    The weights are
+    drawn once (numpy), hashed once, and loaded into both models
+    (load_state_dict copies them exactly). A config of parity.PREFIX_ONLY
+    is held at that prefix. each(dtype name, model, batch), where given,
+    runs on each dtype's model before its capture. -> {dtype: [(name,
+    card, yardstick, ok)]}."""
     import torch
     from coocc_tpu_torch import parity
-    from coocc_tpu_torch.config import get_config
     from coocc_tpu_torch.data.synthetic import synthetic_batch
     from coocc_tpu_torch.models.coocc_ray import CoOccRay
     t0 = time.perf_counter()
     fp = parity.load(name)
-    cfg = get_config(name)
+    cfg = parity.fingerprint_config(name)
     batch_np = synthetic_batch(cfg, batch_size=1, seed=0)
     if parity.batch_digest(batch_np) != str(fp["batch_digest"]):
         raise AssertionError(f"{name}: the fingerprint's batch digest "
@@ -1219,14 +1240,15 @@ def phase_real_shape_parity(name, weights, each=None):
         ratio = cfg.occ_head.cascade_ratio
         res = parity.check(fp, prefix, out, ratio)
         held = "cpu port"
-        if prefix == "bf16" and name in parity.BF16_DRIFT_RULE:
-            # the CPU-port readings are logged, JAX's own drift holds
+        if prefix == "bf16":
+            # JAX's own drift holds (C9); the CPU port's yardstick is read
+            # and logged
             for key, (dmax, dmean), (pmax, pmean), ok in res:
                 log(f"real-shape parity {name} {prefix} {key}: card max "
                     f"{dmax:.6g} mean {dmean:.6g}; cpu port max {pmax:.6g} "
-                    f"mean {pmean:.6g} ({'within' if ok else 'beyond'} 2x / "
-                    "1.5x of it; not the bound here)")
-            res = parity.check_drift(fp, out, ratio)
+                    f"mean {pmean:.6g} ({'within' if ok else 'beyond'} 2x "
+                    "/ 1.5x of it; not the bound)")
+            res = parity.check_drift(fp, out, ratio, name)
             held = "JAX's own bf16 drift"
         for key, (dmax, dmean), (pmax, pmean), ok in res:
             log(f"real-shape parity {name} {prefix} {key}: card max "
@@ -1238,7 +1260,83 @@ def phase_real_shape_parity(name, weights, each=None):
     if bad:
         raise AssertionError(f"{name} outputs differ from JAX's "
                              f"fingerprint: {bad}")
-    log(f"real-shape parity {name}: digests equal, fp32 and bf16 within the "
+    log(f"real-shape parity {name}: digests equal, fp32 and bf16 within "
+        f"the bounds ({time.perf_counter() - t0:.1f} s)")
+    return results
+
+
+def phase_train_fingerprint(weights):
+    """The flagship's train step at full width on the card against JAX's
+    fingerprint (coocc_tpu_torch/parity/flagship_train_real.npz, written on
+    a CPU by tests/test_torch_real_train.py): the weights' and the batch's
+    digests, then one step in fp32 (TF32 off) and one in bf16, dropout off,
+    the cascade's priorities the fingerprint's (JAX's draw), each read
+    whole before a failure is raised (`parity.train.step_arrays`): the raw
+    loss terms, the outputs the losses read, the moved BN statistics and
+    every gradient leaf, held by `parity.train.check` (each loss term,
+    output and the refined cells within 2x / 1.5x of the yardstick, each
+    statistic, gradient leaf and sum within a ceiling of
+    parity.train.CEILING x it, and pooled: the module note of
+    parity.train), the yardstick the CPU port's distance to JAX in fp32
+    and JAX's own bf16-vs-fp32 drift in bf16 (the C9 rule). -> {dtype: the
+    worst and the pooled rows}."""
+    import torch
+    from coocc_tpu_torch import parity
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.models.coocc_ray import CoOccRay
+    from coocc_tpu_torch.parity import train as ptrain
+    t0 = time.perf_counter()
+    fp = parity.load(parity.TRAIN)
+    cfg = parity.fingerprint_config(parity.TRAIN)
+    batch_np = synthetic_batch(cfg, batch_size=1, seed=0)
+    state, digest = weights.take(parity.TRAIN)
+    if parity.batch_digest(batch_np) != str(fp["batch_digest"]) or \
+            digest != str(fp["state_digest"]):
+        raise AssertionError("the train fingerprint's digests differ")
+    batch = batch_np.to("cuda")
+    prio = torch.from_numpy(fp["priorities"]).to("cuda")
+    held = {"fp32": "cpu port", "bf16": "JAX's own bf16 drift"}
+    results, bad = {}, []
+    for prefix, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        with torch.device("cuda"):
+            model = CoOccRay(cfg, dtype).to("cuda")
+        model.load_state_dict(state)
+        sync()
+        t1 = time.perf_counter()
+        res = ptrain.step_arrays(model, batch, prio)
+        step_s = time.perf_counter() - t1
+        del model
+        torch.cuda.empty_cache()
+        rows = ptrain.check(fp, prefix, res)
+        del res
+        bad += [(prefix, *r[:3]) for r in rows if not r[3]]
+
+        def share(r):
+            # the run's max as a share of its bound
+            return r[1][0] / max(r[2][0], 1e-30)
+        pooled = [r for r in rows if r[0].startswith(("grads ", "stats ",
+                                                      "sums "))]
+        worst = sorted((r for r in rows if r not in pooled), key=share,
+                       reverse=True)[:6]
+        for key, (dmax, dmean), (bmax, bmean), ok in worst + pooled:
+            log(f"train fingerprint {prefix} {key}: card {dmax:.6g} / "
+                f"{dmean:.6g}; bound {bmax:.6g} / {bmean:.6g} "
+                f"({'ok' if ok else 'FAIL'})")
+        results[prefix] = {"rows": len(rows), "failed": sum(
+            not r[3] for r in rows), "worst": [r[:3] for r in worst],
+            "pooled": [r[:3] for r in pooled], "step_s": step_s}
+        log(f"train fingerprint {prefix}: {len(rows)} rows (the loss terms, "
+            f"the samples of {len(fp['out/names'])} outputs, the refined "
+            f"cells and fine logits, each of "
+            f"{len(fp['stat/names'])} statistics, "
+            f"{len(fp['grad/names'])} gradient leaves and their sums, and "
+            "those pooled), "
+            f"{results[prefix]['failed']} beyond their bound, held by "
+            f"{held[prefix]}; the step read in {step_s:.1f} s")
+    if bad:
+        raise AssertionError(f"the train step differs from JAX's "
+                             f"fingerprint: {bad[:8]}")
+    log(f"train fingerprint: digests equal, fp32 and bf16 within the "
         f"bounds ({time.perf_counter() - t0:.1f} s)")
     return results
 
@@ -2883,6 +2981,253 @@ def phase_lidar_routes(kernels):
     return nums
 
 
+# the lane-major route's grid depth (the 800x800 grid over the flagship's
+# point-cloud range): res1 at p=3 (96 lanes) and res2 at p=1 (64 lanes)
+# take the narrow SubM route, down2 and down3 the lane-major downsample
+LANE_MAJOR_Z = 36
+# level 3 floors z 9 -> 4 (JAX's packed encoder); its dropped fifth slice
+# reads level-0 slices 25-35 only
+LANE_MAJOR_TOP = 25
+# a forward: K2 at res3 and conv_out (128 lanes), the narrow route at res1
+# and res2; a train step adds K2's dX at those five
+PER_LANE_MAJOR = {"subm_ext_conv": 5, "subm_ext_conv_dx": 0,
+                  "subm_conv_narrow": 8}
+PER_LANE_MAJOR_STEP = {"subm_ext_conv": 5, "subm_ext_conv_dx": 5,
+                       "subm_conv_narrow": 8}
+
+
+def lane_major_k2_checks(label, run):
+    """Every K2 call of one `run()` of the lane-major encoder against its
+    plain version on the call's own inputs: each forward (the eval seam
+    nn/sparse_enc_packed.py:subm_ext_conv and the training one
+    ops/subm_conv.py:subm_ext_conv) by k2_check, each dX by k2_dx_check.
+    These are res3 and conv_out, at z 4 after the 9 -> 4 floor: shapes no
+    other phase gives K2. -> {"fwd": (calls, max abs err), "dx": (calls,
+    max abs err)}."""
+    from coocc_tpu_torch.nn import sparse_enc_packed
+    from coocc_tpu_torch.ops import subm_conv as k2
+    kept = {"fwd": [], "dx": []}
+    inner = k2.subm_ext_conv, k2.subm_ext_conv_dx
+
+    def keep_fwd(x_pb, w27, p, mcell, bn=None, identity=None):
+        kept["fwd"].append((x_pb.detach().clone(), w27.detach().clone(), p,
+                            mcell.clone(), bn, None if identity is None
+                            else identity.detach().clone()))
+        return inner[0](x_pb, w27, p, mcell, bn, identity)
+
+    def keep_dx(dy, w27, p):
+        kept["dx"].append((dy.detach().clone(), w27.detach().clone(), p))
+        return inner[1](dy, w27, p)
+    # the wrappers count their launches on the keep_* functions while the
+    # seams are patched; the phase's counts were read before this run
+    keep_fwd.launches = keep_dx.launches = 0
+    sparse_enc_packed.subm_ext_conv = k2.subm_ext_conv = keep_fwd
+    k2.subm_ext_conv_dx = keep_dx
+    try:
+        run()
+        sync()
+    finally:
+        sparse_enc_packed.subm_ext_conv = k2.subm_ext_conv = inner[0]
+        k2.subm_ext_conv_dx = inner[1]
+    if not kept["fwd"]:
+        raise AssertionError(f"lane-major {label}: no K2 call")
+    out = {}
+    for kind, calls in kept.items():
+        errs = []
+        for args in calls:
+            if kind == "fwd":
+                x, w27, p, mcell, bn, idn = args
+                err, scale, _, ok = k2_check(x, w27, p, mcell, bn, idn)
+                what = (f"{tuple(x.shape)} p={p} {str(x.dtype)[6:]} "
+                        f"{k2_mode(bn, idn)}")
+            else:
+                err, ok = k2_dx_check(*args)
+                scale = float(args[0].abs().max())
+                what = (f"dX {tuple(args[0].shape)} p={args[2]} "
+                        f"{str(args[0].dtype)[6:]}")
+            log(f"lane-major {label} K2 vs plain [{what}]: max_abs_err "
+                f"{err:.6g}, scale {scale:.6g}")
+            if not ok:
+                raise AssertionError(f"lane-major {label}: K2 differs from "
+                                     f"its plain version at {what}")
+            errs.append(err)
+        out[kind] = (len(calls), max(errs, default=0.0))
+    del kept
+    return out
+
+
+def phase_lane_major(kernels):
+    """The flagship's PackedLiDAREnc8x (base 16 -> 128) alone at an
+    800x800x36 grid, the synthetic request's 350,000 points voxelized over
+    the flagship's point-cloud range with 36 voxels in z (the model cannot
+    run there: its 100x100x4 pts_voxel is not the fuser's 100x100x8), from
+    seeded weights (entry.init_weights, seed 0) loaded into encoders built
+    on the card: served in fp32 (TF32 off) and bf16, 3 forwards each with
+    the launches counted (PER_LANE_MAJOR), host and device ms a forward;
+    the fp32 output against the dense twin DenseLiDAREnc8x's from the same
+    weights (PACKED_VS_DENSE_MAX / _MEAN; the twin has neither new route)
+    on the occupancy below level-0 z slice LANE_MAJOR_TOP, where the
+    twin's fifth z slice at level 3, spconv's ceil(9 / 2) that the packed
+    encoder floors away as JAX's does, is empty; the bf16 output's
+    distance to the fp32 one logged; two bf16 train steps
+    of the encoder alone (sum(out * noise), backward) from one state under
+    cudnn_deterministic (the narrow route's backward is cuDNN's), their
+    launches (PER_LANE_MAJOR_STEP) and outputs, gradients and moved
+    statistics equal bit for bit; every K2 call of one forward in each
+    dtype and of a third train step (forwards and dX) against its plain
+    version on its own inputs (lane_major_k2_checks). -> the numbers."""
+    import torch
+    from coocc_tpu_torch.config import get_config
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.entry import init_weights
+    from coocc_tpu_torch.nn.sparse_enc_dense import DenseLiDAREnc8x
+    from coocc_tpu_torch.nn.sparse_enc_packed import PackedLiDAREnc8x
+    from coocc_tpu_torch.ops.subm_conv import subm_conv_narrow
+    from coocc_tpu_torch.ops.voxelize import voxelize_mask
+    from coocc_tpu_torch.parallel.train_step import cudnn_deterministic
+    lap = lap_timer("lane-major")
+    flag = get_config(FLAGSHIP)
+    pts, pcr = flag.pts, flag.point_cloud_range
+    grid = tuple(pts.sparse_shape_xyz[:2]) + (LANE_MAJOR_Z,)
+    vsize = tuple(pts.voxel_size[:2]) + ((pcr[5] - pcr[2]) / LANE_MAJOR_Z,)
+    b = synthetic_batch(flag, batch_size=1, seed=0).to("cuda")
+    occ = voxelize_mask(b.points[0], b.points_mask[0], pcr, vsize, grid,
+                        max_voxels=pts.max_voxels_test)[None]
+    widths = (pts.input_channel, pts.base_channel, pts.out_channel)
+    sd = init_weights(PackedLiDAREnc8x(*widths), 0).state_dict()
+    counted = {"subm_ext_conv": kernels["subm_ext_conv"],
+               "subm_ext_conv_dx": kernels["subm_ext_conv_dx"],
+               "subm_conv_narrow": subm_conv_narrow}
+
+    def build(cls, dtype):
+        with torch.device("cuda"):
+            enc = cls(*widths, compute_dtype=dtype)
+        enc.load_state_dict(sd)
+        return enc.eval()
+
+    def counts():
+        return {n: k.launches for n, k in counted.items()}
+
+    def reset():
+        for k in counted.values():
+            k.launches = 0
+    nums = {"grid": grid, "active": int(occ.sum())}
+    outs = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        enc = build(PackedLiDAREnc8x, dtype)
+        with torch.no_grad():
+            enc(occ)                                  # warm-up
+            sync()
+            reset()
+            ms = host_ms(enc, [occ] * 3)
+            launches = counts()
+            busy = timed_ms(lambda: enc(occ), 3)
+            outs[name] = enc(occ).float()
+        want = {n: 3 * c for n, c in PER_LANE_MAJOR.items()}
+        shape = tuple(outs[name].shape)
+        log(f"lane-major encoder {grid} {name}: {ms:.3f} ms a forward "
+            f"(host, median of 3), {busy:.3f} ms (device), launches over 3 "
+            f"{launches} (want {want}), output {shape}")
+        if launches != want:
+            raise AssertionError(f"lane-major {name}: launches {launches}")
+        if shape != (1, pts.out_channel) + tuple(g // 8 for g in grid) or \
+                not bool(torch.isfinite(outs[name]).all()):
+            raise AssertionError(f"lane-major {name} output {shape}")
+        nums[name] = {"forward_ms": ms, "device_ms": busy,
+                      "launches": launches}
+        with torch.no_grad():
+            nums[name]["k2_vs_plain"] = lane_major_k2_checks(
+                name, lambda: enc(occ))
+        del enc
+        torch.cuda.empty_cache()
+    lap("served in fp32 and bf16, K2 against its plain version")
+    # the dense twin takes spconv's geometry, ceil(9 / 2) = 5 z slices at
+    # level 3, where the packed encoder floors to 4 as JAX's does: on an
+    # occupancy without its level-0 slices >= LANE_MAJOR_TOP the twin's
+    # fifth slice is empty and the first four are the packed encoder's
+    low = occ.clone()
+    low[..., LANE_MAJOR_TOP:] = False
+    dense = build(DenseLiDAREnc8x, torch.float32)
+    packed = build(PackedLiDAREnc8x, torch.float32)
+    with torch.no_grad():
+        d = dense(low).float()
+        p32 = packed(low).float()
+    del dense, packed
+    if d.shape[-1] != p32.shape[-1] + 1 or bool(d[..., -1].any()):
+        raise AssertionError(f"the dense twin's output {tuple(d.shape)} has "
+                             "no empty fifth z slice")
+    d = d[..., :-1]
+    scale = float(d.abs().max())
+    err = (p32 - d).abs()
+    rel = (float(err.max()) / scale, float(err.mean()) / scale)
+    log(f"lane-major packed vs dense pts_voxel (fp32, the {int(low.sum())} "
+        f"sites below level-0 z slice {LANE_MAJOR_TOP}): max {rel[0]:.6g} "
+        f"and mean {rel[1]:.6g} of max|dense| {scale:.6g} (bounds "
+        f"{PACKED_VS_DENSE_MAX}, {PACKED_VS_DENSE_MEAN})")
+    if not (scale > 0 and rel[0] <= PACKED_VS_DENSE_MAX
+            and rel[1] <= PACKED_VS_DENSE_MEAN):
+        raise AssertionError("lane-major packed pts_voxel differs from the "
+                             "dense twin's")
+    scale32 = float(outs["fp32"].abs().max())
+    err16 = (outs["bf16"] - outs["fp32"]).abs()
+    nums["vs_dense"] = rel
+    nums["bf16_vs_fp32"] = (float(err16.max()) / scale32,
+                            float(err16.mean()) / scale32)
+    log(f"lane-major bf16 vs fp32 pts_voxel: max {nums['bf16_vs_fp32'][0]:.6g}"
+        f" and mean {nums['bf16_vs_fp32'][1]:.6g} of max|fp32| "
+        f"{scale32:.6g} (logged)")
+    del outs, d, p32, low, err, err16
+    lap("against the dense twin")
+
+    enc = build(PackedLiDAREnc8x, torch.bfloat16).train()
+    state = {k: v.clone() for k, v in enc.state_dict().items()}
+    noise = torch.randn((1, pts.out_channel) + tuple(g // 8 for g in grid),
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            1), device="cuda")
+
+    def step():
+        enc.load_state_dict(state)
+        enc.zero_grad(set_to_none=True)
+        sync()
+        t0 = time.perf_counter()
+        out = enc(occ)
+        (out * noise).sum().backward()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return ms, [out.detach()] + [p.grad for p in enc.parameters()
+                                     if p.grad is not None] + [
+            v.clone() for k, v in enc.state_dict().items() if "running" in k]
+    with cudnn_deterministic():
+        step()                                        # warm-up
+        reset()
+        ms1, first = step()
+        launches = counts()
+        ms2, second = step()
+    differ = sum(not torch.equal(x, y) for x, y in zip(first, second))
+    log(f"lane-major bf16 train step of the encoder: {ms1:.3f} and "
+        f"{ms2:.3f} ms (host), launches {launches} (want "
+        f"{PER_LANE_MAJOR_STEP}); two steps from one state: {differ} of "
+        f"{len(first)} tensors differ (the output, each gradient, each "
+        "moved statistic)")
+    if launches != PER_LANE_MAJOR_STEP or differ or len(first) != len(
+            second):
+        raise AssertionError(f"lane-major train step: launches {launches}, "
+                             f"{differ} tensors differ between two steps")
+    del first, second
+    with cudnn_deterministic():
+        k2_vs_plain = lane_major_k2_checks("bf16 train step", step)
+    if k2_vs_plain["fwd"][0] != PER_LANE_MAJOR_STEP["subm_ext_conv"] or \
+            k2_vs_plain["dx"][0] != PER_LANE_MAJOR_STEP["subm_ext_conv_dx"]:
+        raise AssertionError(f"lane-major train step: K2 calls checked "
+                             f"{k2_vs_plain}")
+    nums["train"] = {"step_ms": (ms1, ms2), "launches": launches,
+                     "differing": differ, "k2_vs_plain": k2_vs_plain}
+    del enc, state
+    torch.cuda.empty_cache()
+    lap("two train steps, a third's K2 calls against their plain version")
+    return nums
+
+
 def phase_tiny_agreement():
     """The tiny config on the card against the CPU, with the dense encoder
     (fp32 throughout: 5e-3) and the default packed one (full outputs at
@@ -3953,6 +4298,7 @@ def main():
         sys.exit(2)
     t0 = time.perf_counter()
     sys.path.insert(0, ROOT)
+    from coocc_tpu_torch import parity
     from coocc_tpu_torch.config import get_config
     from coocc_tpu_torch.data.synthetic import synthetic_batch
     from coocc_tpu_torch.entry import FLAGSHIP
@@ -3997,7 +4343,8 @@ def main():
     del outs16, outs32
     # the parity phases' numpy weights, drawn from here on beside the card's
     # work (after the request timings of the host-bound served path)
-    weights = ParityWeights((FLAGSHIP, OPENOCC, LIDAR, STEREO, KITTI))
+    weights = ParityWeights((FLAGSHIP, parity.GATHER, parity.TRAIN,
+                             OPENOCC, LIDAR, STEREO, KITTI))
     log(f"[{time.perf_counter() - t0:.1f} s] dense path:")
     phase_dense_path(model, requests)
     log(f"[{time.perf_counter() - t0:.1f} s] kernels against their plain "
@@ -4025,6 +4372,13 @@ def main():
     log(f"[{time.perf_counter() - t0:.1f} s] real-shape parity against JAX's "
         "fingerprint:")
     phase_real_shape_parity(FLAGSHIP, weights)
+    log(f"[{time.perf_counter() - t0:.1f} s] the gather route's capped "
+        "pts_voxel against JAX's fingerprint:")
+    phase_real_shape_parity(parity.GATHER, weights)
+    log(f"[{time.perf_counter() - t0:.1f} s] a full-width train step "
+        "against JAX's fingerprint:")
+    train_fp = phase_train_fingerprint(weights)
+    log("train fingerprint: " + json.dumps(train_fp))
     trained = train_phases(kernels, t0)
     dx_row = train_rows(trained, k1_row, k2_row)
     rows.insert(2, dx_row)
@@ -4099,6 +4453,11 @@ def main():
         "host library) card against host:")
     envelope = phase_envelope()
     log("envelope: " + json.dumps(envelope))
+    t_lm = time.perf_counter()
+    log(f"[{t_lm - t0:.1f} s] the lane-major downsample and the narrow SubM "
+        f"route (the flagship's encoder at 800x800x{LANE_MAJOR_Z}):")
+    lane_major = phase_lane_major(kernels)
+    log(f"the lane-major route took {time.perf_counter() - t_lm:.1f} s")
     log(f"served configs (request ms median, device busy ms per request, "
         f"peak GiB): {json.dumps(served)}")
     # the kernels at OpenOccupancy's shapes, beside the flagship's
@@ -4135,6 +4494,16 @@ def main():
             "max_abs_err": served["swin"][key]}
     dx_row["configs"]["swin"] = {
         "launches": served["swin"]["train"]["launches"]["subm_ext_conv_dx"]}
+    # the lane-major route at 800x800x36: K2 at res3 and conv_out over 3
+    # bf16 forwards and in one train step, the narrow route beside it
+    for row in (k2_row, dx_row):
+        row["configs"]["lane_major"] = {
+            "launches": lane_major["bf16"]["launches"][row["name"]],
+            "train_launches": lane_major["train"]["launches"][row["name"]],
+            "narrow_launches": lane_major["bf16"]["launches"][
+                "subm_conv_narrow"],
+            "narrow_train_launches": lane_major["train"]["launches"][
+                "subm_conv_narrow"]}
 
     log(f"[{time.perf_counter() - t0:.1f} s] card: {card_line()}")
     log(json.dumps({"kernels": rows}))

@@ -144,10 +144,11 @@ class PtsBranchConfig:
     encoder: str = "SparseLiDAREnc8x"   # | 'SparseLiDAREnc4x' | 'SparseEncoderHD'
     # Encoder implementation ('packed' / 'dense' / 'gather', same
     # parameters); 'auto' is 'packed' for SparseLiDAREnc8x and 'packed_hd'
-    # for SparseEncoderHD. The port has 'packed' (nn/sparse_enc_packed.py,
-    # without ztap_levels), 'dense' (nn/sparse_enc_dense.py) and
-    # 'packed_hd' (nn/sparse_enc_packed_hd.py); 'gather' raises
-    # NotImplementedError.
+    # for SparseEncoderHD. The port has each: 'packed'
+    # (nn/sparse_enc_packed.py; ztap_levels, JAX's z-batch layout of the
+    # same function, runs it too), 'dense' (nn/sparse_enc_dense.py),
+    # 'packed_hd' (nn/sparse_enc_packed_hd.py) and 'gather' (the
+    # gather-GEMM nn/sparse_enc.py and nn/sparse_encoder_hd.py).
     impl: str = "auto"
     ztap_levels: Tuple[int, ...] = ()
     input_channel: int = 4

@@ -18,21 +18,30 @@ either) and the same math, computed so that every convolution is a 2D one:
     dn-carry] lanes with a block-tridiagonal [3, 3, (p+2)*C, p*Co] weight,
     through kernel K2 (`ops/subm_conv.py:subm_ext_conv`), whose epilogue
     applies the output mask and, inside a SparseBasicBlock, its BatchNorm,
-    ReLU and residual: a block is two K2 launches and no other pass;
+    ReLU and residual: a block is two K2 launches and no other pass. K2
+    takes a level whose p*C fills the 128 lanes (every level of every
+    shipped grid); a level that packs fewer (p*C = 96 or 64: the 32- and
+    64-channel levels at LiDAR depths 36, 20 and 12, see `pick_pack`) takes
+    the same conv as JAX's XLA computes it there (`subm_conv_narrow`:
+    cuDNN on the card, in the activation's dtype), with the BatchNorm, ReLU
+    and residual as JAX's separate ops (`packed_subm`);
   * strided 3x3x3 conv (down2, down3): a stride-2 conv2d in packed layout
-    with a [3, 3, (p+2)*Ci, p_out*Co] weight, which keeps the pack rows when
-    p == 2*p_out (true at every shipped config);
+    with a [3, 3, (p+2)*Ci, p_out*Co] weight where p == 2*p_out, which keeps
+    the pack rows (every shipped grid); elsewhere, as in JAX, one stride-2
+    conv2d in lane-major layout with a [3, 3, Z*Ci, (Z//2)*Co] weight, the
+    z taps unrolled into it (an odd Z floors: 9 -> 4 at depth 36);
   * the downsamples' BatchNorm (running statistics) and the per-cell
     GroupNorm as per-lane affines tiled p times, times the cell mask
     broadcast over each slot's lanes. Packed tensors are made contiguous
     where they are made.
 
-Numerics: the SubM convolutions take bf16 operands with fp32 sums (K2's, on
-the card and in its plain version alike). With compute_dtype fp32
-everything else is fp32: the encoder then equals the JAX packed encoder run
-with COOCC_PALLAS_SUBM (its Pallas kernel path), not the JAX pure-fp32 XLA
-path, and differs from `DenseLiDAREnc8x` by the bf16 rounding of the SubM
-operands. With compute_dtype bf16 (JAX `compute_dtype=cd`) the mask, the
+Numerics: the SubM convolutions K2 takes have bf16 operands with fp32 sums
+(K2's, on the card and in its plain version alike); the narrow route's
+operands are the activation's dtype, as in JAX's XLA route. With
+compute_dtype fp32 everything else is fp32: the encoder then equals the JAX
+packed encoder run with COOCC_PALLAS_SUBM (its Pallas kernel path), not the
+JAX pure-fp32 XLA path, and differs from `DenseLiDAREnc8x` by the bf16
+rounding of K2's operands. With compute_dtype bf16 (JAX `compute_dtype=cd`) the mask, the
 stem, the strided and mask-count convs and every packed activation are bf16
 (K2 reads, writes and adds its residual in bf16); the downsamples' BN and
 K2's epilogue compute in fp32 and round once where JAX rounds each of its
@@ -43,7 +52,8 @@ Training (`.train()`): every BatchNorm takes its statistics over the active
 cells only and moves its running variance towards the unbiased n/(n-1) one
 (JAX `_PackedBNCore`, sparse_enc_packed.py:255-275, its affine in the
 compute dtype); a SparseBasicBlock is K2 (mask, `subm_conv`, which has a
-gradient), BN, ReLU, K2 (mask), BN, + x, ReLU, mask (JAX :441-449), and the
+gradient; the narrow route's conv through autograd), BN, ReLU, K2 (mask),
+BN, + x, ReLU, mask (JAX :441-449), and the
 downsamples' BN follows the same rule. K2's fused BN epilogues read running
 statistics and run in eval only.
 
@@ -52,8 +62,7 @@ JAX's other layouts of this function - the z-batch tap blocks
 (`zb_down`) and COOCC_STRIDED_MODE=lm|packed - were chosen for the TPU's
 MXU and compute the same outputs (tests/test_torch_gather_encoders.py
 holds each against this encoder): the port takes `pts.ztap_levels` and
-runs this form. The lane-major strided downsample that JAX takes where
-p != 2*p_out (at no shipped config) raises here.
+runs this form.
 """
 from __future__ import annotations
 
@@ -65,8 +74,9 @@ import torch.nn.functional as F
 
 from ..ops.constants import device_constant
 from ..ops.subm_conv import (ZERO_TAP, BNAffine, conv2d_nhwc,
-                             epilogue_plain, gather_taps, masked, shift_ext,
-                             subm_conv, subm_ext_conv)
+                             epilogue_plain, gather_taps, k2_takes, masked,
+                             shift_ext, subm_conv, subm_conv_narrow,
+                             subm_ext_conv)
 from .layers import BatchNorm
 from .sparse_enc_dense import (DenseLiDAREnc8x, SpConvWeight,
                                per_cell_group_norm)
@@ -190,21 +200,53 @@ def bn_affine(bn: BatchNorm) -> BNAffine:
     return BNAffine(bn.running_mean, inv, bn.bias)
 
 
+def packed_bn_eval(bn: BatchNorm, x_pb: torch.Tensor,
+                   mcell: torch.Tensor) -> torch.Tensor:
+    """JAX `_PackedBNCore` in eval as separate ops in x_pb's dtype: mean,
+    inverse and bias tiled over the p slots and rounded to it, then
+    ((x - mean) * inv + bias) times the mask."""
+    p, dt = mcell.shape[-1], x_pb.dtype
+    a = bn_affine(bn)
+    y = (x_pb - a.mean.repeat(p).to(dt)) * a.inv.repeat(p).to(dt) \
+        + a.bias.repeat(p).to(dt)
+    return masked(y, mcell)
+
+
 def packed_subm(conv: SpConvWeight, x_pb: torch.Tensor, mcell: torch.Tensor,
                 C_in: int, bn: Optional[BatchNorm] = None,
                 identity: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """SubM 3x3x3 conv of packed lanes through K2, with its epilogue: times
-    the output mask, then bn and ReLU when bn is given, with + identity
-    before the ReLU when that is given too."""
+    """SubM 3x3x3 conv of packed lanes, with K2's epilogue: times the output
+    mask, then bn and ReLU when bn is given, with + identity before the ReLU
+    when that is given too. Through K2 where it takes x_pb (`k2_takes`),
+    else the narrow route and the epilogue as JAX's separate ops
+    (`_PackedBasicBlock`, nn/sparse_enc_packed.py:441-449)."""
     p = x_pb.shape[-1] // C_in
-    return subm_ext_conv(x_pb, tap_weight(conv), p, mcell,
-                         None if bn is None else bn_affine(bn), identity)
+    if k2_takes(x_pb):
+        return subm_ext_conv(x_pb, tap_weight(conv), p, mcell,
+                             None if bn is None else bn_affine(bn), identity)
+    y = subm_conv_narrow(x_pb, tap_weight(conv), p, mcell)
+    if bn is None:
+        return y
+    y = packed_bn_eval(bn, y, mcell)
+    if identity is None:
+        return F.relu(y)
+    return masked(F.relu(y + identity), mcell)
+
+
+def packed_subm_train(conv: SpConvWeight, x_pb: torch.Tensor,
+                      mcell: torch.Tensor, C_in: int) -> torch.Tensor:
+    """The mask-only SubM conv with a gradient: K2's `subm_conv` where K2
+    takes x_pb, else the narrow route."""
+    p = x_pb.shape[-1] // C_in
+    conv_fn = subm_conv if k2_takes(x_pb) else subm_conv_narrow
+    return conv_fn(x_pb, tap_weight(conv), p, mcell)
 
 
 def packed_basic_block(block, x_pb: torch.Tensor, mcell: torch.Tensor,
                        C: int) -> torch.Tensor:
     """SparseBasicBlock in packed layout: SubM, BN, ReLU, SubM, BN, + x,
-    ReLU, as two K2 launches and no other pass."""
+    ReLU, as two K2 launches and no other pass (or the narrow route's
+    convs and JAX's ops where K2 does not take the lanes)."""
     net = block.net
     y = packed_subm(net[0], x_pb, mcell, C, bn=net[1])
     return packed_subm(net[3], y, mcell, C, bn=net[4], identity=x_pb)
@@ -279,12 +321,11 @@ def packed_basic_block_train(conv1: SpConvWeight, norm1: BatchNorm,
                              x_pb: torch.Tensor, mcell: torch.Tensor,
                              C: int) -> torch.Tensor:
     """SparseBasicBlock in training (JAX `_PackedBasicBlock`, and the HD
-    encoder's `_HDBasicBlock`): K2 (mask), BN, ReLU, K2 (mask), BN, + x,
-    ReLU, mask."""
-    p = x_pb.shape[-1] // C
-    y = subm_conv(x_pb, tap_weight(conv1), p, mcell)
+    encoder's `_HDBasicBlock`): SubM (mask), BN, ReLU, SubM (mask), BN,
+    + x, ReLU, mask; each SubM `packed_subm_train`."""
+    y = packed_subm_train(conv1, x_pb, mcell, C)
     y = F.relu(packed_bn_train(norm1, y, mcell))
-    y = subm_conv(y, tap_weight(conv2), p, mcell)
+    y = packed_subm_train(conv2, y, mcell, C)
     y = packed_bn_train(norm2, y, mcell)
     return masked(F.relu(y + x_pb), mcell)
 
@@ -340,24 +381,31 @@ class PackedLiDAREnc8x(DenseLiDAREnc8x):
             down = blocks[0]
             C_out = 2 * C
             p_out = pick_pack(C_out, Z // 2)
-            if p != 2 * p_out:
-                raise NotImplementedError(
-                    f"the lane-major strided downsample (p={p}, "
-                    f"p_out={p_out}) is not ported")
-            # packed stride-2-z downsample: only the dn carry takes part
-            d = conv2d_pb(shift_ext(d, C),
-                          strided_packed_weight(tap_weight(down[0]), p,
-                                                p_out), 2).contiguous()
-            cnt = conv2d_pb(shift_ext(mcell.to(cd), 1),
-                            dilate_packed_weight(p, p_out, d.device), 2)
-            mcell = (cnt > 0.5).contiguous()          # [B, bz, X, Y, p_out]
+            w27 = tap_weight(down[0])
+            if p == 2 * p_out:
+                # packed stride-2-z downsample: only the dn carry takes part
+                d = conv2d_pb(shift_ext(d, C),
+                              strided_packed_weight(w27, p, p_out),
+                              2).contiguous()
+                cnt = conv2d_pb(shift_ext(mcell.to(cd), 1),
+                                dilate_packed_weight(p, p_out, d.device), 2)
+                mcell = (cnt > 0.5).contiguous()      # [B, bz, X, Y, p_out]
+            else:
+                # the pack rows do not halve: one lane-major stride-2 conv,
+                # the z taps unrolled into its weight (JAX :724-732); an odd
+                # Z floors
+                d_lm = conv2d_nhwc(pb_to_lm(d), strided_weight(w27, Z), 2)
+                cnt = conv2d_nhwc(pb_to_lm(mcell).to(cd),
+                                  dilate_weight(Z, d.device), 2)
+                d = lm_to_pb(d_lm, Z // 2, C_out, p_out).contiguous()
+                mcell = mask_pb(cnt > 0.5, p_out).contiguous()
             Z, C, p = Z // 2, C_out, p_out
             d = self._down_bn_relu(down[1], d, mcell)
             d = self._block(blocks[1], d, mcell, C)
             d = self._block(blocks[2], d, mcell, C)
 
         if self.training:
-            d = subm_conv(d, tap_weight(self.conv_out[0]), p, mcell)
+            d = packed_subm_train(self.conv_out[0], d, mcell, C)
         else:
             d = packed_subm(self.conv_out[0], d, mcell, C)
         Co = self.conv_out[1].weight.shape[0]

@@ -52,6 +52,15 @@ the operands' dtype. Here, with dY the masked cotangent:
 
 On the CPU both take the plain versions: the autograd of an fp32 ext conv of
 the bf16-rounded operands, with dY rounded to bf16 as K2 reads it.
+
+Which shapes take K2: those whose input lanes p*C fill whole 128-lane rows
+(`k2_takes`), the rule by which JAX calls its Pallas kernel. The kernel
+produces exactly 128 output lanes; every SubM of the shipped configs' grids
+is such a shape. A z-packed grid whose depth leaves a level narrower (p*C =
+96 or 64 lanes at LiDAR depths 36, 20 or 12, the 32- and 64-channel
+levels) takes `subm_conv_narrow` instead: the conv JAX's XLA computes there,
+in the activation's dtype. The choice is made from the shapes before any
+launch; `subm_ext_conv` itself still raises on a shape it cannot take.
 """
 from __future__ import annotations
 
@@ -192,15 +201,39 @@ def ext_conv_plain(x_pb: torch.Tensor, w_ext: torch.Tensor, bz: int,
 
 def subm_conv_unrounded(x_pb: torch.Tensor, w27: torch.Tensor, p: int,
                         mcell: torch.Tensor) -> torch.Tensor:
-    """The mask-only SubM conv on operands NOT rounded to bf16, as JAX's
-    fp32 XLA route computes it (a conv of shift_ext(x) with the extended
-    weight, times the mask), differentiable by autograd: what the tests and
-    chip_smoke.py swap in for `subm_conv` to hold the training encoder's
-    wiring at fp32 tolerances."""
+    """The mask-only SubM conv as JAX's XLA route computes it (a conv of
+    shift_ext(x) with the extended weight in x's dtype, times the mask),
+    its operands not rounded to bf16 in fp32, differentiable by autograd:
+    `subm_conv_narrow` runs it where K2 does not take the lanes, and the
+    tests and chip_smoke.py swap it in for `subm_conv` to hold the training
+    encoder's wiring at fp32 tolerances."""
     B, bz, X, Y, pC = x_pb.shape
     ext = shift_ext(x_pb, pC // p).reshape(B * bz, X, Y, -1)
     y = conv2d_nhwc(ext, subm_ext_weight(w27, p)).reshape(B, bz, X, Y, -1)
     return masked(y, mcell)
+
+
+def k2_takes(x_pb: torch.Tensor) -> bool:
+    """Whether K2 computes the SubM conv of x_pb [..., p*C]: where its
+    lanes fill whole 128-lane rows, as JAX calls its Pallas kernel there
+    (nn/sparse_enc_packed.py:414-415); elsewhere `subm_conv_narrow`."""
+    return x_pb.shape[-1] % N_LANES == 0
+
+
+def subm_conv_narrow(x_pb: torch.Tensor, w27: torch.Tensor, p: int,
+                     mcell: torch.Tensor) -> torch.Tensor:
+    """The mask-only SubM conv where K2 does not take x_pb (`k2_takes`):
+    JAX's XLA route there (nn/sparse_enc_packed.py:431-434),
+    `subm_conv_unrounded` in x's dtype, i.e. fp32 operands unrounded and
+    bf16 ones summed in fp32 and rounded once; cuDNN's conv on the card,
+    differentiable by autograd. A CUDA tensor counts the call in
+    `subm_conv_narrow.launches`."""
+    if x_pb.device.type == "cuda":
+        subm_conv_narrow.launches += 1
+    return subm_conv_unrounded(x_pb, w27, p, mcell)
+
+
+subm_conv_narrow.launches = 0
 
 
 class BNAffine(NamedTuple):

@@ -61,6 +61,7 @@ from coocc_tpu.train.convert_torch import (ParamTreeBuilder,
 from test_torch_configs import lidar_configs
 from test_torch_gather_encoders import _voxels
 from test_torch_model import _with_impl
+from test_torch_parallel import bn_sync_axis_restored  # noqa: F401
 from test_torch_train import _leaf_errors, _np, _port_step, _raw, _to_port
 from test_torch_train_configs import _jax_bce
 

@@ -55,6 +55,7 @@ from coocc_tpu.data.synthetic import synthetic_batch as jax_synthetic_batch
 from coocc_tpu.data.synthetic import tiny_config as jax_tiny_config
 from coocc_tpu.models.coocc_ray import CoOccRay as JaxCoOccRay
 from coocc_tpu.models.losses import compute_losses as jax_compute_losses
+from coocc_tpu.nn import layers as jax_layers
 from coocc_tpu.nn.layers import BatchNorm as JaxBatchNorm
 from coocc_tpu.nn.layers import bn_sync_axis
 from coocc_tpu.nn.sparse_enc_packed import _PackedBNCore
@@ -79,6 +80,19 @@ from coocc_tpu_torch.parallel.train_step import eval_step, loss_and_grads
 from coocc_tpu_torch.train.state import make_optimizer
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
 from torch_rng import two_threads  # noqa: F401 (autouse)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def bn_sync_axis_restored():
+    """JAX's `bn_sync_axis` is one process-wide setting, and this module's
+    threads trace under it at once: when two entries overlap, the one that
+    exits last restores the other's axis, which stays set after both, and
+    every later JAX BatchNorm of the worker then psums over an axis that
+    is not bound (a NameError in whatever test file runs next there).
+    Restore the setting after the module."""
+    saved = jax_layers._BN_SYNC_AXIS[0]
+    yield
+    jax_layers._BN_SYNC_AXIS[0] = saved
 
 SEED, BATCH_SEED, EVAL_SEED, W = 7, 3, 2000, 2
 

@@ -33,8 +33,8 @@ scale, the bound of the packed encoder's bf16-rounded SubM operands
 XLA route does not), with 95% of the refined cells in common; bf16 within
 2x (max) and 1.5x (mean) of JAX's own bf16-vs-fp32 drift at the sampled
 elements. That yardstick sees no fp32 difference between the packages,
-and for OpenOccupancy (FP32_SLACK) the fp32 sides already differ by more:
-its fp32 img_voxel is 5.1e-5 of the scale from JAX's on average, twice
+and for OpenOccupancy (parity.FP32_SLACK) the fp32 sides already differ by
+more: its fp32 img_voxel is 5.1e-5 of the scale from JAX's on average, twice
 JAX's own bf16 drift there (2.4e-5), because 11 of its 1.53M frustum
 points fall in another 0.8 m voxel (XLA's and torch's fp32 geometry round
 apart; none at the flagship's 1.0 m voxels) and its depth logits reach
@@ -84,9 +84,6 @@ MAX_BYTES = {FLAGSHIP: 1 << 20, OPENOCC: 2 << 20, LIDAR: 1 << 20,
              STEREO: 1 << 20, KITTI: 1 << 20}
 IDS = {FLAGSHIP: "", OPENOCC: "openoccupancy-", LIDAR: "lidar-",
        STEREO: "stereo-", KITTI: "kitti-"}
-# configs whose fp32 sides already differ by more than JAX's own bf16 drift
-# (module note): the bf16 bound adds the CPU port's fp32 distance to JAX
-FP32_SLACK = (OPENOCC,)
 CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_cache")
 GATE = os.environ.get("COOCC_TORCH_REAL", "") == "1"
 DTYPES = {"fp32": None, "bf16": torch.bfloat16}
@@ -225,8 +222,8 @@ def _full_drifts(runs):
 
 def _bf16_holds(fp, config):
     """The bf16 port against JAX's bf16: within 2x (max) and 1.5x (mean)
-    of JAX's own bf16-vs-fp32 drift, plus, for the configs in FP32_SLACK,
-    the CPU port's fp32 distance to JAX (the triangle |p16 - j16| <=
+    of JAX's own bf16-vs-fp32 drift, plus, for the configs in
+    parity.FP32_SLACK, the CPU port's fp32 distance to JAX (the triangle |p16 - j16| <=
     |p16 - p32| + |p32 - j32| + |j32 - j16|, with the port's own drift as
     large as JAX's). Over every element where the fingerprint records it
     ("_full", the tiny-shape tests' reading; fingerprints written since
@@ -238,8 +235,8 @@ def _bf16_holds(fp, config):
         full = "_full" if f"bf16/{key}/own_full" in fp else ""
         pmax, pmean = fp[f"bf16/{key}/port{full}"]
         omax, omean = fp[f"bf16/{key}/own{full}"]
-        fmax, fmean = fp[f"fp32/{key}/port"] if config in FP32_SLACK \
-            else (0.0, 0.0)
+        fmax, fmean = fp[f"fp32/{key}/port"] \
+            if config in parity.FP32_SLACK else (0.0, 0.0)
         assert pmax <= 2.0 * omax + fmax and pmean <= 1.5 * omean + fmean, \
             (key, pmax, omax, fmax, pmean, omean, fmean)
 
