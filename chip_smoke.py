@@ -10,8 +10,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      weights, the default z-packed LiDAR encoder), warmed up once, then 3
      requests (synthetic batches of seeds 0, 1, 2) with the kernels' launch
      counts set to 0 before them and read after them (per request:
-     window_knn 2, subm_ext_conv 13 on bf16 tensors, subm_ext_conv_dx
-     and knn2 0); per-request
+     window_knn 2, subm_ext_conv 13 on bf16 tensors, subm_ext_conv_dx,
+     subm_ext_weight_grad and knn2 0); per-request
      and per-stage (stop_at prefixes) times, peak memory, and a
      torch.profiler breakdown of device time by kernel (full forward and
      pts stage) with the device's busy share; every K2 call of a pts
@@ -61,14 +61,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      its config's bf16 (entry.train_steps), a warm-up step then 3 steps
      with the counts set to 0 before them and read after them (per step,
      PER_TRAIN_STEP_OF: window_knn 2, subm_ext_conv 13, subm_ext_conv_dx
-     13 for the z-packed encoder's configs; 0, 16, 16 for coocc_lidar; none
-     for the camera-only model), times, peak memory, a profiled step,
-     finite losses (loss_depth_render among them), moved parameters and
-     every BN statistic; for the flagship, coocc_lidar and OpenOccupancy,
-     K2's mask-only forward and its dX on one step's own inputs (16 each in
-     coocc_lidar, 4 at Co = 16 on stage 0's [1,9,800,800,128]) against
-     their plain versions, with their times, bound and cuDNN's, and dW's
-     time; for the stereo config, whose LiDAR shapes are the flagship's,
+     13, subm_ext_weight_grad 13 for the z-packed encoder's configs; 0, 16,
+     16, 16 for coocc_lidar; none for the camera-only model), times, peak
+     memory, a profiled step, finite losses (loss_depth_render among them),
+     moved parameters and every BN statistic; for the flagship,
+     coocc_lidar and OpenOccupancy, K2's mask-only forward, its dX and its
+     dW on one step's own inputs (16 each in coocc_lidar, 4 at Co = 16 on
+     stage 0's [1,9,800,800,128]) against their plain versions (dW also
+     bit-equal to itself and exact on integer inputs), with their times,
+     bound and cuDNN's, dX's beside the route it replaced; for the stereo
+     config, whose LiDAR shapes are the flagship's,
      the step's first K2 forward and first dX against their plain versions
      (not timed again); the flagship's train CLI (`python -m
      coocc_tpu_torch.train coocc_multi_r50_256x704 --synthetic
@@ -86,7 +88,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
  10. the epoch loop (train/loop.py:train, the train CLI's function): the
      flagship in bf16 from flax's initial weights, 1 epoch of 2 steps and
      the eval hook on 2 batches, with the counts set to 0 before it and
-     read after it (window_knn 8, subm_ext_conv 52, subm_ext_conv_dx 26);
+     read after it (window_knn 8, subm_ext_conv 52, subm_ext_conv_dx 26,
+     subm_ext_weight_grad 26);
      step and eval times, the SSC summary, the checkpoint's bytes and save
      and restore times; the restored checkpoint bit-equal to the trained
      state; the eval repeated bit for bit, and the test CLI's eval of the
@@ -275,9 +278,10 @@ PACKED_VS_DENSE_MEAN = 2e-3
 # rounding boundary).
 K2_FP32_REL = 2e-5
 BF16_ULP_REL = 2.0 ** -7
-# K2 launches per train step: 13 forward (mask epilogue) and 13 dX
+# K2 launches per train step: 13 forward (mask epilogue), 13 dX and 13 dW
 PER_TRAIN_STEP = {"window_knn": 2, "subm_ext_conv": 13,
-                  "subm_ext_conv_dx": 13, "knn2": 0}
+                  "subm_ext_conv_dx": 13, "subm_ext_weight_grad": 13,
+                  "knn2": 0}
 
 
 def log(*a):
@@ -357,7 +361,7 @@ def check_outputs(out, cfg):
 
 
 PER_REQUEST = {"window_knn": 2, "subm_ext_conv": 13, "subm_ext_conv_dx": 0,
-               "knn2": 0}
+               "subm_ext_weight_grad": 0, "knn2": 0}
 
 
 def phase_main_path(kernels, requests):
@@ -1365,6 +1369,128 @@ def k2_dx_check(dy, w27, p):
     return float(err.max()), bool((err <= ulp + tol).all())
 
 
+def k2_bwd_work(shape, p, Co, esz, kind):
+    """(useful FLOP, bytes) of one dX ("dx") or dW ("dw") call: for dW,
+    `shape` is the forward's x (p slots of C lanes) and the cotangent has
+    p*Co lanes; for dX, `shape` is the cotangent's and dX has p*Co lanes.
+    The extended weight's nonzero blocks' products (k2_work's count), and
+    each input read once, each output written once: dX the cotangent, its
+    weight panels and dx; dW x, the cotangent and the [27, C, Co] fp32
+    gradient. No mask: neither reads one."""
+    from coocc_tpu_torch.ops.subm_conv import KB, kblocks
+    B, bz, X, Y, pC = shape
+    C = pC // p
+    ops, _ = k2_work(shape, p, Co, "mask", esz)
+    sites = B * bz * X * Y
+    nbytes = sites * (pC + p * Co) * esz
+    if kind == "dx":
+        nbytes += 2 * 9 * KB * sum(w for *_, w in kblocks(p, C, Co))
+    else:
+        nbytes += 27 * C * Co * 4
+    return ops, nbytes
+
+
+def k2_dw_c(shape, p, Co, nparts):
+    """c of the dW check |kernel - plain| <= c * S (S = the sum of |ext| *
+    |dy|), from the summation depth, written down before any card reading.
+    Both sum the same exact products (bf16 x times a bf16 cotangent, or
+    one of its three exact bf16 parts) in fp32, in other orders. The
+    kernel's longest chain of fp32 additions into one element is its split's
+    sites (each product counted as one addition, for all parts) plus the S
+    splits its reduce adds: D terms give at most D*u*S (u = 2^-24). The
+    plain version's order (cuDNN's) is unknown: it takes the probabilistic
+    bound for n terms in any order, 4*sqrt(n)*u*S (Higham and Mary, 2019,
+    at lambda = 4), n the cells."""
+    from coocc_tpu_torch.ops.subm_conv import dw_splits, dw_tiles
+    B, bz, X, Y, pC = shape
+    T = dw_tiles(B * bz, X, Y)
+    S = dw_splits(T)
+    depth = -(-T // S) * 256 * nparts + nparts * S
+    return 2.0 ** -24 * (depth + 4 * (B * bz * X * Y) ** 0.5)
+
+
+def k2_dw_check(x, dy, p):
+    """K2's dW kernel against its plain version on one input, per element:
+    err <= c * S (k2_dw_c; S one fp32 weight gradient of |ext| and |dy|,
+    folded as the result is), plus one bf16 ulp of each folded extended
+    element in bf16 (their roundings). The plain version and S are sums,
+    as c assumes: cuDNN off (its FFT and Winograd weight gradients are not
+    sums of the products, nor exact on integers), PyTorch's im2col + GEMM
+    on fp32 operands (on bf16 ones it adds each sample's product into a
+    bf16 gradient): the plain version as the CPU computes it, fp32 sums of
+    the bf16 values rounded once. -> (max abs err, max |ref|, max err /
+    tol, ok)."""
+    import torch
+    from coocc_tpu_torch.ops.subm_conv import (ext_weight_grad_plain,
+                                               gather_taps_transpose,
+                                               subm_ext_table,
+                                               subm_ext_weight_grad)
+    C, Co = x.shape[-1] // p, dy.shape[-1] // p
+    table = subm_ext_table(p)
+    got = subm_ext_weight_grad(x, dy, p)
+    with torch.backends.cudnn.flags(enabled=False):
+        g = ext_weight_grad_plain(x.float(), dy.float(), p).to(x.dtype)
+        ref = gather_taps_transpose(g, table, C, Co)
+        tol = gather_taps_transpose(ext_weight_grad_plain(
+            x.to(torch.bfloat16).float().abs(), dy.float().abs(), p), table,
+            C, Co) * k2_dw_c(tuple(x.shape), p, Co, 1 if x.dtype ==
+                             torch.bfloat16 else 3)
+    if x.dtype == torch.bfloat16:
+        tol += BF16_ULP_REL * gather_taps_transpose(g.float().abs(), table,
+                                                    C, Co)
+    del g
+    err = (got - ref).abs()
+    ratio = float((err / tol.clamp_min(1e-30)).max())
+    return float(err.max()), float(ref.abs().max()), ratio, bool(
+        (err <= tol).all())
+
+
+def ext_weight_grad_exact(x, dy, p):
+    """The extended weight's gradient [3, 3, (p+2)C, p*Co] in float64:
+    per pack row and tap one fp64 matmul of the shifted extended input and
+    the cotangent (exact for integer inputs whose sums stay below 2^53)."""
+    import torch
+    import torch.nn.functional as F
+    from coocc_tpu_torch.ops.subm_conv import shift_ext
+    B, bz, X, Y, pC = x.shape
+    ext = shift_ext(x.to(torch.bfloat16), pC // p).reshape(B * bz, X, Y, -1)
+    d = dy.reshape(B * bz, X * Y, -1)
+    g = torch.zeros((3, 3, ext.shape[-1], d.shape[-1]), dtype=torch.float64,
+                    device=x.device)
+    for i in range(B * bz):
+        e = F.pad(ext[i].double(), (0, 0, 1, 1, 1, 1))
+        di = d[i].double()
+        for kx in range(3):
+            for ky in range(3):
+                g[kx, ky] += e[kx:kx + X, ky:ky + Y].reshape(X * Y, -1).T @ di
+    return g
+
+
+def k2_dw_exact(gen, shape, p, dtype):
+    """The dW kernel on integer inputs (x, dy in -2..2, 30% of the cells):
+    every product and every partial sum is an integer below 2^24, so the
+    kernel's fp32 sums are exact and it must equal the exact extended
+    gradient (`ext_weight_grad_exact`, rounded to `dtype`), folded, bit
+    for bit. -> equal."""
+    import torch
+    from coocc_tpu_torch.ops.subm_conv import (gather_taps_transpose,
+                                               subm_ext_table,
+                                               subm_ext_weight_grad)
+    B, bz, X, Y, pC = shape
+    C = pC // p
+    m = torch.rand((B, bz, X, Y, p, 1), generator=gen, device="cuda") < 0.3
+
+    def ints(c):
+        v = torch.randint(-2, 3, (B, bz, X, Y, p, c), generator=gen,
+                          device="cuda") * m
+        return v.reshape(B, bz, X, Y, p * c).to(dtype)
+    x, dy = ints(C), ints(128 // p)
+    got = subm_ext_weight_grad(x, dy, p)
+    ref = gather_taps_transpose(ext_weight_grad_exact(x, dy, p).to(dtype),
+                                subm_ext_table(p), C, 128 // p)
+    return torch.equal(got, ref)
+
+
 # the configs whose train step runs at full width (phase_train), and their
 # launches per step: K2's mask-only forward and its dX once per SubM conv
 # (13 in the z-packed encoder, 16 in coocc_lidar's HD encoder), K1 twice
@@ -1372,7 +1498,8 @@ def k2_dx_check(dy, w27, p):
 PER_TRAIN_STEP_OF = {
     "coocc_multi_r50_256x704": PER_TRAIN_STEP,
     "coocc_lidar": {"window_knn": 0, "subm_ext_conv": 16,
-                    "subm_ext_conv_dx": 16, "knn2": 0},
+                    "subm_ext_conv_dx": 16, "subm_ext_weight_grad": 16,
+                    "knn2": 0},
     "coocc_multi_r101_openoccupancy": PER_TRAIN_STEP,
     "coocc_multi_r101_896x1600": PER_TRAIN_STEP,
     "coocc_cam_r101_896x1600": dict.fromkeys(PER_TRAIN_STEP, 0),
@@ -1469,7 +1596,8 @@ def phase_train(name, kernels, cfg=None, want=None, c8=None, init=None):
             "peak_gib": peak / 2 ** 30, "launches": launches}
     if name in TRAIN_K2_CHECKED:
         nums.update(train_k2_checks(trainer, batches[1]))
-        lap("K2's forward, dX and dW on one step's own inputs")
+        lap("K2's forward, dX and dW on one step's own inputs, checked and "
+            "timed")
     elif name in TRAIN_K2_ONE_CALL:
         nums["one_call"] = train_k2_one_call(trainer, batches[1])
         lap("K2's first forward and dX of a step")
@@ -1526,7 +1654,7 @@ def train_k2_calls(trainer, batch):
         return inner[2](x_pb, dy, p)
     # each wrapper counts its launch on its module's name, the keep_*
     # function's while this step runs; the main path's counts were read
-    keep_fwd.launches = keep_dx.launches = 0
+    keep_fwd.launches = keep_dx.launches = keep_dw.launches = 0
     k2.subm_ext_conv, k2.subm_ext_conv_dx, k2.subm_ext_weight_grad = (
         keep_fwd, keep_dx, keep_dw)
     try:
@@ -1585,15 +1713,17 @@ def train_k2_one_call(trainer, batch):
 
 
 def train_k2_checks(trainer, batch):
-    """K2's mask-only forward and its dX on every call of one train step,
-    each against its plain version on the call's own inputs (k2_check,
-    k2_dx_check), and the per-step times of the kernel, the plain version
-    and cuDNN bf16 on the concatenated input (these two timed once per
-    shape), with the bound from this work (k2_work); dW's time (torch
-    ops). -> {"fwd": row, "dx": row,
-    "dW_ms": ms}."""
+    """K2's mask-only forward, its dX and its dW on every call of one train
+    step, each against its plain version on the call's own inputs
+    (k2_check, k2_dx_check, k2_dw_check; dW also bit-equal to itself
+    called again, and exact on integer inputs at each shape, k2_dw_exact),
+    and the per-step times of the kernel, the plain version and cuDNN
+    bf16 on the concatenated input (these two timed once per shape; dW's
+    `conv2d_weight` under the step's deterministic flags, its default
+    beside it), dX's beside the route it replaced (K2 with the mirrored
+    taps and an all-ones mask), with the bound from this work (k2_work,
+    k2_bwd_work). -> {"fwd": row, "dx": row, "dw": row}."""
     import torch
-    import torch.nn.functional as F
     from coocc_tpu_torch.ops import subm_conv as k2
     calls = train_k2_calls(trainer, batch)
     name = trainer.model.cfg.name
@@ -1602,80 +1732,157 @@ def train_k2_checks(trainer, batch):
         raise AssertionError(f"{name}: {len(calls['fwd'])} forward, "
                              f"{len(calls['dx'])} dX, {len(calls['dw'])} dW "
                              "calls in one step")
-    rows = {}
-    for kind in ("fwd", "dx"):
-        max_err = kernel = plain = library = 0.0
-        ops = nbytes = 0
-        level_ms = {}     # the plain version's and cuDNN's ms by shape
-        for args in calls[kind]:
-            x, w27, p = (a.cuda() if hasattr(a, "cuda") else a
-                         for a in args[:3])
-            if kind == "fwd":
-                mcell = args[3].cuda()
-                wc = w27
-                err, scale, _, ok = k2_check(x, w27, p, mcell, None, None)
-                run = (lambda: k2.subm_ext_conv(x, w27, p, mcell))
-                run_plain = (lambda: k2.subm_ext_conv_plain(x, w27, p,
-                                                            mcell))
-            else:
-                wc = k2.flip_taps(w27)
-                ones = torch.ones(x.shape[:-1] + (p,), dtype=torch.bool,
-                                  device="cuda")
-                err, ok = k2_dx_check(x, w27, p)
-                scale = float(x.abs().max())
-                run = (lambda: k2.subm_ext_conv_dx(x, w27, p))
-                run_plain = (lambda: k2.subm_ext_conv_plain(x, wc, p, ones))
-            log(f"{name} train {'subm_ext_conv' if kind == 'fwd' else 'subm_ext_conv_dx'}"
-                f" vs plain [step input {tuple(x.shape)} p={p} Co="
-                f"{wc.shape[2]} {str(x.dtype)[6:]}]: max_abs_err {err:.6g}, "
-                f"input scale {scale:.6g}")
-            if not ok:
-                raise AssertionError(f"{name}: K2's {kind} differs from its "
-                                     "plain version on a train step's input")
-            max_err = max(max_err, err)
-            kernel += timed_ms(run, 3)
-            level = (tuple(x.shape), p, wc.shape[2])
-            if level not in level_ms:
-                # the plain version and cuDNN take one time per shape
-                C = x.shape[-1] // p
-                G, X, Y = x.shape[0] * x.shape[1], x.shape[2], x.shape[3]
-                ext = k2.shift_ext(x, C).reshape(G, X, Y, -1).permute(
-                    0, 3, 1, 2)
-                wb = k2.subm_ext_weight(wc, p).to(x.dtype).permute(
-                    3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-                F.conv2d(ext, wb, padding=1)
-                level_ms[level] = (
-                    timed_ms(run_plain, 1),
-                    timed_ms(lambda: F.conv2d(ext, wb, padding=1), 3))
-                del ext, wb
-            plain += level_ms[level][0]
-            library += level_ms[level][1]
-            o, b = k2_work(level[0], p, level[2], "mask", x.element_size())
-            ops, nbytes = ops + o, nbytes + b
-            del x, w27
-            torch.cuda.empty_cache()
-        ops_ms = ops / BF16_OPS_PER_S * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"{name} train {kind} per step: kernel {kernel:.4f} ms ({n} "
-            f"launches, {ops / kernel / 1e9:.1f} TFLOP/s useful), plain "
-            f"{plain:.4f} ms, cuDNN bf16 on the concatenated input "
-            f"{library:.4f} ms; bound {ops} FLOP -> {ops_ms:.4f} ms, "
-            f"{nbytes} bytes -> {bytes_ms:.4f} ms")
-        rows[kind] = {"launches_per_step": n, "max_abs_err": max_err,
-                      "ms": kernel, "plain_ms": plain,
-                      "bound_ms": max(ops_ms, bytes_ms),
-                      "bound_by": "operations" if ops_ms >= bytes_ms
-                      else "bytes", "library_ms": library}
-    dw = 0.0
-    for i, j in calls["dw"]:
-        x, p = calls["fwd"][i][0].cuda(), calls["fwd"][i][2]
-        dy = calls["dx"][j][0].cuda()
-        dw += timed_ms(lambda: k2.subm_ext_weight_grad(x, dy, p), 3)
-        del x, dy
-    log(f"{name} train dW (torch ops) per step: {dw:.4f} ms")
+    rows = {kind: train_k2_kind(name, kind, calls, n)
+            for kind in ("fwd", "dx", "dw")}
     del calls
     torch.cuda.empty_cache()
-    return {"fwd": rows["fwd"], "dx": rows["dx"], "dW_ms": dw}
+    return rows
+
+
+def train_k2_call(kind, calls, i):
+    """Call i of `kind` on the card: -> (run, run_plain, check, level,
+    extra timings {name: (fn, reps)} taken once per level)."""
+    import torch
+    import torch.nn.functional as F
+    from coocc_tpu_torch.ops import subm_conv as k2
+    from coocc_tpu_torch.parallel.train_step import cudnn_deterministic
+    if kind == "dw":
+        i, j = calls["dw"][i]
+        x, _, p = (a.cuda() if hasattr(a, "cuda") else a
+                   for a in calls["fwd"][i][:3])
+        dy = calls["dx"][j][0].cuda()
+        C = x.shape[-1] // p
+        G, X, Y = x.shape[0] * x.shape[1], x.shape[2], x.shape[3]
+        xe = k2.shift_ext(x, C).reshape(G, X, Y, -1).permute(0, 3, 1, 2)
+        dyc = dy.reshape(G, X, Y, -1).permute(0, 3, 1, 2)
+        wshape = (dyc.shape[1], xe.shape[1], 3, 3)
+
+        def wgrad():
+            torch.nn.grad.conv2d_weight(xe, wshape, dyc, padding=1)
+
+        def wgrad_det():
+            with cudnn_deterministic():
+                wgrad()
+        level = (tuple(x.shape), p, dy.shape[-1] // p)
+        return ((lambda: k2.subm_ext_weight_grad(x, dy, p)),
+                (lambda: k2.subm_ext_weight_grad_plain(x, dy, p)),
+                (lambda: k2_dw_check(x, dy, p)), level,
+                {"library": (wgrad_det, 3), "library_default": (wgrad, 3)},
+                (x, dy, xe, dyc))
+    x, w27, p = (a.cuda() if hasattr(a, "cuda") else a
+                 for a in calls[kind][i][:3])
+    if kind == "fwd":
+        mcell = calls["fwd"][i][3].cuda()
+        wc = w27
+        run = (lambda: k2.subm_ext_conv(x, w27, p, mcell))
+        run_plain = (lambda: k2.subm_ext_conv_plain(x, w27, p, mcell))
+        check = (lambda: k2_check(x, w27, p, mcell, None, None))
+        extra = {}
+        held = (x, w27, mcell)
+    else:
+        wc = k2.flip_taps(w27)
+        ones = torch.ones(x.shape[:-1] + (p,), dtype=torch.bool,
+                          device=x.device)
+        run = (lambda: k2.subm_ext_conv_dx(x, w27, p))
+        run_plain = (lambda: k2.subm_ext_conv_dx_plain(x, w27, p))
+        check = (lambda: k2_dx_check(x, w27, p))
+        # the route the dX kernel replaced: K2 with the mirrored taps
+        extra = {"old_route": (
+            lambda: k2.subm_ext_conv(x, wc, p, ones), 3)}
+        held = (x, w27, ones)
+    C = x.shape[-1] // p
+    G, X, Y = x.shape[0] * x.shape[1], x.shape[2], x.shape[3]
+    ext = k2.shift_ext(x, C).reshape(G, X, Y, -1).permute(0, 3, 1, 2)
+    wb = k2.subm_ext_weight(wc, p).to(x.dtype).permute(
+        3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    extra["library"] = ((lambda: F.conv2d(ext, wb, padding=1)), 3)
+    return (run, run_plain, check, (tuple(x.shape), p, wc.shape[2]), extra,
+            held + (ext, wb))
+
+
+def train_k2_kind(name, kind, calls, n):
+    """train_k2_checks' row of one kind ("fwd", "dx" or "dw")."""
+    import torch
+    label = {"fwd": "subm_ext_conv", "dx": "subm_ext_conv_dx",
+             "dw": "subm_ext_weight_grad"}[kind]
+    max_err = kernel = plain = 0.0
+    ops = nbytes = 0
+    worst = 0.0            # dW: max err / tol
+    timed = {}             # per level: the plain version's and extras' ms
+    extra_ms = {}
+    for i in range(len(calls[kind])):
+        run, run_plain, check, level, extra, held = train_k2_call(
+            kind, calls, i)
+        shape, p, Co = level
+        dtype = held[0].dtype
+        if kind == "dw":
+            err, scale, ratio, ok = check()
+            worst = max(worst, ratio)
+            again = torch.equal(run(), run())
+            ok = ok and again
+            tail = (f", max err/tol {ratio:.4g}, a second call "
+                    f"{'bit-equal' if again else 'DIFFERS'}")
+        elif kind == "dx":
+            err, ok = check()
+            scale, tail = float(held[0].abs().max()), ""
+        else:
+            err, scale, _, ok = check()
+            tail = ""
+        log(f"{name} train {label} vs plain [step input {shape} p={p} "
+            f"Co={Co} {str(dtype)[6:]}]: max_abs_err {err:.6g}, scale "
+            f"{scale:.6g}{tail}")
+        if not ok:
+            raise AssertionError(f"{name}: K2's {kind} differs from its "
+                                 "plain version on a train step's input")
+        max_err = max(max_err, err)
+        kernel += timed_ms(run, 3)
+        if level not in timed:
+            if kind == "dw":
+                # today's torch-ops route, warmed and repeated as the
+                # kernel is (the slow fp32 plain versions run once, cold)
+                run_plain()
+            timed[level] = {"plain": timed_ms(run_plain,
+                                              3 if kind == "dw" else 1)}
+            for key, (fn, reps) in extra.items():
+                fn()
+                timed[level][key] = timed_ms(fn, reps)
+            if kind == "dw":
+                gen = torch.Generator(device=held[0].device).manual_seed(2)
+                exact = k2_dw_exact(gen, shape, p, dtype)
+                log(f"{name} train subm_ext_weight_grad on integer inputs at "
+                    f"{shape} p={p} {str(dtype)[6:]}: "
+                    f"{'exact' if exact else 'DIFFERS'}")
+                if not exact:
+                    raise AssertionError(f"{name}: dW is not exact on "
+                                         "integer inputs")
+        plain += timed[level]["plain"]
+        for key in extra:
+            extra_ms[key] = extra_ms.get(key, 0.0) + timed[level][key]
+        if kind == "fwd":
+            o, b = k2_work(shape, p, Co, "mask", held[0].element_size())
+        else:
+            o, b = k2_bwd_work(shape, p, Co, held[0].element_size(), kind)
+        ops, nbytes = ops + o, nbytes + b
+        del run, run_plain, check, extra, held
+        torch.cuda.empty_cache()
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"{name} train {kind} per step: kernel {kernel:.4f} ms ({n} "
+        f"launches, {ops / kernel / 1e9:.1f} TFLOP/s useful), plain "
+        f"{plain:.4f} ms, " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in extra_ms.items())
+        + f"; bound {ops} FLOP -> {ops_ms:.4f} ms, {nbytes} bytes -> "
+        f"{bytes_ms:.4f} ms")
+    row = {"launches_per_step": n, "max_abs_err": max_err, "ms": kernel,
+           "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "library_ms": extra_ms["library"]}
+    if kind == "dx":
+        row["old_route_ms"] = extra_ms["old_route"]
+    if kind == "dw":
+        row["library_default_ms"] = extra_ms["library_default"]
+        row["max_err_over_tol"] = worst
+    return row
 
 
 def phase_train_cli(config, steps: int = 1):
@@ -1774,10 +1981,11 @@ def phase_tiny_train_agreement():
                              "and the CPU")
 
 
-# launches in the loop phase: 2 train steps (13 forward + 13 dX each) and
-# the eval hook's 2 forwards
+# launches in the loop phase: 2 train steps (13 forward, 13 dX and 13 dW
+# each) and the eval hook's 2 forwards
 PER_LOOP = {"window_knn": 2 * 4, "subm_ext_conv": 13 * 4,
-            "subm_ext_conv_dx": 13 * 2, "knn2": 0}
+            "subm_ext_conv_dx": 13 * 2, "subm_ext_weight_grad": 13 * 2,
+            "knn2": 0}
 # the eval repeats bit for bit on the card (the lift-splat sums each
 # voxel's points in sorted order, ops/lift_splat.py): the in-memory model's
 # eval forwards, repeated, give equal logits, each repeat of the eval the
@@ -2749,7 +2957,7 @@ def phase_render(kernels):
 # the LiDAR encoder's other routes (pts.impl 'gather' and 'dense'): K1 in
 # the fuser, 2 a forward and a step; K2 (the packed encoder's) never
 PER_ROUTE = {"window_knn": 2, "subm_ext_conv": 0, "subm_ext_conv_dx": 0,
-             "knn2": 0}
+             "subm_ext_weight_grad": 0, "knn2": 0}
 NO_KERNELS = dict.fromkeys(PER_ROUTE, 0)
 # the request whose cap binds at no level of the gather encoder: its first
 # FEW_POINTS points (the voxel cap and every level's keep all their sites)
@@ -2989,11 +3197,11 @@ LANE_MAJOR_Z = 36
 # reads level-0 slices 25-35 only
 LANE_MAJOR_TOP = 25
 # a forward: K2 at res3 and conv_out (128 lanes), the narrow route at res1
-# and res2; a train step adds K2's dX at those five
+# and res2; a train step adds K2's dX and dW at those five
 PER_LANE_MAJOR = {"subm_ext_conv": 5, "subm_ext_conv_dx": 0,
-                  "subm_conv_narrow": 8}
+                  "subm_ext_weight_grad": 0, "subm_conv_narrow": 8}
 PER_LANE_MAJOR_STEP = {"subm_ext_conv": 5, "subm_ext_conv_dx": 5,
-                       "subm_conv_narrow": 8}
+                       "subm_ext_weight_grad": 5, "subm_conv_narrow": 8}
 
 
 def lane_major_k2_checks(label, run):
@@ -3002,12 +3210,12 @@ def lane_major_k2_checks(label, run):
     nn/sparse_enc_packed.py:subm_ext_conv and the training one
     ops/subm_conv.py:subm_ext_conv) by k2_check, each dX by k2_dx_check.
     These are res3 and conv_out, at z 4 after the 9 -> 4 floor: shapes no
-    other phase gives K2. -> {"fwd": (calls, max abs err), "dx": (calls,
-    max abs err)}."""
+    other phase gives K2. Each dW by k2_dw_check. -> {"fwd": (calls, max
+    abs err), "dx": (calls, max abs err), "dw": (calls, max abs err)}."""
     from coocc_tpu_torch.nn import sparse_enc_packed
     from coocc_tpu_torch.ops import subm_conv as k2
-    kept = {"fwd": [], "dx": []}
-    inner = k2.subm_ext_conv, k2.subm_ext_conv_dx
+    kept = {"fwd": [], "dx": [], "dw": []}
+    inner = k2.subm_ext_conv, k2.subm_ext_conv_dx, k2.subm_ext_weight_grad
 
     def keep_fwd(x_pb, w27, p, mcell, bn=None, identity=None):
         kept["fwd"].append((x_pb.detach().clone(), w27.detach().clone(), p,
@@ -3018,17 +3226,21 @@ def lane_major_k2_checks(label, run):
     def keep_dx(dy, w27, p):
         kept["dx"].append((dy.detach().clone(), w27.detach().clone(), p))
         return inner[1](dy, w27, p)
+
+    def keep_dw(x_pb, dy, p):
+        kept["dw"].append((x_pb.detach().clone(), dy.detach().clone(), p))
+        return inner[2](x_pb, dy, p)
     # the wrappers count their launches on the keep_* functions while the
     # seams are patched; the phase's counts were read before this run
-    keep_fwd.launches = keep_dx.launches = 0
+    keep_fwd.launches = keep_dx.launches = keep_dw.launches = 0
     sparse_enc_packed.subm_ext_conv = k2.subm_ext_conv = keep_fwd
-    k2.subm_ext_conv_dx = keep_dx
+    k2.subm_ext_conv_dx, k2.subm_ext_weight_grad = keep_dx, keep_dw
     try:
         run()
         sync()
     finally:
         sparse_enc_packed.subm_ext_conv = k2.subm_ext_conv = inner[0]
-        k2.subm_ext_conv_dx = inner[1]
+        k2.subm_ext_conv_dx, k2.subm_ext_weight_grad = inner[1:]
     if not kept["fwd"]:
         raise AssertionError(f"lane-major {label}: no K2 call")
     out = {}
@@ -3040,11 +3252,15 @@ def lane_major_k2_checks(label, run):
                 err, scale, _, ok = k2_check(x, w27, p, mcell, bn, idn)
                 what = (f"{tuple(x.shape)} p={p} {str(x.dtype)[6:]} "
                         f"{k2_mode(bn, idn)}")
-            else:
+            elif kind == "dx":
                 err, ok = k2_dx_check(*args)
                 scale = float(args[0].abs().max())
                 what = (f"dX {tuple(args[0].shape)} p={args[2]} "
                         f"{str(args[0].dtype)[6:]}")
+            else:
+                err, scale, ratio, ok = k2_dw_check(*args)
+                what = (f"dW {tuple(args[0].shape)} p={args[2]} "
+                        f"{str(args[0].dtype)[6:]}, max err/tol {ratio:.4g}")
             log(f"lane-major {label} K2 vs plain [{what}]: max_abs_err "
                 f"{err:.6g}, scale {scale:.6g}")
             if not ok:
@@ -3097,6 +3313,7 @@ def phase_lane_major(kernels):
     sd = init_weights(PackedLiDAREnc8x(*widths), 0).state_dict()
     counted = {"subm_ext_conv": kernels["subm_ext_conv"],
                "subm_ext_conv_dx": kernels["subm_ext_conv_dx"],
+               "subm_ext_weight_grad": kernels["subm_ext_weight_grad"],
                "subm_conv_narrow": subm_conv_narrow}
 
     def build(cls, dtype):
@@ -3217,7 +3434,9 @@ def phase_lane_major(kernels):
     with cudnn_deterministic():
         k2_vs_plain = lane_major_k2_checks("bf16 train step", step)
     if k2_vs_plain["fwd"][0] != PER_LANE_MAJOR_STEP["subm_ext_conv"] or \
-            k2_vs_plain["dx"][0] != PER_LANE_MAJOR_STEP["subm_ext_conv_dx"]:
+            k2_vs_plain["dx"][0] != PER_LANE_MAJOR_STEP["subm_ext_conv_dx"] \
+            or k2_vs_plain["dw"][0] != PER_LANE_MAJOR_STEP[
+                "subm_ext_weight_grad"]:
         raise AssertionError(f"lane-major train step: K2 calls checked "
                              f"{k2_vs_plain}")
     nums["train"] = {"step_ms": (ms1, ms2), "launches": launches,
@@ -3485,7 +3704,9 @@ def dp_rank_worker(steps):
     from coocc_tpu_torch.entry import FLAGSHIP, Trainer
     from coocc_tpu_torch.ops._build import load_all_kernel_libraries
     from coocc_tpu_torch.ops.knn import knn2
-    from coocc_tpu_torch.ops.subm_conv import subm_ext_conv, subm_ext_conv_dx
+    from coocc_tpu_torch.ops.subm_conv import (subm_ext_conv,
+                                               subm_ext_conv_dx,
+                                               subm_ext_weight_grad)
     from coocc_tpu_torch.ops.window_knn import window_knn
     from coocc_tpu_torch.parallel import train_step as ts
     from coocc_tpu_torch.parallel.mesh import make_mesh, shard_batch
@@ -3493,7 +3714,8 @@ def dp_rank_worker(steps):
     torch.backends.cudnn.allow_tf32 = False
     load_all_kernel_libraries()
     kernels = {"window_knn": window_knn, "subm_ext_conv": subm_ext_conv,
-               "subm_ext_conv_dx": subm_ext_conv_dx, "knn2": knn2}
+               "subm_ext_conv_dx": subm_ext_conv_dx,
+               "subm_ext_weight_grad": subm_ext_weight_grad, "knn2": knn2}
     mesh = make_mesh(device_type="cuda")
     cfg = get_config(FLAGSHIP)
     t0 = time.perf_counter()
@@ -3576,7 +3798,8 @@ def phase_data_parallel(kernels, trained):
     card, and NCCL refuses two ranks on one device, so the ranks join
     through gloo (asked for by name) and share it; NCCL across 2 cards
     where the host has them. Checks: both ranks bit-equal after each step,
-    finite losses, K1 2 / K2 13 / K2's dX 13 launches a step on each rank,
+    finite losses, K1 2 / K2 13 / K2's dX 13 / its dW 13 launches a step on
+    each rank,
     SyncBN at a real shape within SYNCBN_REL, the 2-rank eval's hists equal
     to one process's of the same two samples. -> the numbers."""
     import torch
@@ -3656,7 +3879,8 @@ def train_phases(kernels, t0):
     trained[FLAGSHIP]["train_cli_eval_ms"] = phase_train_cli(FLAGSHIP)
     log("train steps (step ms median, device busy ms, peak GiB, launches "
         "over 3 steps): " + json.dumps(
-            {n: {k: v for k, v in t.items() if k not in ("fwd", "dx")}
+            {n: {k: v for k, v in t.items()
+                 if k not in ("fwd", "dx", "dw")}
              for n, t in trained.items()}))
     return trained
 
@@ -3664,8 +3888,8 @@ def train_phases(kernels, t0):
 def train_rows(trained, k1_row, k2_row):
     """The train path's entries of the kernels' JSON line: K1's and K2's
     launches over each config's 3 measured steps, K2's mask-only forward
-    in training by config, and K2's dX row (the flagship's at the top,
-    the other configs' under "configs")."""
+    in training by config, and the rows of K2's dX and dW kernels (the
+    flagship's at the top, the other configs' under "configs")."""
     for row in (k1_row, k2_row):
         row["train_launches"] = {n: t["launches"][row["name"]]
                                  for n, t in trained.items()}
@@ -3674,22 +3898,31 @@ def train_rows(trained, k1_row, k2_row):
                                 for n, t in trained.items()
                                 if "one_call" in t}
     flag = trained[FLAGSHIP]
-    return {"name": "subm_ext_conv_dx", "route": "cuda",
-            "source": "coocc_tpu_torch/csrc/subm_conv.cuh",
-            "replaces": "coocc_tpu/ops/pallas/subm_conv.py:107 (its VJP, "
-                        "which JAX takes through coocc_tpu/nn/"
-                        "sparse_enc_packed.py:431-433)",
-            "launches": flag["launches"]["subm_ext_conv_dx"],
-            **{k: v for k, v in flag["dx"].items()
-               if k != "launches_per_step"},
-            "dtype": "bfloat16", "dW_ms": flag["dW_ms"],
-            "configs": {n: {"launches": t["launches"]["subm_ext_conv_dx"],
-                            **t["dx"], "dW_ms": t["dW_ms"]}
-                        for n, t in trained.items()
-                        if n != FLAGSHIP and "dx" in t},
-            "one_call": {n: {"launches": t["launches"]["subm_ext_conv_dx"],
-                             "max_abs_err": t["one_call"]["dx"]}
-                         for n, t in trained.items() if "one_call" in t}}
+    vjp = ("coocc_tpu/ops/conv_acc.py:46 (the XLA VJP of the ext conv "
+           "through which JAX trains K2's layer, coocc_tpu/nn/"
+           "sparse_enc_packed.py:431-433; the Pallas kernel of "
+           "coocc_tpu/ops/pallas/subm_conv.py:107 has no backward)")
+    rows = []
+    for kind, name in (("dx", "subm_ext_conv_dx"),
+                       ("dw", "subm_ext_weight_grad")):
+        row = {"name": name, "route": "cuda",
+               "source": "coocc_tpu_torch/csrc/subm_conv_bwd.cuh",
+               "replaces": vjp, "launches": flag["launches"][name],
+               **{k: v for k, v in flag[kind].items()
+                  if k != "launches_per_step"},
+               "dtype": "bfloat16",
+               "configs": {n: {"launches": t["launches"][name], **t[kind]}
+                           for n, t in trained.items()
+                           if n != FLAGSHIP and kind in t},
+               "train_launches": {n: t["launches"][name]
+                                  for n, t in trained.items()}}
+        if kind == "dx":
+            row["one_call"] = {n: {"launches": t["launches"][name],
+                                   "max_abs_err": t["one_call"]["dx"]}
+                               for n, t in trained.items()
+                               if "one_call" in t}
+        rows.append(row)
+    return rows
 
 
 # The Swin route: the flagship with its image backbone set to Swin-T, as
@@ -4304,7 +4537,9 @@ def main():
     from coocc_tpu_torch.entry import FLAGSHIP
     from coocc_tpu_torch.ops._build import load_all_kernel_libraries
     from coocc_tpu_torch.ops.knn import knn2
-    from coocc_tpu_torch.ops.subm_conv import subm_ext_conv, subm_ext_conv_dx
+    from coocc_tpu_torch.ops.subm_conv import (subm_ext_conv,
+                                               subm_ext_conv_dx,
+                                               subm_ext_weight_grad)
     from coocc_tpu_torch.ops.window_knn import window_knn
 
     card = card_line()
@@ -4321,7 +4556,8 @@ def main():
             "parallel)")
 
     kernels = {"window_knn": window_knn, "subm_ext_conv": subm_ext_conv,
-               "subm_ext_conv_dx": subm_ext_conv_dx, "knn2": knn2}
+               "subm_ext_conv_dx": subm_ext_conv_dx,
+               "subm_ext_weight_grad": subm_ext_weight_grad, "knn2": knn2}
     cfg = get_config(FLAGSHIP)
     requests = [synthetic_batch(cfg, batch_size=1, seed=s).to("cuda")
                 for s in range(3)]
@@ -4380,8 +4616,8 @@ def main():
     train_fp = phase_train_fingerprint(weights)
     log("train fingerprint: " + json.dumps(train_fp))
     trained = train_phases(kernels, t0)
-    dx_row = train_rows(trained, k1_row, k2_row)
-    rows.insert(2, dx_row)
+    dx_row, dw_row = train_rows(trained, k1_row, k2_row)
+    rows[2:2] = [dx_row, dw_row]
     phase_tiny_train_agreement()
     log(f"[{time.perf_counter() - t0:.1f} s] the epoch loop (bf16, eval hook, "
         "checkpoint, test CLI):")
@@ -4492,11 +4728,12 @@ def main():
             "train_launches": served["swin"]["train"]["launches"][
                 row["name"]],
             "max_abs_err": served["swin"][key]}
-    dx_row["configs"]["swin"] = {
-        "launches": served["swin"]["train"]["launches"]["subm_ext_conv_dx"]}
+    for row in (dx_row, dw_row):
+        row["configs"]["swin"] = {
+            "launches": served["swin"]["train"]["launches"][row["name"]]}
     # the lane-major route at 800x800x36: K2 at res3 and conv_out over 3
     # bf16 forwards and in one train step, the narrow route beside it
-    for row in (k2_row, dx_row):
+    for row in (k2_row, dx_row, dw_row):
         row["configs"]["lane_major"] = {
             "launches": lane_major["bf16"]["launches"][row["name"]],
             "train_launches": lane_major["train"]["launches"][row["name"]],

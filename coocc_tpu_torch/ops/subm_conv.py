@@ -42,16 +42,24 @@ trains through the XLA route of the same conv (nn/sparse_enc_packed.py:
 the operands' dtype. Here, with dY the masked cotangent:
 
   * dX is a SubM conv of dY with the mirrored stencil, tap t taking
-    w27[26 - t] transposed (`flip_taps`): one more K2 launch per conv
-    (`subm_ext_conv_dx`, with an all-ones mask), at K2's numerics;
+    w27[26 - t] transposed (`flip_taps`), at K2's numerics, without a mask
+    (`subm_ext_conv_dx`: the kernel `subm_ext_conv_dx_kernel` of
+    csrc/subm_conv_bwd.cuh, built as `subm_conv_dx.cu` for bf16 dX and
+    `subm_conv_dx_f32.cu` for fp32; at p >= 4 its weight panels stay in
+    shared memory, one column group a block, at p <= 2 they stream beside
+    the halos, `dx_groups`);
   * dW [27, C, Co] is the extended weight's gradient, the shifted inputs
     (rounded to bf16, as the forward reads them) against dY summed over
-    the cells in the activations' dtype (one rounding, as JAX's conv
-    transpose rounds it), then folded back onto the 27 taps in fp32
-    (`gather_taps_transpose`): PyTorch ops, no kernel of its own.
+    the cells in fp32 and rounded once to the activations' dtype (as JAX's
+    conv transpose rounds it), then folded back onto the 27 taps in fp32
+    (`gather_taps_transpose`): `subm_ext_weight_grad`, the kernel
+    `subm_ext_weight_grad_kernel` (`subm_weight_grad.cu`), units of
+    `dw_units` over the cell splits of `dw_splits`, then its reduce in a
+    fixed order.
 
-On the CPU both take the plain versions: the autograd of an fp32 ext conv of
-the bf16-rounded operands, with dY rounded to bf16 as K2 reads it.
+On the CPU both take the plain versions (`subm_ext_conv_dx_plain`,
+`subm_ext_weight_grad_plain`): the autograd of an fp32 ext conv of the
+bf16-rounded operands, with dY rounded to bf16 as K2 reads it for dX.
 
 Which shapes take K2: those whose input lanes p*C fill whole 128-lane rows
 (`k2_takes`), the rule by which JAX calls its Pallas kernel. The kernel
@@ -302,10 +310,18 @@ def _panel_index(p: int, C: int, Co: int) -> np.ndarray:
     element of the packed panels, in panel order: per K-block, per tap,
     [W/8 column groups][2 halves of the 16 rows][8 columns][8 rows] (the
     no-swizzle K-major core matrices of the kernel's B operand)."""
+    # K-blocks tile the extended lanes in order: K-block i is lanes 16i..
+    return _panels_of([(i, col0, width) for i, (_, _, col0, width)
+                       in enumerate(kblocks(p, C, Co))], p, C, Co)
+
+
+def _panels_of(rows, p: int, C: int, Co: int) -> np.ndarray:
+    """`_panel_index` of the panels of rows (K-block index, first column,
+    width), in their order."""
     E, N = (p + 2) * C, p * Co
     idx = []
-    for i, (_, _, col0, width) in enumerate(kblocks(p, C, Co)):
-        e0 = i * KB          # K-blocks tile the extended lanes in order
+    for i, col0, width in rows:
+        e0 = i * KB
         tap = np.arange(9)[:, None, None, None, None]
         ng = np.arange(width // 8)[None, :, None, None, None]
         kh = np.arange(2)[None, None, :, None, None]
@@ -338,6 +354,140 @@ def weight_panels(w27: torch.Tensor, p: int) -> torch.Tensor:
     w_ext = subm_ext_weight(w27, p).reshape(-1)
     return w_ext[_panel_index_on(p, C, Co, str(w27.device))].to(
         torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' host tables
+# ---------------------------------------------------------------------------
+
+DX_MAX_KB = 24        # K-blocks feeding one column group of the dX kernel
+DW_KB = 4             # K-blocks of a dW unit (a warp per K-block and piece)
+DW_PIECE = 16         # output columns of a dW piece (a unit owns two)
+DW_PAIR = 9 * KB * DW_PIECE    # fp32 partial sums of one (K-block, piece)
+# tiles a split of the dW kernel sums: a rule of the shapes alone (not of
+# the card's SM count). 40-75 tiles a split timed best at every train level
+# on an H100 (tools/k2_backward.py's levels, splits of 132 to 2,112 blocks)
+DW_TILES_PER_SPLIT = 48
+
+
+def dx_groups(p: int, C: int, Co: int):
+    """The dX kernel's column groups of its conv (the mirrored taps:
+    input slots of C lanes, the cotangent's, output slots of Co, dX's),
+    each a list of the K-blocks of `kblocks` whose window meets it, as
+    (K-block index, lane, pack offset, first column, width) with the
+    window cut to the group. At p >= 4 the kernel keeps a group's panels
+    in shared memory: C // 16 groups of p*Co // (C // 16) columns (every
+    output column is fed by 3C/16 K-blocks, so each group's panels take
+    110,592 bytes when p*Co = 128); at p <= 2 one group of all columns,
+    whose panels it streams."""
+    ng = C // KB if p >= 4 else 1
+    width = p * Co // ng
+    groups = []
+    for gc in range(ng):
+        lo, hi = gc * width, (gc + 1) * width
+        rows = []
+        for i, (lane, dg, col0, w) in enumerate(kblocks(p, C, Co)):
+            a, b = max(lo, col0), min(hi, col0 + w)
+            if a < b:
+                rows.append((i, lane, dg, a, b - a))
+        groups.append(rows)
+    return groups
+
+
+@functools.lru_cache(maxsize=None)
+def _dx_index(p: int, C: int, Co: int) -> np.ndarray:
+    """Flat indices into the extended weight of the dX kernel's packed
+    panels: each group's K-blocks cut to the group, in group order."""
+    return _panels_of([(i, a, w) for rows in dx_groups(p, C, Co)
+                       for i, _, _, a, w in rows], p, C, Co)
+
+
+@functools.lru_cache(maxsize=16)
+def _dx_table(p: int, C: int, Co: int):
+    """dx_groups() as the kernel's host tables: int32 rows [groups,
+    DX_MAX_KB, 4] of (lane, pack offset, first column in the group,
+    width), the K-blocks a group [groups] and the groups' panel byte
+    offsets [groups + 1]."""
+    groups = dx_groups(p, C, Co)
+    width = p * Co // len(groups)
+    table = np.zeros((len(groups), DX_MAX_KB, 4), np.int32)
+    base = [0]
+    for gc, rows in enumerate(groups):
+        for k, (_, lane, dg, a, w) in enumerate(rows):
+            table[gc, k] = (lane, dg, a - gc * width, w)
+        base.append(base[-1] + sum(9 * KB * w * 2 for *_, w in rows))
+    return (np.ascontiguousarray(table),
+            np.asarray([len(r) for r in groups], np.int32),
+            np.asarray(base, np.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _dx_taps_on(p: int, C: int, Co: int, device: str) -> torch.Tensor:
+    """For each element of the dX panels, its index in the forward's taps
+    [27, C, Co] (flattened): the panels hold no structural zero, so each
+    is one tap weight, and one gather packs them."""
+    taps = torch.arange(1, 27 * C * Co + 1, dtype=torch.float64).reshape(
+        27, C, Co)
+    idx = subm_ext_weight(flip_taps(taps), p).reshape(-1)[
+        torch.from_numpy(_dx_index(p, Co, C))].long() - 1
+    if bool((idx < 0).any()):
+        raise AssertionError("a dX panel element is a structural zero")
+    return idx.to(device)
+
+
+def dx_weight_panels(w27: torch.Tensor, p: int) -> torch.Tensor:
+    """[27, C, Co] (the forward's taps) -> the dX kernel's packed bf16
+    panels of the mirrored taps (1-d), group by group."""
+    _, C, Co = w27.shape
+    return w27.to(torch.bfloat16).reshape(-1)[
+        _dx_taps_on(p, C, Co, str(w27.device))]
+
+
+def dw_units(p: int, C: int, Co: int):
+    """The dW kernel's units: for each pair of 16-column pieces (j0,
+    j0 + 1) of the p*Co output columns, the K-blocks of `kblocks` whose
+    window meets it, as (K-block index, lane, pack offset, mask of the two
+    pieces it meets), cut into runs of at most DW_KB as even as can be.
+    -> [(j0, rows)]; every nonzero (K-block, piece) pair is in exactly one
+    unit."""
+    units = []
+    for j0 in range(0, p * Co // DW_PIECE, 2):
+        rows = []
+        for i, (lane, dg, col0, w) in enumerate(kblocks(p, C, Co)):
+            mask = sum(1 << q for q in range(2)
+                       if col0 <= (j0 + q) * DW_PIECE < col0 + w)
+            if mask:
+                rows.append((i, lane, dg, mask))
+        n = -(-len(rows) // DW_KB)
+        cuts = [len(rows) * k // n for k in range(n + 1)]
+        units += [(j0, rows[a:b]) for a, b in zip(cuts, cuts[1:])]
+    return units
+
+
+@functools.lru_cache(maxsize=16)
+def _dw_table(p: int, C: int, Co: int) -> np.ndarray:
+    """dw_units() as the kernel's host table: int32 rows of (j0, K-blocks,
+    then DW_KB x (K-block index, lane, pack offset, piece mask))."""
+    units = dw_units(p, C, Co)
+    table = np.zeros((len(units), 2 + 4 * DW_KB), np.int32)
+    for u, (j0, rows) in enumerate(units):
+        table[u, :2] = (j0, len(rows))
+        for k, row in enumerate(rows):
+            table[u, 2 + 4 * k:6 + 4 * k] = row
+    return np.ascontiguousarray(table)
+
+
+def dw_tiles(G: int, X: int, Y: int) -> int:
+    """The 16 x 16 site tiles of G pack rows of an X x Y grid."""
+    return G * -(-X // 16) * -(-Y // 16)
+
+
+def dw_splits(T: int) -> int:
+    """How many ranges the dW kernel cuts T tiles into (split s takes
+    tiles T*s // S .. T*(s+1) // S - 1 and sums them in order): a rule of
+    the shapes alone, so the sums' order, and the result, are the same on
+    every card and every run."""
+    return max(1, -(-T // DW_TILES_PER_SPLIT))
 
 
 # ---------------------------------------------------------------------------
@@ -390,18 +540,26 @@ def subm_ext_conv(x_pb: torch.Tensor, w27: torch.Tensor, p: int,
 subm_ext_conv.launches = 0
 
 
+def subm_ext_conv_dx_plain(dy_pb: torch.Tensor, w27: torch.Tensor,
+                           p: int) -> torch.Tensor:
+    """Plain PyTorch version of `subm_ext_conv_dx` (any device): the conv
+    of `subm_ext_conv_plain` with the mirrored taps and no mask, rounded
+    once to dy_pb's dtype."""
+    return ext_conv_plain(dy_pb.float(), subm_ext_weight(flip_taps(w27), p),
+                          dy_pb.shape[1], dy_pb.shape[-1] // p).to(
+                              dy_pb.dtype)
+
+
 def subm_ext_conv_dx(dy_pb: torch.Tensor, w27: torch.Tensor,
                      p: int) -> torch.Tensor:
     """dX of the SubM conv with tap weights w27 [27, C, Co], given the
-    masked cotangent dy_pb [B, bz, X, Y, p*Co]: K2 with the mirrored taps
-    and no mask, [B, bz, X, Y, p*C] in dy_pb's dtype. A CPU tensor takes
-    the plain version; a CUDA tensor launches K2 (counted in
-    `subm_ext_conv_dx.launches`, not in subm_ext_conv's)."""
-    ones = torch.ones(dy_pb.shape[:-1] + (p,), dtype=torch.bool,
-                      device=dy_pb.device)
+    masked cotangent dy_pb [B, bz, X, Y, p*Co]: the conv with the mirrored
+    taps and no mask, [B, bz, X, Y, p*C] in dy_pb's dtype. A CPU tensor
+    takes `subm_ext_conv_dx_plain`; a CUDA tensor launches the dX kernel
+    (counted in `subm_ext_conv_dx.launches`) or raises."""
     if dy_pb.device.type == "cpu":
-        return subm_ext_conv_plain(dy_pb, flip_taps(w27), p, ones)
-    out = _launch(dy_pb, flip_taps(w27), p, ones, None, None)
+        return subm_ext_conv_dx_plain(dy_pb, w27, p)
+    out = _launch_dx(dy_pb, w27, p)
     subm_ext_conv_dx.launches += 1
     return out
 
@@ -413,9 +571,36 @@ def subm_ext_weight_grad(x_pb: torch.Tensor, dy_pb: torch.Tensor,
                          p: int) -> torch.Tensor:
     """dW [27, C, Co] fp32 of the SubM conv of x_pb [B, bz, X, Y, p*C]
     given the masked cotangent dy_pb [B, bz, X, Y, p*Co] (see the module
-    note): the extended weight's gradient in the activations' dtype, summed
-    in fp32 and rounded once (on the CPU a bf16 one is the fp32 sum of the
-    bf16 values, as ops/conv.py computes), folded onto the taps."""
+    note). A CPU tensor takes `subm_ext_weight_grad_plain`; a CUDA tensor
+    launches the dW kernel and its reduce (counted in
+    `subm_ext_weight_grad.launches`) or raises; both fold the extended
+    gradient onto the taps with `gather_taps_transpose`."""
+    if x_pb.device.type == "cpu":
+        return subm_ext_weight_grad_plain(x_pb, dy_pb, p)
+    C, Co = x_pb.shape[-1] // p, dy_pb.shape[-1] // p
+    g = _launch_dw(x_pb, dy_pb, p)
+    subm_ext_weight_grad.launches += 1
+    return gather_taps_transpose(g, subm_ext_table(p), C, Co)
+
+
+subm_ext_weight_grad.launches = 0
+
+
+def subm_ext_weight_grad_plain(x_pb: torch.Tensor, dy_pb: torch.Tensor,
+                               p: int) -> torch.Tensor:
+    """Plain PyTorch version of `subm_ext_weight_grad` (any device):
+    `ext_weight_grad_plain` folded onto the taps."""
+    C, Co = x_pb.shape[-1] // p, dy_pb.shape[-1] // p
+    return gather_taps_transpose(ext_weight_grad_plain(x_pb, dy_pb, p),
+                                 subm_ext_table(p), C, Co)
+
+
+def ext_weight_grad_plain(x_pb: torch.Tensor, dy_pb: torch.Tensor,
+                          p: int) -> torch.Tensor:
+    """The extended weight's gradient [3, 3, (p+2)C, p*Co] in the
+    activations' dtype, summed in fp32 and rounded once (on the CPU a bf16
+    one is the fp32 sum of the bf16 values, as ops/conv.py computes; on the
+    card cuDNN's bf16 weight gradient)."""
     B, bz, X, Y, pC = x_pb.shape
     C, Co = pC // p, dy_pb.shape[-1] // p
     dt = x_pb.dtype
@@ -426,8 +611,7 @@ def subm_ext_weight_grad(x_pb: torch.Tensor, dy_pb: torch.Tensor,
         ext, dy = ext.float(), dy.float()
     g = torch.nn.grad.conv2d_weight(ext, (p * Co, pC + 2 * C, 3, 3), dy,
                                     padding=1).to(dt)
-    return gather_taps_transpose(g.permute(2, 3, 1, 0), subm_ext_table(p),
-                                 C, Co)
+    return g.permute(2, 3, 1, 0)
 
 
 class _SubMConv(torch.autograd.Function):
@@ -457,6 +641,129 @@ def subm_conv(x_pb: torch.Tensor, w27: torch.Tensor, p: int,
     """`subm_ext_conv` with its mask-only epilogue, differentiable in x_pb
     and w27 (the training encoder's SubM conv)."""
     return _SubMConv.apply(x_pb, w27, p, mcell)
+
+
+def _cuda_5d(name: str, *ts: torch.Tensor):
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: unsupported device {t.device}")
+        if t.dtype not in _DTYPE_CODE or t.dim() != 5:
+            raise ValueError(f"{name}: inputs must be 5-d fp32 or bf16 "
+                             f"tensors, got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be contiguous and "
+                             "16-byte aligned")
+
+
+@functools.lru_cache(maxsize=2)
+def _dx_launcher(dtype: torch.dtype):
+    lib = {torch.float32: "subm_conv_dx_f32",
+           torch.bfloat16: "subm_conv_dx"}[dtype]
+    fn = load_kernel_library(lib).subm_ext_conv_dx
+    # dy, panels, out, table, nkb, base, groups, p, G, bz, X, Y, stream
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_dx(dy_pb: torch.Tensor, w27: torch.Tensor,
+               p: int) -> torch.Tensor:
+    """Check the inputs and launch the dX kernel on the card (or raise)."""
+    _cuda_5d("subm_ext_conv_dx", dy_pb)
+    B, bz, X, Y, L = dy_pb.shape
+    _, C, Co = w27.shape
+    if w27.shape != (27, C, Co) or w27.device != dy_pb.device:
+        raise ValueError("subm_ext_conv_dx: w27 must be [27, C, Co] on "
+                         "dy_pb's device")
+    if not (p * C == p * Co == L == N_LANES and C % KB == 0):
+        raise ValueError(f"subm_ext_conv_dx: the kernel needs p*C = p*Co = "
+                         f"{N_LANES} lanes, C a multiple of {KB}; got "
+                         f"dy_pb {tuple(dy_pb.shape)}, w27 "
+                         f"{tuple(w27.shape)}, p={p}")
+    # the mirrored conv reads the cotangent's slots (Co) and writes dX's (C)
+    table, nkb, base = _dx_table(p, Co, C)
+    panels = dx_weight_panels(w27, p)
+    out = torch.empty((B, bz, X, Y, p * C), dtype=dy_pb.dtype,
+                      device=dy_pb.device)
+    if out.numel() == 0:
+        return out
+    # the kernel reads bf16: fp32 dy is rounded once, as K2 reads it
+    dyb = dy_pb.to(torch.bfloat16)
+    err = _dx_launcher(dy_pb.dtype)(
+        dyb.data_ptr(), panels.data_ptr(), out.data_ptr(),
+        table.ctypes.data, nkb.ctypes.data, base.ctypes.data, len(nkb), p,
+        B * bz, bz, X, Y, torch.cuda.current_stream(dy_pb.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"subm_ext_conv_dx kernel launch failed: CUDA "
+                           f"error {err}")
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _dw_launcher():
+    fn = load_kernel_library("subm_weight_grad").subm_ext_weight_grad
+    # x, dy0, dy1, dy2, parts, table, units, S, partials, gw, out dtype,
+    # G, bz, X, Y, pC, E, stream
+    fn.argtypes = [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
+                   _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dy_parts(dy_pb: torch.Tensor):
+    """The bf16 tensors the dW kernel sums the products of: dy itself in
+    bf16; in fp32 its three-way split hi + mid + lo (each the bf16 rounding
+    of what the ones before leave), whose sum is dy exactly, so that each
+    product with a bf16 x is exact in fp32."""
+    if dy_pb.dtype == torch.bfloat16:
+        return [dy_pb]
+    parts, rest = [], dy_pb
+    for _ in range(3):
+        parts.append(rest.to(torch.bfloat16))
+        rest = rest - parts[-1].float()
+    return parts
+
+
+def _launch_dw(x_pb: torch.Tensor, dy_pb: torch.Tensor,
+               p: int) -> torch.Tensor:
+    """Check the inputs and launch the dW kernel and its reduce on the
+    card (or raise). -> the extended weight's gradient [3, 3, (p+2)C,
+    p*Co], each element rounded to the activations' dtype and held in fp32
+    (the fold sums in fp32), zero outside the nonzero blocks."""
+    _cuda_5d("subm_ext_weight_grad", x_pb, dy_pb)
+    B, bz, X, Y, pC = x_pb.shape
+    L = dy_pb.shape[-1]
+    if (dy_pb.shape[:-1] != x_pb.shape[:-1] or dy_pb.dtype != x_pb.dtype
+            or dy_pb.device != x_pb.device):
+        raise ValueError("subm_ext_weight_grad: x_pb and dy_pb must share "
+                         "their device, dtype and leading shape")
+    C, Co = pC // p, L // p
+    if pC % p or L != N_LANES or p * Co != L or C % KB or (
+            (p + 2) * C // KB > 64):
+        raise ValueError(f"subm_ext_weight_grad: the kernel needs p*Co = "
+                         f"{N_LANES}, C a multiple of {KB}; got x_pb "
+                         f"{tuple(x_pb.shape)}, dy_pb {tuple(dy_pb.shape)}, "
+                         f"p={p}")
+    E = (p + 2) * C
+    table = _dw_table(p, C, Co)
+    G = B * bz
+    S = dw_splits(dw_tiles(G, X, Y))
+    gw = torch.zeros((3, 3, E, L), dtype=torch.float32, device=x_pb.device)
+    if x_pb.numel() == 0:
+        return gw
+    xb = x_pb.to(torch.bfloat16)
+    parts = dy_parts(dy_pb)
+    partials = torch.empty(len(parts) * S * len(table) * 2 * DW_KB * DW_PAIR,
+                           dtype=torch.float32, device=x_pb.device)
+    ptrs = [t.data_ptr() for t in parts] + [0] * (3 - len(parts))
+    err = _dw_launcher()(
+        xb.data_ptr(), *ptrs, len(parts), table.ctypes.data, len(table), S,
+        partials.data_ptr(), gw.data_ptr(), _DTYPE_CODE[x_pb.dtype], G, bz,
+        X, Y, pC, E, torch.cuda.current_stream(x_pb.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"subm_ext_weight_grad kernel launch failed: CUDA "
+                           f"error {err}")
+    return gw
 
 
 def _launch(x_pb: torch.Tensor, w27: torch.Tensor, p: int,

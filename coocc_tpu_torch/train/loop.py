@@ -47,10 +47,12 @@ def kernel_launches() -> Dict[str, int]:
     kernel launched on the card; 0 on the CPU, where the wrappers take
     their plain versions)."""
     from ..ops.knn import knn2
-    from ..ops.subm_conv import subm_ext_conv, subm_ext_conv_dx
+    from ..ops.subm_conv import (subm_ext_conv, subm_ext_conv_dx,
+                                 subm_ext_weight_grad)
     from ..ops.window_knn import window_knn
     return {f.__name__: f.launches
-            for f in (window_knn, subm_ext_conv, subm_ext_conv_dx, knn2)}
+            for f in (window_knn, subm_ext_conv, subm_ext_conv_dx,
+                      subm_ext_weight_grad, knn2)}
 
 
 def sum_eval_hists(model, cfg: CoOccConfig, data_iter: Iterable,
