@@ -300,17 +300,19 @@ def sync():
     torch.cuda.synchronize()
 
 
-def timed_ms(fn, reps: int, setup=None):
+def timed_ms(fn, reps: int, setup=None, sleep: int = 2_000_000):
     """Median device ms of fn() over `reps` runs (CUDA events). A sleep
-    kernel queued first keeps the host's launch latency out of the window;
-    `setup(i)` (untimed) gives each run its own inputs."""
+    kernel of `sleep` cycles (about 1 ms by default) queued first keeps
+    the host's launch latency out of the window while the host takes less
+    time than it to queue fn's work; `setup(i)` (untimed) gives each run
+    its own inputs."""
     import torch
     times = []
     for i in range(reps):
         args = setup(i) if setup else ()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep)
         start.record()
         fn(*args)
         end.record()
@@ -1392,21 +1394,29 @@ def k2_bwd_work(shape, p, Co, esz, kind):
 
 def k2_dw_c(shape, p, Co, nparts):
     """c of the dW check |kernel - plain| <= c * S (S = the sum of |ext| *
-    |dy|), from the summation depth, written down before any card reading.
-    Both sum the same exact products (bf16 x times a bf16 cotangent, or
-    one of its three exact bf16 parts) in fp32, in other orders. The
-    kernel's longest chain of fp32 additions into one element is its split's
-    sites (each product counted as one addition, for all parts) plus the S
-    splits its reduce adds: D terms give at most D*u*S (u = 2^-24). The
-    plain version's order (cuDNN's) is unknown: it takes the probabilistic
-    bound for n terms in any order, 4*sqrt(n)*u*S (Higham and Mary, 2019,
-    at lambda = 4), n the cells."""
+    |dy|), from the summation depth, written down before any card reading
+    of the wgmma kernel (csrc/subm_conv_dw.cuh). Both sum the same exact
+    products (bf16 x times a bf16 cotangent, or one of its three exact bf16
+    parts) in fp32, in other orders. The kernel: each consumer warpgroup's
+    wgmma (m64n96k16; N changes no element's chain) adds, per k16 step
+    (one tile row), each element's 16 exact products to its fp32
+    accumulator inside the tensor cores, which align
+    the terms to the largest and may truncate (round toward zero) where a
+    chain of fp32 additions would round to nearest: a step is taken as 17
+    additions (16 products and the accumulator), each in error by at most
+    2u (u = 2^-24) of the running sum of magnitudes. One accumulator
+    chains a split's ceil(T/S) tiles of 16 steps, for each part (counted
+    for all parts, as their partials add); the reduce then adds the
+    nparts * S partials, rounded to nearest (u each). D terms of error e
+    give at most D*e*S. The plain version's order (cuDNN's) is unknown: it
+    takes the probabilistic bound for n terms in any order, 4*sqrt(n)*u*S
+    (Higham and Mary, 2019, at lambda = 4), n the cells."""
     from coocc_tpu_torch.ops.subm_conv import dw_splits, dw_tiles
     B, bz, X, Y, pC = shape
     T = dw_tiles(B * bz, X, Y)
     S = dw_splits(T)
-    depth = -(-T // S) * 256 * nparts + nparts * S
-    return 2.0 ** -24 * (depth + 4 * (B * bz * X * Y) ** 0.5)
+    kernel = 2 * 17 * 16 * -(-T // S) * nparts + nparts * S
+    return 2.0 ** -24 * (kernel + 4 * (B * bz * X * Y) ** 0.5)
 
 
 def k2_dw_check(x, dy, p):
@@ -1809,6 +1819,8 @@ def train_k2_kind(name, kind, calls, n):
     ops = nbytes = 0
     worst = 0.0            # dW: max err / tol
     timed = {}             # per level: the plain version's and extras' ms
+    per_level = {}         # per level: the kernel's ms of each call
+    long_sleep = {}        # dW per level: the same behind a 10 ms sleep
     extra_ms = {}
     for i in range(len(calls[kind])):
         run, run_plain, check, level, extra, held = train_k2_call(
@@ -1835,7 +1847,12 @@ def train_k2_kind(name, kind, calls, n):
             raise AssertionError(f"{name}: K2's {kind} differs from its "
                                  "plain version on a train step's input")
         max_err = max(max_err, err)
-        kernel += timed_ms(run, 3)
+        per_level.setdefault(level, []).append(timed_ms(run, 3))
+        kernel += per_level[level][-1]
+        if kind == "dw":
+            # a window that holds more host time than its sleep reads it
+            long_sleep.setdefault(level, []).append(
+                timed_ms(run, 3, sleep=20_000_000))
         if level not in timed:
             if kind == "dw":
                 # today's torch-ops route, warmed and repeated as the
@@ -1847,6 +1864,8 @@ def train_k2_kind(name, kind, calls, n):
                 fn()
                 timed[level][key] = timed_ms(fn, reps)
             if kind == "dw":
+                timed[level]["wrapper_host"] = host_ms(lambda _: run(),
+                                                       range(3))
                 gen = torch.Generator(device=held[0].device).manual_seed(2)
                 exact = k2_dw_exact(gen, shape, p, dtype)
                 log(f"{name} train subm_ext_weight_grad on integer inputs at "
@@ -1865,6 +1884,20 @@ def train_k2_kind(name, kind, calls, n):
         ops, nbytes = ops + o, nbytes + b
         del run, run_plain, check, extra, held
         torch.cuda.empty_cache()
+    levels = []
+    for (shape, p, Co), ms in per_level.items():
+        levels.append({"shape": list(shape), "p": p, "calls": len(ms),
+                       "ms_a_call": sum(ms) / len(ms),
+                       **{f"{k}_ms_a_call": v
+                          for k, v in timed[shape, p, Co].items()}})
+        if kind == "dw":
+            lms = long_sleep[shape, p, Co]
+            levels[-1]["long_sleep_ms_a_call"] = sum(lms) / len(lms)
+            log(f"{name} train dw at {shape} p={p} ({len(ms)} calls), ms a "
+                f"call: kernel {levels[-1]['ms_a_call']:.4f} (behind a 10 "
+                f"ms sleep {levels[-1]['long_sleep_ms_a_call']:.4f}), "
+                + ", ".join(f"{k} {v:.4f}"
+                            for k, v in timed[shape, p, Co].items()))
     ops_ms = ops / BF16_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"{name} train {kind} per step: kernel {kernel:.4f} ms ({n} "
@@ -1881,7 +1914,9 @@ def train_k2_kind(name, kind, calls, n):
         row["old_route_ms"] = extra_ms["old_route"]
     if kind == "dw":
         row["library_default_ms"] = extra_ms["library_default"]
+        row["long_sleep_ms"] = sum(sum(v) for v in long_sleep.values())
         row["max_err_over_tol"] = worst
+        row["levels"] = levels
     return row
 
 
@@ -3906,7 +3941,9 @@ def train_rows(trained, k1_row, k2_row):
     for kind, name in (("dx", "subm_ext_conv_dx"),
                        ("dw", "subm_ext_weight_grad")):
         row = {"name": name, "route": "cuda",
-               "source": "coocc_tpu_torch/csrc/subm_conv_bwd.cuh",
+               "source": ("coocc_tpu_torch/csrc/subm_conv_bwd.cuh"
+                          if kind == "dx" else
+                          "coocc_tpu_torch/csrc/subm_conv_dw.cuh"),
                "replaces": vjp, "launches": flag["launches"][name],
                **{k: v for k, v in flag[kind].items()
                   if k != "launches_per_step"},

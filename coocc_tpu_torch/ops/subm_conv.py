@@ -53,9 +53,10 @@ the operands' dtype. Here, with dY the masked cotangent:
     the cells in fp32 and rounded once to the activations' dtype (as JAX's
     conv transpose rounds it), then folded back onto the 27 taps in fp32
     (`gather_taps_transpose`): `subm_ext_weight_grad`, the kernel
-    `subm_ext_weight_grad_kernel` (`subm_weight_grad.cu`), units of
-    `dw_units` over the cell splits of `dw_splits`, then its reduce in a
-    fixed order.
+    `subm_ext_weight_grad_kernel` of csrc/subm_conv_dw.cuh (built as
+    `subm_weight_grad.cu`; wgmma, 4 K-blocks' x^T by a 32-column window
+    of the tap-shifted cotangent a warpgroup), units of `dw_units` over
+    the cell splits of `dw_splits`, then its reduce in a fixed order.
 
 On the CPU both take the plain versions (`subm_ext_conv_dx_plain`,
 `subm_ext_weight_grad_plain`): the autograd of an fp32 ext conv of the
@@ -361,13 +362,15 @@ def weight_panels(w27: torch.Tensor, p: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 DX_MAX_KB = 24        # K-blocks feeding one column group of the dX kernel
-DW_KB = 4             # K-blocks of a dW unit (a warp per K-block and piece)
-DW_PIECE = 16         # output columns of a dW piece (a unit owns two)
-DW_PAIR = 9 * KB * DW_PIECE    # fp32 partial sums of one (K-block, piece)
+DW_COLS = 32          # output columns of a dW window (the kernel's wgmma N)
+DW_MAX_KB = 6         # x tiles (K-blocks) a dW unit lands
+DW_MAX_WIN = 2        # dy windows a dW unit lands
+DW_ACC = 9 * 64 * DW_COLS    # fp32 sums of one consumer warpgroup
+DW_ROW = 44           # ints of a unit's host row (csrc/subm_conv_dw.cuh)
 # tiles a split of the dW kernel sums: a rule of the shapes alone (not of
-# the card's SM count). 40-75 tiles a split timed best at every train level
-# on an H100 (tools/k2_backward.py's levels, splits of 132 to 2,112 blocks)
-DW_TILES_PER_SPLIT = 48
+# the card's SM count). 64 timed best summed over every train level on an
+# H100 in two runs of tools/k2_backward.py --tps (24 to 96)
+DW_TILES_PER_SPLIT = 64
 
 
 def dx_groups(p: int, C: int, Co: int):
@@ -443,37 +446,71 @@ def dx_weight_panels(w27: torch.Tensor, p: int) -> torch.Tensor:
         _dx_taps_on(p, C, Co, str(w27.device))]
 
 
+def dw_windows(p: int, C: int, Co: int):
+    """For each 32-column window of the p*Co output columns, the K-blocks
+    of `kblocks` (by index) whose column window meets it."""
+    return [[i for i, (_, _, c0, w) in enumerate(kblocks(p, C, Co))
+             if c0 < j + DW_COLS and j < c0 + w]
+            for j in range(0, p * Co, DW_COLS)]
+
+
 def dw_units(p: int, C: int, Co: int):
-    """The dW kernel's units: for each pair of 16-column pieces (j0,
-    j0 + 1) of the p*Co output columns, the K-blocks of `kblocks` whose
-    window meets it, as (K-block index, lane, pack offset, mask of the two
-    pieces it meets), cut into runs of at most DW_KB as even as can be.
-    -> [(j0, rows)]; every nonzero (K-block, piece) pair is in exactly one
-    unit."""
-    units = []
-    for j0 in range(0, p * Co // DW_PIECE, 2):
-        rows = []
-        for i, (lane, dg, col0, w) in enumerate(kblocks(p, C, Co)):
-            mask = sum(1 << q for q in range(2)
-                       if col0 <= (j0 + q) * DW_PIECE < col0 + w)
-            if mask:
-                rows.append((i, lane, dg, mask))
-        n = -(-len(rows) // DW_KB)
-        cuts = [len(rows) * k // n for k in range(n + 1)]
-        units += [(j0, rows[a:b]) for a, b in zip(cuts, cuts[1:])]
+    """The dW kernel's units, a block each: (x tiles, windows, warpgroups)
+    with the x tiles K-block indices of `kblocks` (at most DW_MAX_KB), the
+    windows first output columns (at most 2), and each of the two consumer
+    warpgroups a (window index, x tile of each of its 4 warps or -1). A
+    warpgroup multiplies its K-blocks' 64 lanes by its window's 32 columns;
+    every nonzero (K-block, window) pair is in exactly one warpgroup. Two
+    windows with the same K-blocks (p <= 2) share each run of 4 K-blocks;
+    two whose K-blocks are 4 or fewer each and 6 or fewer together (p = 8)
+    share one unit; else (p = 4) a window's K-blocks go 6 at a time, 4 to
+    the first warpgroup and the rest to the second."""
+    wins = dw_windows(p, C, Co)
+
+    def slots(kbs, run):
+        return [kbs.index(i) for i in run] + [-1] * (4 - len(run))
+    units, j = [], 0
+    while j < len(wins):
+        a = wins[j]
+        b = wins[j + 1] if j + 1 < len(wins) else None
+        cols = [j * DW_COLS, (j + 1) * DW_COLS]
+        if a == b:
+            for r in range(0, len(a), 4):
+                run = a[r:r + 4]
+                units.append((run, cols, [(0, slots(run, run)),
+                                          (1, slots(run, run))]))
+            j += 2
+        elif (b is not None and len(a) <= 4 and len(b) <= 4
+              and len(set(a) | set(b)) <= DW_MAX_KB):
+            kbs = sorted(set(a) | set(b))
+            units.append((kbs, cols, [(0, slots(kbs, a)), (1, slots(kbs, b))]))
+            j += 2
+        else:
+            for r in range(0, len(a), DW_MAX_KB):
+                run = a[r:r + DW_MAX_KB]
+                units.append((run, cols[:1], [(0, slots(run, run[:4])),
+                                              (0, slots(run, run[4:]))]))
+            j += 1
     return units
 
 
 @functools.lru_cache(maxsize=16)
 def _dw_table(p: int, C: int, Co: int) -> np.ndarray:
-    """dw_units() as the kernel's host table: int32 rows of (j0, K-blocks,
-    then DW_KB x (K-block index, lane, pack offset, piece mask))."""
+    """dw_units() as the kernel's host table: int32 rows of DW_ROW in
+    csrc/subm_conv_dw.cuh's DwUnit layout (x tiles, windows, each window's
+    first column, each warpgroup's window and x tile a warp, then each x
+    tile's extended K-block, x lane, pack offset and nonzero columns)."""
+    blocks = kblocks(p, C, Co)
     units = dw_units(p, C, Co)
-    table = np.zeros((len(units), 2 + 4 * DW_KB), np.int32)
-    for u, (j0, rows) in enumerate(units):
-        table[u, :2] = (j0, len(rows))
-        for k, row in enumerate(rows):
-            table[u, 2 + 4 * k:6 + 4 * k] = row
+    table = np.zeros((len(units), DW_ROW), np.int32)
+    for u, (kbs, cols, wgs) in enumerate(units):
+        row = [len(kbs), len(cols), *cols, *[0] * (DW_MAX_WIN - len(cols)),
+               *[w for w, _ in wgs], *[x for _, xs in wgs for x in xs]]
+        fields = [(i, *blocks[i][:3], blocks[i][2] + blocks[i][3])
+                  for i in kbs]
+        for f in zip(*fields):
+            row += [*f, *[0] * (DW_MAX_KB - len(kbs))]
+        table[u] = row
     return np.ascontiguousarray(table)
 
 
@@ -482,12 +519,12 @@ def dw_tiles(G: int, X: int, Y: int) -> int:
     return G * -(-X // 16) * -(-Y // 16)
 
 
-def dw_splits(T: int) -> int:
-    """How many ranges the dW kernel cuts T tiles into (split s takes
-    tiles T*s // S .. T*(s+1) // S - 1 and sums them in order): a rule of
-    the shapes alone, so the sums' order, and the result, are the same on
-    every card and every run."""
-    return max(1, -(-T // DW_TILES_PER_SPLIT))
+def dw_splits(T: int, per: int = DW_TILES_PER_SPLIT) -> int:
+    """How many ranges the dW kernel cuts T tiles into, at most `per`
+    tiles each (split s takes tiles T*s // S .. T*(s+1) // S - 1 and sums
+    them in order): a rule of the shapes alone, so the sums' order, and
+    the result, are the same on every card and every run."""
+    return max(1, -(-T // per))
 
 
 # ---------------------------------------------------------------------------
@@ -567,18 +604,20 @@ def subm_ext_conv_dx(dy_pb: torch.Tensor, w27: torch.Tensor,
 subm_ext_conv_dx.launches = 0
 
 
-def subm_ext_weight_grad(x_pb: torch.Tensor, dy_pb: torch.Tensor,
-                         p: int) -> torch.Tensor:
+def subm_ext_weight_grad(x_pb: torch.Tensor, dy_pb: torch.Tensor, p: int,
+                         tiles_per_split: int = DW_TILES_PER_SPLIT
+                         ) -> torch.Tensor:
     """dW [27, C, Co] fp32 of the SubM conv of x_pb [B, bz, X, Y, p*C]
     given the masked cotangent dy_pb [B, bz, X, Y, p*Co] (see the module
     note). A CPU tensor takes `subm_ext_weight_grad_plain`; a CUDA tensor
     launches the dW kernel and its reduce (counted in
-    `subm_ext_weight_grad.launches`) or raises; both fold the extended
-    gradient onto the taps with `gather_taps_transpose`."""
+    `subm_ext_weight_grad.launches`) over the splits of `dw_splits(...,
+    tiles_per_split)` or raises; both fold the extended gradient onto the
+    taps with `gather_taps_transpose`."""
     if x_pb.device.type == "cpu":
         return subm_ext_weight_grad_plain(x_pb, dy_pb, p)
     C, Co = x_pb.shape[-1] // p, dy_pb.shape[-1] // p
-    g = _launch_dw(x_pb, dy_pb, p)
+    g = _launch_dw(x_pb, dy_pb, p, tiles_per_split)
     subm_ext_weight_grad.launches += 1
     return gather_taps_transpose(g, subm_ext_table(p), C, Co)
 
@@ -724,8 +763,8 @@ def dy_parts(dy_pb: torch.Tensor):
     return parts
 
 
-def _launch_dw(x_pb: torch.Tensor, dy_pb: torch.Tensor,
-               p: int) -> torch.Tensor:
+def _launch_dw(x_pb: torch.Tensor, dy_pb: torch.Tensor, p: int,
+               tiles_per_split: int) -> torch.Tensor:
     """Check the inputs and launch the dW kernel and its reduce on the
     card (or raise). -> the extended weight's gradient [3, 3, (p+2)C,
     p*Co], each element rounded to the activations' dtype and held in fp32
@@ -738,8 +777,7 @@ def _launch_dw(x_pb: torch.Tensor, dy_pb: torch.Tensor,
         raise ValueError("subm_ext_weight_grad: x_pb and dy_pb must share "
                          "their device, dtype and leading shape")
     C, Co = pC // p, L // p
-    if pC % p or L != N_LANES or p * Co != L or C % KB or (
-            (p + 2) * C // KB > 64):
+    if pC % p or L != N_LANES or p * Co != L or C % KB:
         raise ValueError(f"subm_ext_weight_grad: the kernel needs p*Co = "
                          f"{N_LANES}, C a multiple of {KB}; got x_pb "
                          f"{tuple(x_pb.shape)}, dy_pb {tuple(dy_pb.shape)}, "
@@ -747,13 +785,13 @@ def _launch_dw(x_pb: torch.Tensor, dy_pb: torch.Tensor,
     E = (p + 2) * C
     table = _dw_table(p, C, Co)
     G = B * bz
-    S = dw_splits(dw_tiles(G, X, Y))
+    S = dw_splits(dw_tiles(G, X, Y), tiles_per_split)
     gw = torch.zeros((3, 3, E, L), dtype=torch.float32, device=x_pb.device)
     if x_pb.numel() == 0:
         return gw
     xb = x_pb.to(torch.bfloat16)
     parts = dy_parts(dy_pb)
-    partials = torch.empty(len(parts) * S * len(table) * 2 * DW_KB * DW_PAIR,
+    partials = torch.empty(len(parts) * S * len(table) * 2 * DW_ACC,
                            dtype=torch.float32, device=x_pb.device)
     ptrs = [t.data_ptr() for t in parts] + [0] * (3 - len(parts))
     err = _dw_launcher()(

@@ -1,7 +1,8 @@
 """K2's backward kernels (csrc/subm_conv_bwd.cuh) on one NVIDIA card at the
 train steps' level shapes; run it from the repository's root:
 
-    python -m coocc_tpu_torch.tools.k2_backward [--quick]
+    python -m coocc_tpu_torch.tools.k2_backward [--quick] [--tps N,N,...]
+        [--train CONFIG]
 
 Compiles the three backward sources with `nvcc -Xptxas -v` and prints
 ptxas's register and spill lines and any "serialized" wgmma warning. Then,
@@ -17,7 +18,13 @@ on the concatenated input under the train step's deterministic cuDNN
 flags and under the defaults (the concat not counted). Sums each per step
 by the level's calls, with the bound (`chip_smoke.py:k2_bwd_work`). fp32
 is checked at the flagship's levels. `--quick` checks one small ragged
-shape per packing and times nothing.
+shape per packing and times nothing. `--tps 32,48,64` also times dW at
+every level with each of those tiles a split (`tiles_per_split` of
+`subm_ext_weight_grad`, the shape-only rule of `dw_splits`), each held bit-equal to itself.
+`--train CONFIG` times dW on each call of one of that config's bf16 train
+steps (`chip_smoke.py:train_k2_calls`) as `chip_smoke.py` times it, then
+behind a sleep kernel ten times as long, on copies of the call's inputs
+and on random inputs of its shape, beside the wrapper's host ms.
 """
 from __future__ import annotations
 
@@ -56,8 +63,8 @@ def ptxas_report():
             capture_output=True, text=True)
         print(f"nvcc {name}.cu: rc {proc.returncode}", flush=True)
         for ln in (proc.stdout + proc.stderr).splitlines():
-            if any(w in ln for w in ("serialized", "registers", "error",
-                                     "spill")):
+            if any(w in ln for w in ("Compiling entry", "serialized",
+                                     "registers", "error", "spill")):
                 print(f"  {ln}")
         if proc.returncode:
             raise SystemExit(proc.stdout + proc.stderr)
@@ -134,6 +141,82 @@ def times(cs, x, dy, w27, p):
     return ms
 
 
+def tune_splits(cs, gen, tps):
+    """ms of one dW call at every level for each tiles-a-split value."""
+    seen = set()
+    for name, levels in LEVELS.items():
+        for shape, p, _ in levels:
+            if (shape, p) in seen:
+                continue
+            seen.add((shape, p))
+            x, dy, _ = inputs(cs, gen, shape, p, torch.bfloat16)
+            out = []
+            for n in tps:
+                def run():
+                    return k2.subm_ext_weight_grad(x, dy, p, n)
+                again = torch.equal(run(), run())
+                ms = cs.timed_ms(run, 3)
+                S = k2.dw_splits(k2.dw_tiles(shape[0] * shape[1], shape[2],
+                                             shape[3]), n)
+                out.append(f"{n}: {ms:.4f} (S {S}"
+                           f"{'' if again else ', DIFFERS'})")
+            print(f"dW {shape} p={p} ms by tiles a split: "
+                  + ", ".join(out), flush=True)
+            del x, dy
+            torch.cuda.empty_cache()
+
+
+def train_probe(cs, name):
+    """dW's ms on every call of one bf16 train step of config `name`."""
+    from coocc_tpu_torch.config import get_config
+    from coocc_tpu_torch.data.synthetic import synthetic_batch
+    from coocc_tpu_torch.entry import train_steps
+    cfg = get_config(name)
+    trainer, _ = train_steps(cfg, 1, "cuda")
+    batch = synthetic_batch(cfg, batch_size=1, seed=1).to("cuda")
+    calls = cs.train_k2_calls(trainer, batch)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def long_ms(fn):
+        ts = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(20_000_000)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+        return sorted(ts)[1]
+    for i, j in calls["dw"]:
+        x, _, p = calls["fwd"][i][:3]
+        x, dy = x.cuda(), calls["dx"][j][0].cuda()
+        shape = tuple(x.shape)
+        blocks = len(k2._dw_table(p, x.shape[-1] // p, 128 // p)) * \
+            k2.dw_splits(k2.dw_tiles(shape[0] * shape[1], *shape[2:4]))
+
+        def on(a, b):
+            return lambda: k2.subm_ext_weight_grad(a, b, p)
+        run = on(x, dy)
+        run()
+        ms = {"as_chip_smoke": cs.timed_ms(run, 3), "long_sleep":
+              long_ms(run), "host": cs.host_ms(lambda _: run(), range(3))}
+        cs.k2_dw_check(x, dy, p)
+        ms["after_check"] = cs.timed_ms(run, 3)
+        xc, dyc = x.clone(), dy.clone()
+        ms["copies"] = cs.timed_ms(on(xc, dyc), 3)
+        xr, dyr, _ = inputs(cs, gen, shape, p, x.dtype)
+        ms["random"] = cs.timed_ms(on(xr, dyr), 3)
+        print(f"{name} train dW {shape} p={p} {str(x.dtype)[6:]}/"
+              f"{str(dy.dtype)[6:]} strides {x.stride()}/{dy.stride()} "
+              f"{blocks} blocks on {sms} SMs, ms: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+        del x, dy, xc, dyc, xr, dyr
+        torch.cuda.empty_cache()
+
+
 def main():
     import chip_smoke as cs   # the repository's root, as `python -m` runs
     if not torch.cuda.is_available():
@@ -150,6 +233,12 @@ def main():
     torch.cuda.empty_cache()
     if "--quick" in sys.argv:
         return
+    if "--train" in sys.argv:
+        train_probe(cs, sys.argv[sys.argv.index("--train") + 1])
+        return
+    if "--tps" in sys.argv:
+        arg = sys.argv[sys.argv.index("--tps") + 1]
+        tune_splits(cs, gen, [int(v) for v in arg.split(",")])
     for shape, p, _ in LEVELS["coocc_multi_r50_256x704"]:
         check(cs, gen, shape, p, torch.float32)
         torch.cuda.empty_cache()

@@ -410,11 +410,13 @@ def test_temporal_concat_matches_jax(detach):
     geo = ((0.5, 0.5), (-1.5, -1.5))
     cot = rs.randn(1, 6, 6, 2, 8).astype(np.float32)
     jm = jtemporal.TemporalBEVConcat(detach=detach)
-    v = jm.init(jax.random.PRNGKey(0), curr, prev, *poses, *geo)
+    # jitted: flax's eager init and apply dispatch every op on its own
+    v = jax.jit(lambda c, p: jm.init(jax.random.PRNGKey(0), c, p, *poses,
+                                     *geo))(curr, prev)
 
     def f(c, p):
         return jm.apply(v, c, p, *(jnp.asarray(a) for a in poses), *geo)
-    ref, vjp = jax.vjp(f, jnp.asarray(curr), jnp.asarray(prev))
+    ref, vjp = jax.vjp(jax.jit(f), jnp.asarray(curr), jnp.asarray(prev))
     _, gprev = vjp(jnp.asarray(cot))
     tprev = _cf(prev).requires_grad_()
     got = temporal.TemporalBEVConcat(detach=detach)(

@@ -43,6 +43,7 @@ from coocc_tpu_torch.entry import build_model, init_flax
 from coocc_tpu_torch.models.coocc_ray import CoOccRay
 from coocc_tpu_torch.nn.sparse_enc_dense import SpConvWeight
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 
 def test_state_dict_round_trip():
@@ -234,8 +235,9 @@ def test_enc4x_names_round_trip_jax_scopes():
     grid, A = (16, 16, 8), 64
     sp = JaxSparseTensor(jnp.full((1, A), 16 * 16 * 8, jnp.int32),
                          jnp.zeros((1, A, 4)), jnp.zeros((1, A), bool))
-    variables = jax.tree.map(np.asarray, dict(JaxEnc4x(
-        sparse_shape_xyz=grid, capacity=A).init(jax.random.PRNGKey(1), sp)))
+    # jitted: flax's eager init dispatches every op of the encoder
+    variables = jax.tree.map(np.asarray, dict(jax.jit(JaxEnc4x(
+        sparse_shape_xyz=grid, capacity=A).init)(jax.random.PRNGKey(1), sp)))
     # state_dict_from_jax's writer for the encoder's subtree
     w = _Writer({c: {"enc": variables[c]}
                  for c in ("params", "batch_stats")})

@@ -47,6 +47,7 @@ from coocc_tpu_torch.data.pipelines import load_occupancy as tocc
 from coocc_tpu_torch.data.pipelines import loading_bevdet as tbev
 from coocc_tpu_torch.data.synthetic import tiny_config
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 CAMS = ("CAM_A", "CAM_B")
 N_TRAIN, N_VAL = 6, 3

@@ -35,6 +35,7 @@ from coocc_tpu_torch.evaluation import formatting as fmt
 from coocc_tpu_torch.evaluation import ssc_metrics as sm
 from coocc_tpu_torch.nn.occ_head import forward_lidarseg
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 C = 17
 COARSE, FINE = (20, 20, 4), (40, 40, 8)

@@ -15,6 +15,7 @@ from coocc_tpu_torch.ops.gather import gather_rows
 from coocc_tpu_torch.ops.lift_splat import lift_splat
 from coocc_tpu_torch.ops.voxelize import linearize
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 BOUNDS = ((-4.0, 4.0, 1.0), (-4.0, 4.0, 1.0), (-2.0, 2.0, 1.0))
 

@@ -48,6 +48,7 @@ from coocc_tpu_torch.nn.layers import softmax
 from coocc_tpu_torch.nn.nerf_mlp import NeRFMLP
 from coocc_tpu_torch.train.state import Optimizer
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 RS = np.random.RandomState(0)
 LOGITS = RS.randn(2, 6, 5, 4, 17).astype(np.float32) * 2
@@ -156,9 +157,9 @@ def test_compute_losses_matches_jax(loss_norm):
         L = jax_compute_losses({**dict(zip(keys, vals)), **{
             k: jnp.asarray(v) for k, v in fixed.items()}}, jb, jcfg)
         return sum(v for k, v in L.items() if k.startswith("loss")), L
-    (jv, jL), jg = jax.value_and_grad(jl, argnums=tuple(range(len(keys))),
-                                      has_aux=True)(
-        *(jnp.asarray(ins[k]) for k in keys))
+    (jv, jL), jg = jax.jit(jax.value_and_grad(
+        jl, argnums=tuple(range(len(keys))), has_aux=True))(
+            *(jnp.asarray(ins[k]) for k in keys))
     ts = {k: torch.from_numpy(v).requires_grad_() for k, v in ins.items()}
     L = compute_losses({**ts, **{k: torch.from_numpy(v)
                                  for k, v in fixed.items()}}, tb, cfg)
@@ -236,7 +237,7 @@ def test_renderer_matches_jax_with_gradients():
         r, d = jrenderer.FrustumRenderer(cfg, scale=16).apply(
             {"params": params}, v, jnp.asarray(geom))
         return jnp.mean((r - tgt) ** 2) + jnp.mean((d - tgd) ** 2)
-    jv, (jg, jgv) = jax.value_and_grad(jl, argnums=(0, 1))(
+    jv, (jg, jgv) = jax.jit(jax.value_and_grad(jl, argnums=(0, 1)))(
         b.params, jnp.asarray(vf))
     tv = torch.from_numpy(vf).requires_grad_()
     r, d = renderer.render(sig, rgbh, tiny_config().render, tv,

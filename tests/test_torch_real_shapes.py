@@ -74,6 +74,7 @@ from coocc_tpu_torch.config import get_config
 from coocc_tpu_torch.data.synthetic import synthetic_batch
 from coocc_tpu_torch.entry import FLAGSHIP
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 OPENOCC = "coocc_multi_r101_openoccupancy"
 LIDAR = "coocc_lidar"

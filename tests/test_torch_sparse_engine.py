@@ -44,6 +44,7 @@ from coocc_tpu_torch.ops import sparse_conv as sc
 from coocc_tpu_torch.ops.conv import conv
 from coocc_tpu_torch.ops.voxelize import voxelize
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 REL = 1e-5
 BF16_ULP = 2.0 ** -7
@@ -60,6 +61,17 @@ def _sparse(seed, grid, n_active, C, capacity):
             np.concatenate([rng.randn(n_active, C),
                             np.zeros((pad, C))]).astype(np.float32),
             np.arange(capacity) < n_active)
+
+
+# jitted: each of JAX's site and rulebook builders compiles as one program
+# (called eagerly, it dispatches every op on its own)
+_jax_subm_rulebook = jax.jit(jsc.build_subm_rulebook, static_argnums=(1,))
+_jax_downsample_sites = jax.jit(jsc.downsample_sites,
+                                static_argnums=(1, 2, 3),
+                                static_argnames=("padding",))
+_jax_strided_rulebook = jax.jit(jsc.build_strided_rulebook,
+                                static_argnums=(3, 4),
+                                static_argnames=("padding",))
 
 
 def _jax_sp(ids, feats, mask):
@@ -90,8 +102,7 @@ def _close(got, ref, rel=REL):
     ((256, 256, 64), 3000, 3200)])  # 4.19M cells: binary search
 def test_subm_rulebook_equals_jax(grid, n_active, capacity):
     ids, feats, mask = _sparse(0, grid, n_active, 2, capacity)
-    ref = np.asarray(jsc.build_subm_rulebook(_jax_sp(ids, feats, mask),
-                                             grid))
+    ref = np.asarray(_jax_subm_rulebook(_jax_sp(ids, feats, mask), grid))
     got = sc.build_subm_rulebook(*_t(ids, mask), grid).numpy()
     np.testing.assert_array_equal(got, ref)
 
@@ -111,10 +122,10 @@ def _sites_both(case, seed=1):
     out_grid = sc.conv_output_shape(grid, 3, 2, pad)
     ids, feats, mask = _sparse(seed, grid, n_active, 3, cap)
     jsp = _jax_sp(ids, feats, mask)
-    j_ids, j_mask = jsc.downsample_sites(jsp, grid, out_grid, out_cap,
-                                         padding=pad)
-    j_rb = jsc.build_strided_rulebook(jsp, j_ids, j_mask, grid, out_grid,
-                                      padding=pad)
+    j_ids, j_mask = _jax_downsample_sites(jsp, grid, out_grid, out_cap,
+                                          padding=pad)
+    j_rb = _jax_strided_rulebook(jsp, j_ids, j_mask, grid, out_grid,
+                                 padding=pad)
     t_ids, t_mask, n = sc.downsample_sites(*_t(ids, mask), grid, out_grid,
                                            out_cap, padding=pad)
     t_rb = sc.build_strided_rulebook(*_t(ids, mask), t_ids, t_mask, grid,
@@ -145,7 +156,7 @@ def test_apply_conv_and_grads_match_jax(kind):
         grid = (8, 7, 6)
         ids, feats, mask = _sparse(2, grid, 120, 5, 140)
         jsp = _jax_sp(ids, feats, mask)
-        j_rb = jsc.build_subm_rulebook(jsp, grid)
+        j_rb = _jax_subm_rulebook(jsp, grid)
         t_rb = sc.build_subm_rulebook(*_t(ids, mask), grid)
         out_mask = mask
     else:

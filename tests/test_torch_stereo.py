@@ -39,6 +39,7 @@ JAX's compiles run in threads beside the port's work
 (tests/test_torch_train_configs.py's pattern).
 """
 import dataclasses
+import functools
 from concurrent.futures import ThreadPoolExecutor
 
 import flax.linen as fnn
@@ -304,8 +305,10 @@ def test_reused_module_matches_jax_at_2_and_6_cameras(name, train,
         kw = {"train": train} if name in ("BasicBlock2D", "ASPP") else {}
         if name == "bn":
             kw = {"use_running_average": not train}
-        ref = jmod.apply(variables, *map(jnp.asarray, args),
-                         mutable=["batch_stats"] if train else False, **kw)
+        # jitted: flax's eager apply dispatches every op of the module
+        ref = jax.jit(functools.partial(
+            jmod.apply, mutable=["batch_stats"] if train else False, **kw))(
+                variables, *map(jnp.asarray, args))
         ref = np.asarray(ref[0] if train else ref)
         with torch.no_grad():
             got = mod(*targs).numpy()

@@ -2,22 +2,26 @@
 
 The dX kernel (`subm_ext_conv_dx`, csrc/subm_conv_bwd.cuh) keeps a column
 group's weight panels in shared memory at p >= 4; the dW kernel
-(`subm_ext_weight_grad`) sums units of (K-block, 16-column piece) pairs
-over shape-only splits of the cells and reduces the splits in order. Both
-run only on the card, where chip_smoke.py holds them against their plain
-versions. Here, on the CPU:
+(`subm_ext_weight_grad`, csrc/subm_conv_dw.cuh) has warpgroups multiply 4
+K-blocks' x^T by a 32-column window of the tap-shifted cotangent (wgmma
+m64n96k16), in units of two warpgroups, over shape-only splits of the
+cells, and reduces the splits in order. Both run only on the card, where
+chip_smoke.py holds them against their plain versions. Here, on the CPU:
 
   * the dX tables hold exactly the nonzero blocks of JAX's
     `_subm_ext_weight` of the mirrored taps, group by group, address the
     lanes JAX's `_shift_ext` builds, and the conv they describe (each
     group's K-blocks against its panels, as the kernel walks them) is the
     plain dX;
-  * the dW units cover every nonzero (K-block, piece) pair of JAX's
-    extended weight once, the splits cover every tile once and depend on
-    the shapes alone, and a numpy walk of the kernel's loops (x tiles at
-    the carries' packs, dy halos zero outside the grid, the split
-    partials summed in order) gives the plain dW; the fp32 cotangent's
-    three bf16 parts sum to it exactly;
+  * the dW units keep to the kernel's limits, their warpgroups cover
+    every nonzero (extended lane, column) element of JAX's extended weight
+    once and the reduce writes no other (at every level's shape, and at
+    three with C != Co that the kernel also takes), the splits cover every tile once
+    and depend on the shapes alone, and a numpy walk of the kernel's loops
+    (x tiles at the carries' packs, dy halos zero outside the grid, the
+    warpgroups' 64 x 32 sums a tap, the split partials summed in order)
+    gives the plain dW; the fp32 cotangent's three bf16 parts sum to it
+    exactly;
   * the wrappers take the plain versions on CPU tensors, leave their
     launch counters at 0, and raise on any other device (no fallback).
 """
@@ -29,15 +33,21 @@ import torch
 from coocc_tpu.nn import sparse_enc_packed as jpk
 
 from coocc_tpu_torch.ops.subm_conv import (
-    DW_KB, DW_PIECE, DW_TILES_PER_SPLIT, KB, N_LANES, _dx_index, _dx_table,
-    _dw_table, dw_splits, dw_tiles, dw_units, dx_groups,
+    DW_COLS, DW_MAX_KB, DW_MAX_WIN, DW_ROW, DW_TILES_PER_SPLIT, KB,
+    N_LANES, _dx_index, _dx_table, _dw_table, dw_splits, dw_tiles, dw_units,
+    dw_windows, dx_groups,
     dx_weight_panels,
     dy_parts, flip_taps, kblocks, shift_ext, subm_conv, subm_ext_conv_dx,
     subm_ext_conv_dx_plain, subm_ext_table, subm_ext_weight,
     subm_ext_weight_grad, subm_ext_weight_grad_plain)
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 PACKINGS = [1, 2, 4, 8]      # p, with C = Co = 128 / p as in every level
+# (p, C, Co) for the dW tables: every level's, and shapes the dW kernel
+# also takes (p*Co = 128, C a multiple of 16, p*C whole 128-lane rows)
+DW_SHAPES = [(p, N_LANES // p, N_LANES // p) for p in PACKINGS] + [
+    (8, 32, 16), (4, 64, 32), (2, 128, 64)]
 
 
 def _split_ranges(T, S):
@@ -167,32 +177,76 @@ def test_dx_walk_is_the_plain_dx(p):
 # dW
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("p", PACKINGS)
-def test_dw_units_cover_every_nonzero_pair_once(p):
-    """Every (K-block, 16-column piece) pair where JAX's extended weight
-    is not a structural zero lies in exactly one unit, with the K-block's
-    lane and pack offset of `kblocks`; a unit has at most DW_KB K-blocks
-    and owns two pieces; no unit holds a zero pair as used."""
-    C = N_LANES // p
-    w27 = np.random.RandomState(p).randn(27, C, C).astype(np.float32) + 3
+@pytest.mark.parametrize("p,C,Co", DW_SHAPES)
+def test_dw_units_keep_to_the_kernels_limits(p, C, Co):
+    """Each unit lands at most DW_MAX_KB x tiles and DW_MAX_WIN windows of
+    DW_COLS whole 8-column chunks inside the 128 output lanes; each
+    warpgroup reads one of its windows and x tiles it lands, each once (the
+    second may have none); at most 16 units; the host rows are DwUnit's layout with the K-blocks of
+    `kblocks` (extended index, lane, pack offset, window)."""
+    blocks = kblocks(p, C, Co)
+    units = dw_units(p, C, Co)
+    table = _dw_table(p, C, Co)
+    assert table.shape == (len(units), DW_ROW) and 1 <= len(units) <= 16
+    for row, (kbs, cols, wgs) in zip(table, units):
+        assert 1 <= len(kbs) <= DW_MAX_KB and 1 <= len(cols) <= DW_MAX_WIN
+        assert len(set(kbs)) == len(kbs) and len(wgs) == 2
+        assert all(c % 8 == 0 and 0 <= c <= N_LANES - DW_COLS for c in cols)
+        for w, xs in wgs:
+            assert 0 <= w < len(cols) and len(xs) == 4
+            used = [x for x in xs if x >= 0]
+            assert len(set(used)) == len(used)
+            assert all(x < len(kbs) for x in used)
+        assert max(wgs[0][1]) >= 0
+        n, m = len(kbs), len(cols)
+        assert list(row[:4]) == [n, m, *cols, *[0] * (DW_MAX_WIN - m)]
+        assert list(row[4:14]) == [w for w, _ in wgs] + [x for _, xs in wgs
+                                                         for x in xs]
+        fields = row[14:].reshape(5, DW_MAX_KB)[:, :n]
+        for k, i in enumerate(kbs):
+            lane, dg, c0, w = blocks[i]
+            assert tuple(fields[:, k]) == (i, lane, dg, c0, c0 + w)
+
+
+@pytest.mark.parametrize("p,C,Co", DW_SHAPES)
+def test_dw_units_cover_every_nonzero_element_once(p, C, Co):
+    """Every (extended lane, output column) element of JAX's extended
+    weight that is not a structural zero is summed by exactly one
+    (unit, warpgroup, warp) whose window holds the column, and the reduce
+    (a warp's x tile and the column inside its K-block's nonzero columns)
+    writes exactly those elements; a K-block's lanes address JAX's
+    `_shift_ext` at its lane and pack offset."""
+    w27 = np.random.RandomState(p).randn(27, C, Co).astype(np.float32) + 3
     jw = np.asarray(jpk._subm_ext_weight(jnp.asarray(w27), p))
-    nz = np.abs(jw).reshape(9, -1, KB, N_LANES // DW_PIECE, DW_PIECE).sum(
-        axis=(0, 2, 4)) > 0                      # [K-blocks, pieces]
-    seen = np.zeros_like(nz, int)
-    blocks = kblocks(p, C, C)
-    table = _dw_table(p, C, C)
-    units = dw_units(p, C, C)
-    assert len(table) == len(units)
-    for u, (j0, rows) in enumerate(units):
-        assert 1 <= len(rows) <= DW_KB and j0 % 2 == 0
-        assert tuple(table[u, :2]) == (j0, len(rows))
-        for k, (i, lane, dg, mask) in enumerate(rows):
-            assert (lane, dg) == blocks[i][:2]
-            assert tuple(table[u, 2 + 4 * k:6 + 4 * k]) == (i, lane, dg, mask)
-            for q in range(2):
-                if mask >> q & 1:
-                    seen[i, j0 + q] += 1
-    np.testing.assert_array_equal(seen, nz.astype(int))
+    nz = (np.abs(jw).sum(axis=(0, 1)) > 0).astype(int)   # [E, 128]
+    seen = np.zeros_like(nz)
+    written = np.zeros_like(nz)
+    blocks = kblocks(p, C, Co)
+    for kbs, cols, wgs in dw_units(p, C, Co):
+        for w, xs in wgs:
+            c = cols[w]
+            for x in xs:
+                if x < 0:
+                    continue
+                i = kbs[x]
+                _, _, c0, width = blocks[i]
+                rows = slice(i * KB, (i + 1) * KB)
+                seen[rows, c:c + DW_COLS] += nz[rows, c:c + DW_COLS]
+                lo, hi = max(c, c0), min(c + DW_COLS, c0 + width)
+                written[rows, lo:hi] += 1
+    np.testing.assert_array_equal(seen, nz)
+    np.testing.assert_array_equal(written, nz)
+    x = np.random.RandomState(p).randn(2, 3, 4, 5, p * C).astype(np.float32)
+    ext = np.asarray(jpk._shift_ext(jnp.asarray(x), C))
+    for i, (lane, dg, _, _) in enumerate(blocks):
+        src = np.roll(x[..., lane:lane + KB], -dg, axis=1)
+        src[:, -1 if dg == 1 else 0] *= dg == 0
+        np.testing.assert_array_equal(ext[..., i * KB:(i + 1) * KB], src)
+    # each window's K-blocks are those whose nonzero columns meet it
+    for j, ks in enumerate(dw_windows(p, C, Co)):
+        meets = nz[:, j * DW_COLS:(j + 1) * DW_COLS].reshape(
+            -1, KB, DW_COLS).any(axis=(1, 2))
+        assert ks == list(np.flatnonzero(meets))
 
 
 @pytest.mark.parametrize("G,X,Y", [
@@ -215,12 +269,15 @@ def test_dw_splits_cover_every_tile_once_by_shape_alone(G, X, Y):
 
 def _dw_walk(x_pb, dy_pb, p):
     """The dW kernel's loops in numpy (float64 sums of the bf16-valued
-    operands, i.e. exact up to the final rounding): per unit and split,
-    each tile's x boxes (at the carries' packs, skipped at a sample's ends)
-    against the dy halo shifted by the tap (zero outside the grid), the
-    partials summed in split order into the extended gradient."""
+    operands, i.e. exact up to the final rounding): per unit, split and
+    warpgroup, each tile's A (its 4 warps' x tiles as 64 rows of lanes,
+    zero for a skipped carry or a warp without a K-block) against B (the
+    window's 32 columns of the dy halo at the tap's shifted sites, zero
+    outside the grid), one 64 x 32 sum a tap; then the reduce: the split
+    partials summed in order, kept where a warp's K-block is nonzero at
+    the column, into the extended gradient."""
     B, bz, X, Y, pC = x_pb.shape
-    C, G = pC // p, B * bz
+    C, Co, G = pC // p, N_LANES // p, B * bz
     E = (p + 2) * C
     xg = x_pb.double().numpy().reshape(G, X, Y, pC)
     dg_ = dy_pb.double().numpy().reshape(G, X, Y, N_LANES)
@@ -229,50 +286,61 @@ def _dw_walk(x_pb, dy_pb, p):
     xpad[:, :X, :Y] = xg
     dpad = np.zeros((G, Xp + 2, Yp + 2, N_LANES))
     dpad[:, 1:X + 1, 1:Y + 1] = dg_
-    units = dw_units(p, C, C)
+    blocks = kblocks(p, C, Co)
     T = dw_tiles(G, X, Y)
     S = dw_splits(T)
     ny = Yp // 16
     gw = np.zeros((9, E, N_LANES))
-    for j0, rows in units:
-        for t0, t1 in _split_ranges(T, S):
-            part = np.zeros((len(rows), 2, 9, KB, DW_PIECE))
-            for t in range(t0, t1):
-                g, x0, y0 = t % G, t // (G * ny) * 16, t // G % ny * 16
-                for k, (i, lane, dg, mask) in enumerate(rows):
-                    if (dg > 0 and g % bz == bz - 1) or (dg < 0 and
-                                                         g % bz == 0):
-                        continue
-                    xt = xpad[g + dg, x0:x0 + 16, y0:y0 + 16,
-                              lane:lane + KB].reshape(256, KB)
-                    for q in range(2):
-                        if not mask >> q & 1:
+    for kbs, cols, wgs in dw_units(p, C, Co):
+        for w, xs in wgs:
+            c = cols[w]
+            part = np.zeros((9, 64, DW_COLS))
+            for t0, t1 in _split_ranges(T, S):
+                acc = np.zeros((9, 64, DW_COLS))
+                for t in range(t0, t1):
+                    g, x0, y0 = t % G, t // (G * ny) * 16, t // G % ny * 16
+                    a = np.zeros((256, 64))
+                    for q, x in enumerate(xs):
+                        if x < 0:
                             continue
-                        c = (j0 + q) * DW_PIECE
-                        for kx in range(3):
-                            for ky in range(3):
-                                d = dpad[g, x0 + 2 - kx:x0 + 18 - kx,
-                                         y0 + 2 - ky:y0 + 18 - ky,
-                                         c:c + DW_PIECE].reshape(256, -1)
-                                part[k, q, 3 * kx + ky] += xt.T @ d
-            for k, (i, lane, dg, mask) in enumerate(rows):
-                for q in range(2):
-                    c = (j0 + q) * DW_PIECE
-                    gw[:, i * KB:(i + 1) * KB, c:c + DW_PIECE] += part[k, q]
+                        lane, dg = blocks[kbs[x]][:2]
+                        if (dg > 0 and g % bz == bz - 1) or (
+                                dg < 0 and g % bz == 0):
+                            continue
+                        a[:, 16 * q:16 * q + 16] = xpad[
+                            g + dg, x0:x0 + 16, y0:y0 + 16,
+                            lane:lane + KB].reshape(256, KB)
+                    for kx in range(3):
+                        for ky in range(3):
+                            b = dpad[g, x0 + 2 - kx:x0 + 18 - kx,
+                                     y0 + 2 - ky:y0 + 18 - ky,
+                                     c:c + DW_COLS].reshape(256, -1)
+                            acc[3 * kx + ky] += a.T @ b
+                part += acc
+            for q, x in enumerate(xs):
+                if x < 0:
+                    continue
+                i = kbs[x]
+                _, _, c0, width = blocks[i]
+                for n in range(DW_COLS):
+                    if c0 <= c + n < c0 + width:
+                        gw[:, i * KB:(i + 1) * KB, c + n] = \
+                            part[:, 16 * q:16 * q + 16, n]
     return gw.reshape(3, 3, E, N_LANES)
 
 
-@pytest.mark.parametrize("p", PACKINGS)
-def test_dw_walk_is_the_plain_dw(p):
+@pytest.mark.parametrize("p,C,Co", DW_SHAPES)
+def test_dw_walk_is_the_plain_dw(p, C, Co):
     """The kernel's walk gives the extended gradient of the plain version
     (the same bf16 products, other summation orders), folded by the same
     `gather_taps_transpose`."""
     from coocc_tpu_torch.ops.subm_conv import gather_taps_transpose
-    x, w27, dy = _case(p, bz=3, X=19, Y=35)
-    C = N_LANES // p
+    rng = np.random.RandomState(p + C)
+    x = _bf16_valued(rng, 1, 3, 19, 35, p * C)
+    dy = _bf16_valued(rng, 1, 3, 19, 35, p * Co)
     gw = _dw_walk(x, dy, p)
     got = gather_taps_transpose(torch.from_numpy(gw).float(),
-                                subm_ext_table(p), C, C)
+                                subm_ext_table(p), C, Co)
     ref = subm_ext_weight_grad_plain(x, dy, p)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
                                atol=1e-5 * float(ref.abs().max()))

@@ -46,6 +46,7 @@ from coocc_tpu_torch.ops.subm_conv import (KB, ZERO_TAP, BNAffine,
                                            subm_ext_conv_plain,
                                            subm_ext_weight, weight_panels)
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 SHAPES = [(1, 3, 12, 16, 32, 4), (2, 2, 9, 11, 64, 2),
           (1, 2, 10, 12, 128, 1), (1, 3, 10, 12, 16, 8)]

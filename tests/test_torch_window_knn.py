@@ -17,6 +17,7 @@ from golden_refs import window_knn_oracle_vec
 
 from coocc_tpu_torch.ops.window_knn import make_offsets, window_knn
 from torch_rng import keep_torch_rng  # noqa: F401 (autouse)
+from torch_rng import two_threads  # noqa: F401 (autouse)
 
 SHAPES = [(10, 9, 4), (20, 20, 8), (37, 23, 5)]
 RADII = [(4, 4, 3), (4, 4, 7), (6, 6, 7)]
